@@ -1,0 +1,152 @@
+"""Dataclass configs with CLI overrides, and the builders of live objects.
+
+Own copy of the generation-side configs of ``pointreggpt_tpu/config.py``
+(same fields and defaults, so the port's CLI takes the same flags), with
+builders that make the port's torch modules.
+"""
+
+from __future__ import annotations
+
+import argparse
+from dataclasses import dataclass, fields
+from typing import Optional, Tuple, Type, TypeVar
+
+import torch
+
+T = TypeVar("T")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """DiffusionUNet hyperparameters."""
+
+    dim: int = 64
+    param_cond_dim: int = 4
+    dim_mults: Tuple[int, ...] = (1, 2, 4, 8)
+    channels: int = 1
+    resnet_block_groups: int = 8
+    # dormant reference surface, off in every entry script; not ported yet
+    learned_variance: bool = False
+    learned_sinusoidal_cond: bool = False
+    random_fourier_features: bool = False
+    learned_sinusoidal_dim: int = 16
+    bf16: bool = True  # compute dtype on the card
+    remat: bool = False  # training-only; generation ignores it
+
+
+@dataclass(frozen=True)
+class MaskModelConfig:
+    """MaskUNet hyperparameters."""
+
+    dim: int = 64
+    dim_mults: Tuple[int, ...] = (1, 2, 4, 8)
+    resnet_block_groups: int = 8
+    bf16: bool = False  # fp32 default: mask thresholding at 0.99 is tight
+
+
+@dataclass(frozen=True)
+class DiffusionConfig:
+    """GaussianDiffusion hyperparameters."""
+
+    image_size: int = 256
+    timesteps: int = 1000
+    sampling_timesteps: int = 250
+    loss_type: str = "l1"
+    objective: str = "pred_x0"
+    beta_schedule: str = "sigmoid"
+    ddim_sampling_eta: float = 0.0
+    is_ddnm_sampling: bool = True
+    ddnm_sampling_dropout: float = 0.0
+    ddnm_dropout_schedule: str = "none"
+
+
+@dataclass(frozen=True)
+class GenerateConfig:
+    """Generator hyperparameters (generate_dataset.py)."""
+
+    data: str = "/path/to/3DMatch-RGBD/train"
+    dataset_name: str = "generated_dataset"
+    batch_size: int = 8
+    num_samples: int = 1
+    memory_voxel_size: float = 0.002
+    save_voxel_size: float = 0.025
+    has_refine_step: bool = False
+    memory_capacity: int = 1 << 18
+    train_info_path: str = "./dataset/indoor/metadata/train_info.pkl"
+    data_root: str = "./dataset/indoor/data"
+    results_folder: str = "./successive_ddnm_diffusion_results"
+    seed: int = 0
+
+
+def _parse_bool(s: str) -> bool:
+    """Strict boolean flag vocabulary: a typo is an argparse error."""
+    v = s.lower()
+    if v in ("1", "true", "yes"):
+        return True
+    if v in ("0", "false", "no"):
+        return False
+    raise argparse.ArgumentTypeError(
+        f"expected one of 1/0/true/false/yes/no, got {s!r}")
+
+
+def add_dataclass_args(parser: argparse.ArgumentParser, cls: Type[T],
+                       prefix: str = "",
+                       defaults: Optional[T] = None) -> None:
+    """Register every dataclass field as a ``--{prefix}{name}`` flag."""
+    base = defaults if defaults is not None else cls()
+    for f in fields(cls):
+        name = f"--{prefix}{f.name}"
+        default = getattr(base, f.name)
+        if isinstance(default, bool):
+            parser.add_argument(name, type=_parse_bool, default=default)
+        elif isinstance(default, tuple):
+            parser.add_argument(
+                name, type=lambda s: tuple(int(x) for x in s.split(",")),
+                default=default)
+        else:
+            parser.add_argument(name, type=type(default), default=default)
+
+
+def from_args(args: argparse.Namespace, cls: Type[T],
+              prefix: str = "") -> T:
+    return cls(**{f.name: getattr(args, f"{prefix}{f.name}")
+                  for f in fields(cls)})
+
+
+def _dtype(bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+def build_diffusion_unet(cfg: ModelConfig):
+    from pointreggpt_tpu_torch.models import DiffusionUNet
+
+    if cfg.learned_variance or cfg.learned_sinusoidal_cond or \
+            cfg.random_fourier_features:
+        raise ValueError("learned_variance and the learned/random Fourier "
+                         "time embeddings are not ported (and GaussianDiffu"
+                         "sion rejects them in the reference)")
+    return DiffusionUNet(dim=cfg.dim, param_cond_dim=cfg.param_cond_dim,
+                         dim_mults=cfg.dim_mults, channels=cfg.channels,
+                         resnet_block_groups=cfg.resnet_block_groups,
+                         dtype=_dtype(cfg.bf16))
+
+
+def build_mask_unet(cfg: MaskModelConfig):
+    from pointreggpt_tpu_torch.models import MaskUNet
+
+    return MaskUNet(dim=cfg.dim, dim_mults=cfg.dim_mults,
+                    resnet_block_groups=cfg.resnet_block_groups,
+                    dtype=_dtype(cfg.bf16))
+
+
+def build_diffusion(cfg: DiffusionConfig, channels: int = 1):
+    from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
+
+    return GaussianDiffusion(
+        image_size=cfg.image_size, channels=channels,
+        timesteps=cfg.timesteps, sampling_timesteps=cfg.sampling_timesteps,
+        objective=cfg.objective, beta_schedule=cfg.beta_schedule,
+        ddim_sampling_eta=cfg.ddim_sampling_eta,
+        is_ddnm_sampling=cfg.is_ddnm_sampling,
+        ddnm_sampling_dropout=cfg.ddnm_sampling_dropout,
+        ddnm_dropout_schedule=cfg.ddnm_dropout_schedule)

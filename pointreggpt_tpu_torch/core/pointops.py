@@ -1,0 +1,136 @@
+"""Voxel downsampling and the scene-memory update on torch tensors.
+
+Port of ``voxel_downsample`` and ``memory_voxel_update`` from
+``pointreggpt_tpu/core/pointops.py``. The JAX package built them
+scatter-free for the TPU (packed-key sort + segmented scan); on the GPU the
+plain route is a sort and ``index_add_`` sums:
+
+1. quantize with the Open3D origin (per-row min bound minus half a voxel);
+2. order the points by voxel ``(qx, qy, qz)`` with three stable sorts
+   (a lexsort, so no packed-key range limit), invalid points last;
+3. segment ids = cumsum of key changes (what ``unique_consecutive(...,
+   return_inverse=True)`` gives, without its host sync), then
+   ``index_add_`` sums of points and counts per segment.
+
+Nothing here reads a value back to the host, so a generation step stays
+asynchronous on the stream and the next step can be queued before the host
+writes the previous one.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+_SENTINEL = torch.iinfo(torch.int64).max
+
+
+def _quantize(points: Tensor, valid: Tensor, voxel_size: float) -> Tensor:
+    """(b, n, 3) -> (b, n, 3) int64 voxel indices, Open3D origin per row.
+    Invalid points get the sentinel so they sort last."""
+    big = torch.full_like(points, 1e30)
+    origin = torch.where(valid[..., None], points, big).amin(dim=1)
+    origin = origin - 0.5 * voxel_size
+    q = torch.floor((points - origin[:, None, :]) / voxel_size)
+    q = q.to(torch.int64)
+    return torch.where(valid[..., None], q, torch.full_like(q, _SENTINEL))
+
+
+def _voxel_segments(points: Tensor, valid: Tensor, voxel_size: float
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Group (b, n) points by voxel.
+
+    Returns:
+        centroid: (b, n, 3) per-segment centroids, segment j of each row in
+            voxel-key order at index j (zeros past the last segment).
+        seg_ok: (b, n) bool — segment j holds at least one valid point.
+        nseg: (b,) int64 occupied-voxel count.
+    """
+    b, n, _ = points.shape
+    q = _quantize(points, valid, voxel_size)
+    order = torch.arange(n, device=points.device).expand(b, n)
+    for axis in (2, 1, 0):  # stable lexsort: last key first
+        key = torch.gather(q[..., axis], 1, order)
+        _, perm = torch.sort(key, dim=1, stable=True)
+        order = torch.gather(order, 1, perm)
+    q_s = torch.gather(q, 1, order[..., None].expand(b, n, 3))
+    pts_s = torch.gather(points, 1, order[..., None].expand(b, n, 3))
+    w = torch.gather(valid, 1, order).to(points.dtype)
+
+    is_first = torch.ones((b, n), dtype=torch.bool, device=points.device)
+    is_first[:, 1:] = (q_s[:, 1:] != q_s[:, :-1]).any(dim=-1)
+    seg = torch.cumsum(is_first.to(torch.int64), dim=1) - 1
+    flat = (seg + torch.arange(b, device=points.device)[:, None] * n
+            ).reshape(-1)
+    sums = torch.zeros((b * n, 3), dtype=points.dtype, device=points.device)
+    sums.index_add_(0, flat, (pts_s * w[..., None]).reshape(-1, 3))
+    counts = torch.zeros((b * n,), dtype=points.dtype, device=points.device)
+    counts.index_add_(0, flat, w.reshape(-1))
+    sums, counts = sums.reshape(b, n, 3), counts.reshape(b, n)
+    seg_ok = counts > 0
+    centroid = sums / counts.clamp(min=1.0)[..., None]
+    centroid = torch.where(seg_ok[..., None], centroid,
+                           torch.zeros_like(centroid))
+    return centroid, seg_ok, seg_ok.sum(dim=1)
+
+
+def voxel_downsample(points: Tensor, valid: Tensor, voxel_size: float
+                     ) -> Tuple[Tensor, Tensor]:
+    """Voxel-grid downsample (centroid per occupied voxel), padded.
+
+    Args:
+        points: (n, 3).  valid: (n,) bool.
+
+    Returns:
+        (n, 3) centroids, zero-padded, the occupied voxels a leading prefix
+        in voxel-key order; (n,) validity mask.
+    """
+    centroid, seg_ok, _ = _voxel_segments(points[None], valid[None],
+                                          voxel_size)
+    return centroid[0], seg_ok[0]
+
+
+def memory_voxel_update(
+    mem_pts: Tensor,
+    mem_valid: Tensor,
+    new_pts: Tensor,
+    new_valid: Tensor,
+    voxel_size: float,
+    capacity: int,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Merge a new frame into the scene memory, voxel-downsample the union,
+    keep the ``capacity`` centroids nearest the origin.
+
+    Output is sorted by squared distance to the origin, ties broken stably
+    in voxel-key order; ``overflow = max(nseg - capacity, 0)``. When
+    ``capacity >= n`` nothing is selected: the voxel-order centroids are
+    padded to ``capacity``, as the JAX package's composition does.
+
+    Args:
+        mem_pts: (b, m, 3); mem_valid: (b, m); new_pts: (b, k, 3);
+        new_valid: (b, k) bool.
+
+    Returns:
+        (b, capacity, 3) points, (b, capacity) bool, (b,) int64 overflow.
+    """
+    pts = torch.cat([mem_pts, new_pts], dim=1)
+    valid = torch.cat([mem_valid, new_valid], dim=1)
+    b, n, _ = pts.shape
+    centroid, seg_ok, nseg = _voxel_segments(pts, valid, voxel_size)
+    if capacity >= n:
+        pad = capacity - n
+        out = torch.cat([centroid, centroid.new_zeros((b, pad, 3))], dim=1)
+        out_valid = torch.cat([seg_ok, seg_ok.new_zeros((b, pad))], dim=1)
+        return out, out_valid, torch.zeros_like(nseg)
+
+    d2 = (centroid * centroid).sum(dim=-1)
+    key = torch.where(seg_ok, d2, torch.full_like(d2, float("inf")))
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    order = order[:, :capacity]
+    out = torch.gather(centroid, 1, order[..., None].expand(b, capacity, 3))
+    out_valid = torch.isfinite(key_s[:, :capacity])
+    out = torch.where(out_valid[..., None], out, torch.zeros_like(out))
+    return out, out_valid, (nseg - capacity).clamp(min=0)

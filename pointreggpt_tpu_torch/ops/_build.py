@@ -1,0 +1,113 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled on first use into its own shared
+library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+into ``pointreggpt_tpu_torch/_build/``. The file name carries a hash of the
+sources and flags, so an edited kernel rebuilds; the library is written to a
+temporary name and moved into place with ``os.replace``, so a concurrent or
+interrupted build never leaves a torn file. :func:`build_all` starts one
+nvcc per source at once and waits for all of them.
+
+Nothing here runs at import: the CPU tests import every module freely.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC"]
+SOURCES = ("linear_attention", "attention")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set NVCC or put the CUDA toolkit's "
+                       "bin directory on PATH to build the kernels")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (process, tmp, final) or None
+    when the library is already built."""
+    final = library_path(name)
+    if final.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so",
+                               dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, final
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, final = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{out}")
+    os.replace(tmp, final)
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> None:
+    """Build every listed kernel library, one nvcc each, all in parallel."""
+    names = list(SOURCES if names is None else names)
+    started = {n: _start(n) for n in names}
+    errors = []
+    for n, s in started.items():
+        if s is None:
+            continue
+        try:
+            _finish(n, s)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C launcher."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
