@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch port (``pointreggpt_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N] [--num_samples N]
 
 Needs one CUDA GPU (an H100 is the target), the CUDA toolkit's ``nvcc``
 and this repository; exits nonzero without a GPU and prints no result.
@@ -9,26 +9,42 @@ Phases, each printing one JSON line:
 1. the card (``nvidia-smi`` name and power limit), torch / CUDA / nvcc;
 2. build every hand-written kernel from ``pointreggpt_tpu_torch/ops/csrc``
    (one nvcc per source, all at once);
-3. K1 (fused LinearAttention) against its plain version at the eight
-   (8, n, c) shapes of a dim-64 U-Net forward at 256^2, in bf16 (the
+3. ``k1_*``: K1 (fused LinearAttention) against its plain version at the
+   eight (8, n, c) shapes of a dim-64 U-Net forward at 256^2, in bf16 (the
    DiffusionUNet) and fp32 (the MaskUNet), with times, bounds and errors;
-4. K2 (bottleneck attention) against its plain version at (8, 1024, 4, 32)
-   in both types, plus ``F.scaled_dot_product_attention`` (fp32) as the
-   library yardstick — timed here only, never called by the port;
-5. a small whole-U-Net forward on the card against the same net on the
-   CPU (fp32, plain path), the repo's own parity check;
-6. one production DiffusionUNet forward (bf16, 256^2, batch 8): its time
-   and its device time by kernel category (torch.profiler); and the time
-   of one fp32 MaskUNet forward at the same size;
-7. the main path: ``pointreggpt_tpu_torch.cli.generate_dataset.main`` at
+4. ``k2_*``: K2 (bottleneck attention) against its plain version at
+   (8, 1024, 4, 32) in both types, plus ``F.scaled_dot_product_attention``
+   (fp32) as the library yardstick — timed here only, never called by the
+   port;
+5. ``k3_*``: K3 (K1's backward) against its plain version (the autograd
+   of K1's plain version) at the eight shapes, bf16 at microbatch 32 and
+   fp32 at batch 8: max |got - ref| / max |ref| per output, times, bounds;
+6. ``net_parity``: a small whole-U-Net forward on the card against the
+   same net on the CPU (fp32, plain path);
+7. ``forward_profile``: one production DiffusionUNet forward (bf16,
+   256^2, batch 8): its time and device time by kernel category; and one
+   fp32 MaskUNet forward;
+8. ``grad_parity``: the loss gradients of a dim-64 fp32 DiffusionUNet at
+   64^2 on the card against the CPU, per parameter;
+9. ``train_step``: one production optimizer step (microbatch 32 x
+   accumulation 2, 256^2, bf16): seconds, img/s, peak memory, launches
+   (16 K1, 16 K3, 2 K2), and the device time of one microbatch forward +
+   backward by kernel category;
+10. ``main_path``: ``pointreggpt_tpu_torch.cli.generate_dataset.main`` at
    the production configuration (dim 64, 256^2, batch 8, 250 DDIM steps,
    eta 1, MaskUNet on, memory 2^18) on a synthetic 3DMatch tree with
    random weights made from ``--seed``, two sample steps; checks the output
-   contract and that the kernel counters read 2,016 K1 and 252 K2 launches
-   per sample step.
+   contract and 2,016 K1, 252 K2 and no K3 launches per sample step;
+11. ``train_path``: ``pointreggpt_tpu_torch.cli.
+   train_successive_ddnm_diffusion.main`` at the production configuration
+   on 64 synthetic depth frames, 3 steps with a milestone at step 3;
+   checks the losses, the 5x5 sample grid, the checkpoint's reference
+   layout, that ``Generator.load`` reads it, and the launches (16 K1,
+   16 K3 and 2 K2 per optimizer step; the milestone's grid counted apart).
 
-The last three lines are the kernel table (one JSON object), the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+The last three lines are the kernel table (one JSON object, launch counts
+from the two main paths), the card's name and power limit, and ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -137,6 +153,69 @@ def phase_k1(torch, K1, dev, dtype):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+K3_ATOL = {"bfloat16": 3e-2, "float32": 1e-4}
+K3_OUTPUTS = ("dx_q", "dx_kv", "dw_qkv", "dw_out", "db_out", "dg")
+
+
+def k3_errors(torch, K1, args, eps) -> dict:
+    """K3 against its plain version on ``args`` (``K1.check_inputs_bwd``):
+    max |got - ref| / max |ref| and max |got - ref| for each of the six
+    outputs."""
+    got = K1.fused_linear_attention_bwd(*args, eps=eps)
+    ref = K1.fused_linear_attention_bwd_plain(*args, eps=eps)
+    torch.cuda.synchronize()
+    rel, abs_ = {}, {}
+    for name, a, r in zip(K3_OUTPUTS, got, ref):
+        if a.shape != r.shape:
+            raise AssertionError(f"K3 {name}: shape {tuple(a.shape)} != "
+                                 f"{tuple(r.shape)}")
+        abs_[name] = (a.float() - r.float()).abs().max().item()
+        rel[name] = abs_[name] / r.float().abs().max().item()
+    return rel, abs_
+
+
+def phase_k3(torch, K1, dev, dtype, batch):
+    """K3 against its plain version at the eight shapes of one forward, in
+    ``dtype`` at ``batch`` (bf16: the training microbatch of 32)."""
+    name = str(dtype).split(".")[-1]
+    atol, eps = K3_ATOL[name], (1e-3 if name == "bfloat16" else 1e-5)
+    size, peak = torch.tensor([], dtype=dtype).element_size(), PEAK[name]
+    rows, cache = [], {}
+    for n, c in K1_SHAPES:
+        if (n, c) not in cache:
+            args = K1.check_inputs_bwd(batch, n, c, dtype, dev)
+            errs, abs_errs = k3_errors(torch, K1, args, eps)
+            bad = {k: v for k, v in errs.items()
+                   if not np.isfinite(v) or v > atol}
+            if bad:
+                raise AssertionError(f"K3 {name} at ({batch}, {n}, {c}): "
+                                     f"relative errors {bad} > {atol}")
+            ms = time_ms(lambda: K1.fused_linear_attention_bwd(*args, eps=eps),
+                         5, 1)
+            plain_ms = time_ms(
+                lambda: K1.fused_linear_attention_bwd_plain(*args, eps=eps),
+                2, 1)
+            wk = K1.work_bwd(batch, n, c, size)
+            b_ms, b_by = bound(wk, peak)
+            cache[(n, c)] = dict(n=n, c=c, rel_err=errs, abs_err=abs_errs,
+                                 max_rel_err=max(errs.values()),
+                                 max_abs_err=max(abs_errs.values()), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, **wk)
+            del args
+            torch.cuda.empty_cache()
+        rows.append(cache[(n, c)])
+    emit(f"k3_{name}", batch=batch, shapes=rows, atol=atol)
+    t_bytes = sum(r["bytes"] for r in rows) / MEM_BW * 1e3
+    t_ops = sum(r["flops"] for r in rows) / peak * 1e3
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                max_rel_err=max(r["max_rel_err"] for r in rows),
+                ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_k2(torch, K2, dev, dtype):
     """K2 against its plain version at (8, 1024, 4, 32), with SDPA (fp32)
     timed as the library yardstick."""
@@ -172,22 +251,12 @@ def phase_k2(torch, K2, dev, dtype):
     return res
 
 
-def phase_net_parity(torch, dev):
-    """A dim-64 DiffusionUNet forward (fp32, 64^2) on the card against the
-    same net on the CPU, with weights on which K1's core counts."""
-    from pointreggpt_tpu_torch.models import DiffusionUNet
+def let_cores_count(torch, net, x, t, pc) -> None:
+    """Let each LinearAttention's core, not its to_out bias, carry the
+    block's output, as K1.check_inputs does: zero the bias and scale the
+    weight by n^1.5 / 2 for the block's n pixels at this input size."""
     from pointreggpt_tpu_torch.models.blocks import LinearAttention
 
-    torch.manual_seed(0)
-    net = DiffusionUNet(dim=64).eval()
-    rng = np.random.default_rng(2)
-    x = torch.tensor(rng.normal(size=(2, 1, 64, 64)), dtype=torch.float32)
-    t = torch.tensor([10.0, 900.0])
-    pc = torch.tensor(rng.uniform(100, 600, (2, 4)), dtype=torch.float32)
-    cl = torch.channels_last
-    # let each LinearAttention's core, not its to_out bias, carry the
-    # block's output, as K1.check_inputs does: zero the bias and scale the
-    # weight by n^1.5 / 2 for the block's n pixels
     pixels = {}
 
     def count_pixels(mod, args):
@@ -203,6 +272,21 @@ def phase_net_parity(torch, dev):
         for m, n in pixels.items():
             m.to_out[0].bias.zero_()
             m.to_out[0].weight.mul_(n**1.5 / 2)
+
+
+def phase_net_parity(torch, dev):
+    """A dim-64 DiffusionUNet forward (fp32, 64^2) on the card against the
+    same net on the CPU, with weights on which K1's core counts."""
+    from pointreggpt_tpu_torch.models import DiffusionUNet
+
+    torch.manual_seed(0)
+    net = DiffusionUNet(dim=64).eval()
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.normal(size=(2, 1, 64, 64)), dtype=torch.float32)
+    t = torch.tensor([10.0, 900.0])
+    pc = torch.tensor(rng.uniform(100, 600, (2, 4)), dtype=torch.float32)
+    cl = torch.channels_last
+    let_cores_count(torch, net, x, t, pc)
     with torch.inference_mode():
         ref = net(x, t, pc)
         gpu = net.to(dev, memory_format=cl)(
@@ -213,7 +297,11 @@ def phase_net_parity(torch, dev):
     emit("net_parity", max_abs_err=err, atol=NET_ATOL)
 
 
+# first match wins: K3's kernels share K1's and cuDNN's name fragments
 _CATEGORIES = (
+    ("k3", ("bwd_kv_partials", "bwd_merge_context", "q_path_bwd",
+            "fold_context", "kv_path_bwd", "wgrad_partials",
+            "reduce_partials")),
     ("k1", ("kv_partials", "merge_context", "emit_out")),
     ("k2", ("flash_fwd",)),
     ("conv", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad",
@@ -223,6 +311,26 @@ _CATEGORIES = (
     ("elementwise", ("elementwise", "vectorized", "unrolled",
                      "CatArray", "copy")),
 )
+
+
+def device_time(torch, prof) -> dict:
+    """Device time of a profiled window: in all, by kernel category, and
+    its twelve largest kernels (ms)."""
+    cats, kernels, total, n = {}, {}, 0.0, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        n += 1
+        total += us
+        kernels[ev.name] = kernels.get(ev.name, 0.0) + us
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k in ev.name for k in keys)), "other")
+        cats[cat] = cats.get(cat, 0.0) + us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return dict(device_ms=total / 1e3, kernels_launched=n,
+                by_category_ms={k: v / 1e3 for k, v in sorted(cats.items())},
+                top_kernels_ms=[[k[:90], v / 1e3] for k, v in top])
 
 
 def phase_forward_profile(torch, dev):
@@ -247,27 +355,12 @@ def phase_forward_profile(torch, dev):
                                  ProfilerActivity.CUDA]) as prof:
             net(x, t, pc)
             torch.cuda.synchronize()
-    cats, kernels, total, n = {}, {}, 0.0, 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        n += 1
-        total += us
-        kernels[ev.name] = kernels.get(ev.name, 0.0) + us
-        cat = next((c for c, keys in _CATEGORIES
-                    if any(k in ev.name for k in keys)), "other")
-        cats[cat] = cats.get(cat, 0.0) + us
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     mask = C.build_mask_unet(C.MaskModelConfig()).eval().to(
         dev, memory_format=torch.channels_last)
     with torch.inference_mode():
         mask_ms = time_ms(lambda: mask(x), 3, warmup=1)
     emit("forward_profile", forward_ms=fwd_ms, mask_forward_fp32_ms=mask_ms,
-         device_ms=total / 1e3,
-         kernels_launched=n,
-         by_category_ms={k: v / 1e3 for k, v in sorted(cats.items())},
-         top_kernels_ms=[[k[:90], v / 1e3] for k, v in top])
+         **device_time(torch, prof))
     del net, mask, x
     torch.cuda.empty_cache()
 
@@ -351,6 +444,7 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
         os.chdir(root)
         gen_mod.Generator.step = timed_step
         K1.fused_linear_attention.launches = 0
+        K1.fused_linear_attention_bwd.launches = 0
         K2.multihead_attention.launches = 0
         try:
             torch.cuda.synchronize()
@@ -369,12 +463,13 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
             gen_mod.Generator.step = orig_step
             os.chdir(cwd)
         k1_n = K1.fused_linear_attention.launches
+        k3_n = K1.fused_linear_attention_bwd.launches
         k2_n = K2.multihead_attention.launches
-        want_k1, want_k2 = 2016 * num_samples, 252 * num_samples
-        if (k1_n, k2_n) != (want_k1, want_k2):
+        want = (2016 * num_samples, 0, 252 * num_samples)
+        if (k1_n, k3_n, k2_n) != want:
             raise AssertionError(
-                f"kernel launches on the main path: K1 {k1_n} (want "
-                f"{want_k1}), K2 {k2_n} (want {want_k2})")
+                f"kernel launches on the main path: K1, K3, K2 = "
+                f"{(k1_n, k3_n, k2_n)}, want {want}")
 
         out = root / "generated_dataset" / "data"
         for s in range(batch):
@@ -405,10 +500,251 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
     res = dict(wall_s=wall, num_samples=num_samples, batch=batch,
                step_device_s=steps, sec_per_sample_step=sec_per_step,
                pairs_per_min=batch * 60.0 / sec_per_step,
-               k1_launches=k1_n, k2_launches=k2_n,
+               k1_launches=k1_n, k3_launches=k3_n, k2_launches=k2_n,
                k1_per_step=k1_n / num_samples,
+               k3_per_step=k3_n / num_samples,
                k2_per_step=k2_n / num_samples)
     emit("main_path", card=card_line(), **res)
+    return res
+
+
+GRAD_RTOL = 2e-3  # fp32 gradients, card vs CPU, per parameter
+
+
+def phase_grad_parity(torch, dev):
+    """``p_losses`` gradients of a dim-64 fp32 DiffusionUNet at 64^2, batch
+    2, on the card (K1, K3, K2 and its recompute) against the CPU (plain
+    versions), with t and noise injected and each LinearAttention's core
+    carrying its output."""
+    import copy
+
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.models import DiffusionUNet
+
+    torch.manual_seed(0)
+    net = DiffusionUNet(dim=64).to(memory_format=torch.channels_last)
+    rng = np.random.default_rng(3)
+    x0 = torch.tensor(rng.uniform(-1, 1, (2, 64, 64, 1)), dtype=torch.float32)
+    noise = torch.tensor(rng.normal(size=(2, 64, 64, 1)), dtype=torch.float32)
+    t = torch.tensor([40, 730])
+    pc = torch.tensor(rng.uniform(100, 600, (2, 4)), dtype=torch.float32)
+    let_cores_count(torch, net, x0.permute(0, 3, 1, 2), t.float(), pc)
+    diffusion = C.build_diffusion(C.DiffusionConfig(image_size=64))
+    gpu_net = copy.deepcopy(net).to(dev, memory_format=torch.channels_last)
+    diffusion.p_losses(net, x0, t, pc, noise=noise).backward()
+    diffusion.p_losses(gpu_net, x0.to(dev), t.to(dev), pc.to(dev),
+                       noise=noise.to(dev)).backward()
+    worst, worst_name = 0.0, ""
+    for (name, p), q in zip(net.named_parameters(), gpu_net.parameters()):
+        ref = p.grad.abs().max().item()
+        err = (q.grad.cpu() - p.grad).abs().max().item() / max(ref, 1e-30)
+        if not np.isfinite(err):
+            raise AssertionError(f"grad_parity: {name} not finite")
+        if err > worst:
+            worst, worst_name = err, name
+    if worst > GRAD_RTOL:
+        raise AssertionError(f"grad_parity: {worst_name} card vs CPU "
+                             f"{worst} > {GRAD_RTOL}")
+    emit("grad_parity", max_rel_err=worst, worst=worst_name,
+         rtol=GRAD_RTOL)
+
+
+def write_training_tree(root: Path, n_frames: int, seed: int):
+    """A 3DMatch-RGBD-style training tree: ``n_frames`` 480x640 uint16 mm
+    depth frames over 4 scenes with their intrinsics, and the gt.log that
+    lists them; returns (folder, gt_log)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    folder, lines = root / "rgbd_train", []
+    yy, xx = np.mgrid[0:480, 0:640]
+    for f in range(n_frames):
+        scene = folder / f"scene-{f % 4}"
+        seq = scene / "seq-01"
+        if not seq.exists():
+            seq.mkdir(parents=True)
+            np.savetxt(scene / "camera-intrinsics.txt",
+                       np.array([[585.0, 0, 320.0], [0, 585.0, 240.0],
+                                 [0, 0, 1]]))
+        depth = 2000 + 600 * np.sin(xx / 70.0 + f) * np.cos(yy / 50.0) + \
+            rng.integers(0, 60, (480, 640))
+        name = f"frame-{f // 4:06d}.depth.png"
+        Image.fromarray(depth.astype(np.uint16)).save(seq / name)
+        lines.append(f"scene-{f % 4}/seq-01/{name}")
+    gt_log = root / "gt.log"
+    gt_log.write_text("\n".join(lines) + "\n")
+    return str(folder), str(gt_log)
+
+
+def phase_train_step(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
+    """One production optimizer step (microbatch 32 x accumulation 2,
+    256^2, bf16 compute, fp32 params): seconds by CUDA events after two
+    warm-up steps, img/s, peak memory, launches per step, and the device
+    time of one microbatch forward + backward by kernel category."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.train.trainer import Trainer
+
+    cfg = C.TrainConfig()
+    torch.manual_seed(0)
+    trainer = Trainer(
+        C.build_diffusion_unet(C.ModelConfig()),
+        C.build_diffusion(C.DiffusionConfig()), folder,
+        train_batch_size=cfg.train_batch_size,
+        gradient_accumulate_every=cfg.gradient_accumulate_every,
+        train_lr=cfg.train_lr, results_folder=str(tmp / "step_results"),
+        samples_folder=str(tmp / "step_samples"), gt_log=gt_log)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img, intr = trainer._upload(next(trainer.dl))
+    for _ in range(2):
+        trainer.train_step(img, intr, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.fused_linear_attention.launches = 0
+    K1.fused_linear_attention_bwd.launches = 0
+    K2.multihead_attention.launches = 0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    loss = trainer.train_step(img, intr, gen)
+    e1.record()
+    torch.cuda.synchronize()
+    counts = (K1.fused_linear_attention.launches,
+              K1.fused_linear_attention_bwd.launches,
+              K2.multihead_attention.launches)
+    if counts != (16, 16, 2):
+        raise AssertionError(f"train_step launches K1, K3, K2 = {counts}, "
+                             "want (16, 16, 2)")
+    sec = e0.elapsed_time(e1) / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    times = [sec]
+    for _ in range(2):
+        e0.record()
+        trainer.train_step(img, intr, gen)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / 1e3)
+    if not np.isfinite(loss.item()):
+        raise AssertionError(f"train_step: loss {loss.item()}")
+    model, diffusion = trainer.model, trainer.diffusion
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        diffusion.training_loss(model, img[0], intr[0], gen).backward()
+        torch.cuda.synchronize()
+    sec = float(np.mean(times))
+    res = dict(sec_per_step=sec, step_s=times,
+               img_per_s=cfg.train_batch_size *
+               cfg.gradient_accumulate_every / sec,
+               peak_mem_gb=peak / 1e9, loss=loss.item(),
+               k1_per_step=counts[0], k3_per_step=counts[1],
+               k2_per_step=counts[2])
+    emit("train_step", card=card_line(), microbatch=cfg.train_batch_size,
+         accum=cfg.gradient_accumulate_every, **res,
+         microbatch_fwd_bwd=device_time(torch, prof))
+    del trainer, model, img, intr, prof
+    torch.cuda.empty_cache()
+
+
+def phase_train_path(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
+    """The training main path: ``pointreggpt_tpu_torch.cli.
+    train_successive_ddnm_diffusion.main`` at the production configuration
+    for 3 steps with a milestone at step 3 (a 25-image EMA grid with 250
+    DDIM steps, and model-0.pt); checks the losses, the grid, the
+    checkpoint's layout, that the Generator loads it, and the launches."""
+    from PIL import Image
+
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.cli import train_successive_ddnm_diffusion
+    from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
+    from pointreggpt_tpu_torch.generate import Generator
+    from pointreggpt_tpu_torch.train import checkpoint as ckpt
+    from pointreggpt_tpu_torch.train import trainer as trainer_mod
+
+    losses, steps, marks = [], 3, []
+    Trainer = trainer_mod.Trainer
+    orig_step, orig_save = Trainer.train_step, Trainer._save_and_sample
+
+    def counts():
+        return (K1.fused_linear_attention.launches,
+                K1.fused_linear_attention_bwd.launches,
+                K2.multihead_attention.launches)
+
+    def recorded(self, *a, **kw):
+        out = orig_step(self, *a, **kw)
+        losses.append(out)
+        return out
+
+    def marked(self, *a, **kw):
+        # the milestone's launches (the EMA grid) are counted apart from
+        # the optimizer steps'
+        marks.append(counts())
+        orig_save(self, *a, **kw)
+        marks.append(counts())
+
+    results = tmp / "train_results"
+    Trainer.train_step, Trainer._save_and_sample = recorded, marked
+    try:
+        torch.cuda.synchronize()
+        K1.fused_linear_attention.launches = 0
+        K1.fused_linear_attention_bwd.launches = 0
+        K2.multihead_attention.launches = 0
+        t0 = time.perf_counter()
+        train_successive_ddnm_diffusion.main([
+            "--data", folder, "--gt_log", gt_log,
+            "--results_folder", str(results),
+            "--samples_folder", str(tmp / "train_samples"),
+            "--train_num_steps", str(steps),
+            "--save_and_sample_every", str(steps)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = counts()
+    finally:
+        Trainer.train_step, Trainer._save_and_sample = orig_step, orig_save
+    if len(marks) != 2:
+        raise AssertionError(f"train_path: {len(marks) // 2} milestones, "
+                             "want 1")
+    grid_n = tuple(b - a for a, b in zip(*marks))
+    step_n = tuple(t - g for t, g in zip(total, grid_n))
+    # per optimizer step 16 K1, 16 K3, 2 K2; the grid draws 250 DDIM
+    # forwards of 8 K1 and 1 K2 each
+    want_step, want_grid = (16 * steps, 16 * steps, 2 * steps), (2000, 0, 250)
+    if (step_n, grid_n) != (want_step, want_grid):
+        raise AssertionError(
+            f"train_path launches K1, K3, K2: steps {step_n} (want "
+            f"{want_step}), grid {grid_n} (want {want_grid})")
+    losses = [v.item() for v in losses]
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"train_path losses {losses}")
+    grid = Image.open(results / "sample-1.png")
+    if grid.size != (5 * 256, 5 * 256):
+        raise AssertionError(f"sample-1.png is {grid.size}, want a 5x5 "
+                             "grid of 256^2 images")
+    data = ckpt.load_checkpoint(results / "model-0.pt")
+    net = C.build_diffusion_unet(C.ModelConfig())
+    keys = set(net.state_dict())
+    layout = (set(data) == {"step", "model", "opt", "ema", "version"}
+              and data["step"] == steps
+              and set(data["model"]) == {f"model.{k}" for k in keys}
+              and {f"ema_model.model.{k}" for k in keys} <= set(data["ema"])
+              and {f"online_model.model.{k}" for k in keys}
+              <= set(data["ema"])
+              and len(data["opt"]["state"]) == len(keys))
+    if not layout:
+        raise AssertionError("model-0.pt does not have the reference layout")
+    gen = Generator(net, GaussianDiffusion(image_size=256), folder,
+                    results_folder=str(results),
+                    samples_folder=str(tmp / "gen_samples"))
+    gen.load(0)
+    for k, v in net.state_dict().items():
+        if not torch.equal(v, data["ema"][f"ema_model.model.{k}"]):
+            raise AssertionError(f"Generator.load: {k} differs")
+    res = dict(wall_s=wall, steps=steps, losses=losses,
+               k1_launches=total[0], k3_launches=total[1],
+               k2_launches=total[2],
+               per_optimizer_step=[v / steps for v in step_n],
+               grid_launches=list(grid_n))
+    emit("train_path", card=card_line(), **res)
     return res
 
 
@@ -448,23 +784,54 @@ def main(argv=None) -> int:
     k1_f32 = phase_k1(torch, K1, dev, torch.float32)
     k2 = phase_k2(torch, K2, dev, torch.bfloat16)
     k2_f32 = phase_k2(torch, K2, dev, torch.float32)
+    k3 = phase_k3(torch, K1, dev, torch.bfloat16, 32)
+    k3_f32 = phase_k3(torch, K1, dev, torch.float32, 8)
     phase_net_parity(torch, dev)
     phase_forward_profile(torch, dev)
-    main_res = phase_main_path(torch, K1, K2, args.seed, args.num_samples)
+    phase_grad_parity(torch, dev)
+    with tempfile.TemporaryDirectory(prefix="prgpt_train_") as tmp:
+        tmp = Path(tmp)
+        folder, gt_log = write_training_tree(tmp, 64, args.seed)
+        phase_train_step(torch, K1, K2, folder, gt_log, tmp)
+        main_res = phase_main_path(torch, K1, K2, args.seed,
+                                   args.num_samples)
+        train_res = phase_train_path(torch, K1, K2, folder, gt_log, tmp)
+    sample_steps = main_res["num_samples"]
+
+    # launches: both main paths (generation, then training), each counted
+    # from 0 just before its entry point runs; per sample step of
+    # generation, and per optimizer step of training (its milestone grid
+    # counted apart)
+    def launches(i, key):
+        return dict(launches=main_res[key] + train_res[key],
+                    launches_generate=main_res[key],
+                    launches_train=train_res[key],
+                    per_sample_step=main_res[key] / sample_steps,
+                    per_optimizer_step=train_res["per_optimizer_step"][i],
+                    launches_train_grid=train_res["grid_launches"][i])
 
     kernels = [
         dict(name="fused_linear_attention", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention.cu",
              replaces="pointreggpt_tpu/ops/linear_attention.py:202",
-             launches=main_res["k1_launches"], library_ms=None,
+             **launches(0, "k1_launches"), library_ms=None,
              work="the 8 calls of one dim-64 U-Net forward, bf16, batch 8, "
                   "256^2 (times and bounds summed over the 8 shapes)",
              fp32=k1_f32, **k1),
         dict(name="multihead_attention", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/attention.cu",
              replaces="pointreggpt_tpu/ops/attention.py:64",
-             launches=main_res["k2_launches"],
+             **launches(2, "k2_launches"),
              work="one call at (8, 1024, 4, 32) bf16", fp32=k2_f32, **k2),
+        dict(name="fused_linear_attention_bwd", route="cuda",
+             source="pointreggpt_tpu_torch/ops/csrc/linear_attention_bwd.cu",
+             replaces="pointreggpt_tpu/ops/linear_attention.py:316",
+             **launches(1, "k3_launches"), library_ms=None,
+             work="the 8 calls of one dim-64 U-Net backward, bf16, "
+                  "microbatch 32, 256^2 (times and bounds summed over the "
+                  "8 shapes); max_abs_err is the largest absolute error of "
+                  "the six outputs, max_rel_err the one the check bounds",
+             fp32=k3_f32, **k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

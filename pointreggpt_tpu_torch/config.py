@@ -1,8 +1,8 @@
 """Dataclass configs with CLI overrides, and the builders of live objects.
 
-Own copy of the generation-side configs of ``pointreggpt_tpu/config.py``
-(same fields and defaults, so the port's CLI takes the same flags), with
-builders that make the port's torch modules.
+Own copy of the generation and diffusion-training configs of
+``pointreggpt_tpu/config.py`` (same fields and defaults, so the port's CLIs
+take the same flags), with builders that make the port's torch modules.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class ModelConfig:
     random_fourier_features: bool = False
     learned_sinusoidal_dim: int = 16
     bf16: bool = True  # compute dtype on the card
-    remat: bool = False  # training-only; generation ignores it
+    remat: bool = False  # ResnetBlock recompute in training (memory)
 
 
 @dataclass(frozen=True)
@@ -58,6 +58,29 @@ class DiffusionConfig:
     is_ddnm_sampling: bool = True
     ddnm_sampling_dropout: float = 0.0
     ddnm_dropout_schedule: str = "none"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Diffusion Trainer hyperparameters (train_successive_ddnm_diffusion)."""
+
+    data: str = "/path/to/3DMatch-RGBD/train"
+    gt_log: str = "./dataset/3DMatch/metadata/gt.log"
+    train_batch_size: int = 32
+    train_lr: float = 8e-5
+    train_num_steps: int = 2_000_000
+    gradient_accumulate_every: int = 2
+    augment_horizontal_flip: bool = True
+    ema_decay: float = 0.995
+    ema_update_every: int = 10
+    save_and_sample_every: int = 1000
+    num_samples: int = 25
+    results_folder: str = "./successive_ddnm_diffusion_results"
+    samples_folder: str = "./successive_ddnm_diffusion_samples"
+    calculate_fid: bool = False
+    # 0 = auto (os.cpu_count())
+    num_workers: int = 0
+    seed: int = 0
 
 
 @dataclass(frozen=True)
@@ -128,7 +151,7 @@ def build_diffusion_unet(cfg: ModelConfig):
     return DiffusionUNet(dim=cfg.dim, param_cond_dim=cfg.param_cond_dim,
                          dim_mults=cfg.dim_mults, channels=cfg.channels,
                          resnet_block_groups=cfg.resnet_block_groups,
-                         dtype=_dtype(cfg.bf16))
+                         dtype=_dtype(cfg.bf16), remat=cfg.remat)
 
 
 def build_mask_unet(cfg: MaskModelConfig):
@@ -145,7 +168,8 @@ def build_diffusion(cfg: DiffusionConfig, channels: int = 1):
     return GaussianDiffusion(
         image_size=cfg.image_size, channels=channels,
         timesteps=cfg.timesteps, sampling_timesteps=cfg.sampling_timesteps,
-        objective=cfg.objective, beta_schedule=cfg.beta_schedule,
+        loss_type=cfg.loss_type, objective=cfg.objective,
+        beta_schedule=cfg.beta_schedule,
         ddim_sampling_eta=cfg.ddim_sampling_eta,
         is_ddnm_sampling=cfg.is_ddnm_sampling,
         ddnm_sampling_dropout=cfg.ddnm_sampling_dropout,

@@ -1,7 +1,8 @@
-"""Random SE(3) pose sampling on an explicit ``torch.Generator``.
+"""Random camera-intrinsic and SE(3) pose sampling on an explicit
+``torch.Generator``.
 
 Port of ``pointreggpt_tpu/core/sampling.py``. The two packages draw
-different numbers from the same seed; tests hand both the same poses.
+different numbers from the same seed; tests hand both the same draws.
 """
 
 from __future__ import annotations
@@ -9,7 +10,36 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
+
+# The six real 3DMatch intrinsic matrices with their empirical sampling
+# probabilities (own copy of the JAX package's tables).
+INTRINSIC_CANDIDATES = np.array(
+    [
+        [[585.0, 0.0, 320.0], [0.0, 585.0, 240.0], [0.0, 0.0, 1.0]],
+        [[572.0, 0.0, 320.0], [0.0, 572.0, 240.0], [0.0, 0.0, 1.0]],
+        [[583.0, 0.0, 320.0], [0.0, 583.0, 240.0], [0.0, 0.0, 1.0]],
+        [[540.021232, 0.0, 320.0], [0.0, 540.021232, 240.0], [0.0, 0.0, 1.0]],
+        [[570.342205, 0.0, 320.0], [0.0, 570.342205, 240.0], [0.0, 0.0, 1.0]],
+        [[533.069214, 0.0, 320.0], [0.0, 533.069214, 240.0], [0.0, 0.0, 1.0]],
+    ],
+    dtype=np.float32,
+)
+INTRINSIC_PROBS = np.array([7, 8, 18, 5, 47, 5], dtype=np.float32)
+INTRINSIC_PROBS = INTRINSIC_PROBS / INTRINSIC_PROBS.sum()
+
+
+def random_sample_intrinsic(generator: Optional[torch.Generator],
+                            batch_size: int, *, device=None) -> torch.Tensor:
+    """(b, 3, 3) intrinsics drawn with replacement from the empirical
+    3DMatch distribution."""
+    if device is None:
+        device = generator.device if generator is not None else "cpu"
+    probs = torch.as_tensor(INTRINSIC_PROBS, device=device)
+    idx = torch.multinomial(probs, batch_size, replacement=True,
+                            generator=generator)
+    return torch.as_tensor(INTRINSIC_CANDIDATES, device=device)[idx]
 
 
 def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,30 @@
-"""Resolve a 3DMatch train_info fragment record to its first depth frame.
+"""Host-side data for the port: 3DMatch frame records, the diffusion
+training set, and a prefetching batch loader.
 
-Own copy of ``resolve_frame_record`` from
-``pointreggpt_tpu/data/datasets.py``: the ``.pth -> .info.txt`` lookup,
-first-line parse, ``frame-%06d.depth.png`` path and the intrinsic
-adjustment for the resize + center crop.
+Own copies of ``resolve_frame_record``, ``DepthDataset``, ``collate`` and
+``PrefetchLoader`` from ``pointreggpt_tpu/data/datasets.py``, with the same
+contracts:
+
+- :class:`DepthDataset` lists training frames from ``gt.log`` (one depth
+  PNG path per line, relative to the RGB-D root) with their scene's
+  ``camera-intrinsics.txt``; its h-flip is a pure function of
+  ``(seed, epoch, index)`` through ``np.random.default_rng``.
+- :class:`PrefetchLoader` draws a fresh permutation per epoch from
+  ``default_rng([seed, epoch])``, can start at ``start_epoch``, decodes in
+  worker threads ahead of the consumer, re-raises a decode error in the
+  consumer, and releases its thread when an iterator is abandoned.
+
+Both packages draw with numpy, so for one seed their batches are the same
+bit for bit. Batches are dicts of stacked numpy arrays, NHWC.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
+from pathlib import Path
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -37,3 +53,157 @@ def resolve_frame_record(data_root: str, folder: str, rel_path: str,
         pose = np.loadtxt(frame_path.replace("depth.png", "pose.txt"))
         return image, pose, intrinsic
     return image, intrinsic
+
+
+class DepthDataset:
+    """Diffusion training set: single depth frames + intrinsics.
+
+    Args:
+        folder: 3DMatch-RGBD train root (scene dirs with seq subdirs).
+        image_size: model resolution (256).
+        gt_log: frame list, one path relative to ``folder`` per line.
+        augment_horizontal_flip: random h-flip, decided per
+            ``(seed, epoch, index)``.
+    """
+
+    def __init__(self, folder: str, image_size: int, *,
+                 gt_log: str = "./dataset/3DMatch/metadata/gt.log",
+                 augment_horizontal_flip: bool = False, seed: int = 0):
+        self.folder = folder
+        self.image_size = image_size
+        self.augment_horizontal_flip = augment_horizontal_flip
+        self.seed = seed
+        with open(gt_log, "r") as f:
+            self.paths: List[Path] = [Path(folder, line.strip())
+                                      for line in f if line.strip()]
+        self._intrinsic_cache: Dict[str, np.ndarray] = {}
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def _scene_intrinsic(self, path: Path) -> np.ndarray:
+        scene_path = path.parent.parent
+        key = str(scene_path)
+        if key not in self._intrinsic_cache:
+            self._intrinsic_cache[key] = intrinsic_transform(
+                np.loadtxt(Path(scene_path, "camera-intrinsics.txt")),
+                resize=self.image_size, centercrop=self.image_size,
+            ).astype(np.float32)
+        return self._intrinsic_cache[key]
+
+    def getitem_at_epoch(self, index: int,
+                         epoch: int) -> Dict[str, np.ndarray]:
+        """Item ``index`` as epoch ``epoch`` sees it: (h, w, 1) depth in
+        [0, 1] and its (3, 3) intrinsic."""
+        path = self.paths[index]
+        flip = self.augment_horizontal_flip and (
+            np.random.default_rng(
+                (self.seed, int(epoch), index)).random() < 0.5)
+        img = imageio16.load_depth_model_space(path, self.image_size,
+                                               flip=flip)
+        return {"img": img[..., None],
+                "intrinsic": self._scene_intrinsic(path)}
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return self.getitem_at_epoch(index, 0)
+
+
+def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Stack a list of example dicts into a batch dict."""
+    return {k: np.stack([item[k] for item in items]) for k in items[0]}
+
+
+class PrefetchLoader:
+    """Shuffling (optionally infinite) batch iterator over a dataset with
+    ``getitem_at_epoch``, decoding in a thread pool ahead of the consumer.
+
+    Each ``__iter__`` takes the next epoch number (starting at
+    ``start_epoch``); an infinite iterator walks on through the epochs
+    after it.
+    """
+
+    def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
+                 drop_last: bool = True, infinite: bool = False,
+                 num_workers: Optional[int] = None, prefetch: int = 2,
+                 seed: int = 0, start_epoch: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.infinite = infinite
+        self.num_workers = max(1, num_workers or os.cpu_count() or 1)
+        self.prefetch = prefetch
+        self.seed = seed
+        self._epoch = int(start_epoch)
+        if drop_last and len(dataset) < batch_size:
+            raise ValueError(
+                f"dataset has {len(dataset)} examples < batch_size "
+                f"{batch_size} with drop_last=True: no batch can be formed")
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return (n // self.batch_size if self.drop_last
+                else -(-n // self.batch_size))
+
+    def _index_batches(self, start_epoch: int):
+        """(epoch, indices) of every batch from ``start_epoch`` on."""
+        epoch = start_epoch
+        while True:
+            idx = np.arange(len(self.dataset))
+            if self.shuffle:
+                np.random.default_rng([self.seed, epoch]).shuffle(idx)
+            stop = (len(idx) // self.batch_size * self.batch_size
+                    if self.drop_last else len(idx))
+            for s in range(0, stop, self.batch_size):
+                yield epoch, list(idx[s:s + self.batch_size])
+            epoch += 1
+            if not self.infinite:
+                return
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        from concurrent.futures import ThreadPoolExecutor
+
+        start_epoch = self._epoch
+        self._epoch = start_epoch + 1
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        error: list = []
+        # set when the consumer stops (exhausted, raised, or abandoned):
+        # releases a producer blocked on a full queue
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for epoch, batch_idx in self._index_batches(start_epoch):
+                        items = list(pool.map(self.dataset.getitem_at_epoch,
+                                              batch_idx,
+                                              [epoch] * len(batch_idx)))
+                        if not put(collate(items)):
+                            return
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                error.append(e)
+            finally:
+                put(sentinel)
+
+        threading.Thread(target=producer, daemon=True,
+                         name="prgpt-prefetch").start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    if error:
+                        raise error[0]
+                    return
+                yield item
+        finally:
+            stop.set()

@@ -1,6 +1,8 @@
-"""GaussianDiffusion: the DDIM + DDNM sampling chain on torch.
+"""GaussianDiffusion: the training loss and the DDIM + DDNM sampling chain
+on torch.
 
-Port of the sampling side of ``pointreggpt_tpu/diffusion/gaussian.py``.
+Port of ``pointreggpt_tpu/diffusion/gaussian.py`` (ancestral sampling,
+``denoise`` and ``interpolate`` are not ported yet).
 The JAX ``lax.scan`` over timestep pairs is a Python loop here; nothing in
 it reads a value back to the host, so the whole chain queues on the stream
 without a sync.
@@ -25,6 +27,8 @@ import torch.nn as nn
 
 from pointreggpt_tpu_torch.core.geometry import (
     mask_from_image_condition,
+    normalize_to_neg_one_to_one,
+    param_vector,
     unnormalize_to_zero_to_one,
 )
 from pointreggpt_tpu_torch.diffusion import schedules as sched
@@ -38,32 +42,40 @@ class ModelPrediction(NamedTuple):
 
 
 class GaussianDiffusion:
-    """DDPM sampling process for a DiffusionUNet.
+    """DDPM process for a DiffusionUNet: training loss and DDIM sampling.
 
     Args mirror the JAX package's (and the reference's) constructor. The
-    network is passed to each sampling call, as the JAX package passes its
-    params: the (possibly baked) DiffusionUNet, called as
+    network is passed to each call, as the JAX package passes its params:
+    the DiffusionUNet (baked, for sampling), called as
     ``model(x_nchw, t, param_cond)``.
     """
 
     def __init__(self, *, image_size: int,
                  channels: int = 1, timesteps: int = 1000,
                  sampling_timesteps: Optional[int] = None,
+                 loss_type: str = "l1",
                  objective: str = "pred_x0",
                  beta_schedule: str = "sigmoid",
                  ddim_sampling_eta: float = 1.0,
+                 min_snr_loss_weight: bool = False,
+                 min_snr_gamma: float = 5.0,
                  is_ddnm_sampling: bool = True,
                  ddnm_sampling_dropout: float = 0.0,
                  ddnm_dropout_schedule: str = "none"):
         if objective not in ("pred_noise", "pred_x0", "pred_v"):
             raise ValueError(f"unknown objective {objective}")
+        if loss_type not in ("l1", "l2"):
+            raise ValueError(f"invalid loss type {loss_type}")
         self.image_size = image_size
         self.channels = channels
         self.timesteps = timesteps
+        self.loss_type = loss_type
         self.objective = objective
         self.ddim_sampling_eta = ddim_sampling_eta
         self.is_ddnm_sampling = is_ddnm_sampling
-        self.tables = sched.make_tables(timesteps, beta_schedule, objective)
+        self.tables = sched.make_tables(timesteps, beta_schedule, objective,
+                                        min_snr_loss_weight, min_snr_gamma)
+        self._device_tables = {}
         self.ddnm_dropouts = sched.ddnm_dropout_table(
             timesteps, ddnm_sampling_dropout, ddnm_dropout_schedule)
         self.denoise_dropouts = sched.denoise_dropout_table(timesteps)
@@ -80,7 +92,13 @@ class GaussianDiffusion:
     # -- q / prediction conversions ---------------------------------------
 
     def _table(self, name: str, t: Tensor, ndim: int) -> Tensor:
-        table = torch.as_tensor(getattr(self.tables, name), device=t.device)
+        # one upload per table and device: a copy from host memory would
+        # wait for the stream on every call inside the training loop
+        key = (name, t.device)
+        table = self._device_tables.get(key)
+        if table is None:
+            table = self._device_tables[key] = torch.as_tensor(
+                getattr(self.tables, name), device=t.device)
         out = table[t.long()]
         return out.reshape(out.shape + (1,) * (ndim - 1))
 
@@ -88,6 +106,62 @@ class GaussianDiffusion:
         nd = x_start.dim()
         return (self._table("sqrt_alphas_cumprod", t, nd) * x_start +
                 self._table("sqrt_one_minus_alphas_cumprod", t, nd) * noise)
+
+    def predict_v(self, x_start: Tensor, t: Tensor, noise: Tensor) -> Tensor:
+        nd = x_start.dim()
+        return (self._table("sqrt_alphas_cumprod", t, nd) * noise -
+                self._table("sqrt_one_minus_alphas_cumprod", t, nd) * x_start)
+
+    # -- training loss ------------------------------------------------------
+
+    def p_losses(self, model: nn.Module, x_start: Tensor, t: Tensor,
+                 param_cond: Tensor, noise: Optional[Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+        """Per-batch SNR-weighted L1/L2 denoising loss (a scalar).
+
+        Args:
+            x_start: (b, h, w, c) clean images in [-1, 1].
+            t: (b,) integer timesteps.
+            noise: injected noise (tests); else drawn from ``generator``
+                on x_start's device.
+        """
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=x_start.device, dtype=x_start.dtype)
+        x = self.q_sample(x_start, t, noise)
+        out = model(x.permute(0, 3, 1, 2), t, param_cond).permute(0, 2, 3, 1)
+        if out.shape != x_start.shape:
+            # e.g. a 2x learned-variance head would broadcast against the
+            # target and train a wrong loss
+            raise ValueError(f"model output {tuple(out.shape)} != target "
+                             f"{tuple(x_start.shape)}; GaussianDiffusion "
+                             "requires out channels == in channels")
+        if self.objective == "pred_noise":
+            target = noise
+        elif self.objective == "pred_x0":
+            target = x_start
+        else:
+            target = self.predict_v(x_start, t, noise)
+        diff = out - target
+        loss = diff.abs() if self.loss_type == "l1" else diff * diff
+        loss = loss.reshape(loss.shape[0], -1).mean(dim=-1)
+        return (loss * self._table("loss_weight", t, 1)).mean()
+
+    def training_loss(self, model: nn.Module, img01: Tensor,
+                      intrinsic: Tensor,
+                      generator: Optional[torch.Generator] = None) -> Tensor:
+        """The training forward: draw t, then the noise, from ``generator``.
+
+        Args:
+            img01: (b, h, w, c) depth in [0, 1] model units.
+            intrinsic: (b, 3, 3).
+        """
+        t = torch.randint(0, self.timesteps, (img01.shape[0],),
+                          generator=generator, device=img01.device)
+        return self.p_losses(model, normalize_to_neg_one_to_one(img01), t,
+                             param_vector(intrinsic), generator=generator)
+
+    # -- sampling -----------------------------------------------------------
 
     def _coef(self, name: str, t: int) -> float:
         return float(getattr(self.tables, name)[t])

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from pointreggpt_tpu_torch.core.geometry import min_pool
 from pointreggpt_tpu_torch.ops.attention import multihead_attention
@@ -134,11 +135,18 @@ class Block(nn.Module):
 
 class ResnetBlock(nn.Module):
     """Two Blocks (the first conditioned by SiLU -> Linear of the
-    embedding) + 1x1-conv residual."""
+    embedding) + 1x1-conv residual.
+
+    With ``remat`` set, a forward under autograd keeps only the block's
+    inputs and recomputes its body in the backward
+    (``torch.utils.checkpoint``, the port of ``nn.remat(ResnetBlock)``).
+    """
 
     def __init__(self, dim: int, dim_out: int, cond_dim: Optional[int] = None,
-                 groups: int = 8, dtype: torch.dtype = torch.float32):
+                 groups: int = 8, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.mlp = (nn.Sequential(nn.SiLU(), Linear(cond_dim, dim_out * 2,
                                                     dtype=dtype))
                     if cond_dim else None)
@@ -148,6 +156,11 @@ class ResnetBlock(nn.Module):
                          if dim != dim_out else nn.Identity())
 
     def forward(self, x: Tensor, cond: Optional[Tensor] = None) -> Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._body, x, cond, use_reentrant=False)
+        return self._body(x, cond)
+
+    def _body(self, x: Tensor, cond: Optional[Tensor]) -> Tensor:
         scale_shift = None
         if self.mlp is not None and cond is not None:
             emb = self.mlp(cond)[:, :, None, None]

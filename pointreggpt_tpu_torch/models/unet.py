@@ -35,15 +35,15 @@ from pointreggpt_tpu_torch.models.blocks import (
 )
 
 
-def _stages(init_dim, dim, dim_mults, cond_dim, groups, dtype):
+def _stages(init_dim, dim, dim_mults, cond_dim, groups, dtype, remat=False):
     dims = [init_dim] + [dim * m for m in dim_mults]
     in_out = list(zip(dims[:-1], dims[1:]))
     downs, ups = nn.ModuleList(), nn.ModuleList()
     for i, (d_in, d_out) in enumerate(in_out):
         last = i >= len(in_out) - 1
         downs.append(nn.ModuleList([
-            ResnetBlock(d_in, d_in, cond_dim, groups, dtype),
-            ResnetBlock(d_in, d_in, cond_dim, groups, dtype),
+            ResnetBlock(d_in, d_in, cond_dim, groups, dtype, remat),
+            ResnetBlock(d_in, d_in, cond_dim, groups, dtype, remat),
             PreNormResidual(d_in, LinearAttention(d_in, dtype=dtype), dtype),
             Downsample(d_in, d_out, dtype) if not last else
             Conv2d(d_in, d_out, 3, padding=1, dtype=dtype),
@@ -52,8 +52,8 @@ def _stages(init_dim, dim, dim_mults, cond_dim, groups, dtype):
     for i, (d_in, d_out) in enumerate(reversed(in_out)):
         last = i == len(in_out) - 1
         ups.append(nn.ModuleList([
-            ResnetBlock(d_out + d_in, d_out, cond_dim, groups, dtype),
-            ResnetBlock(d_out + d_in, d_out, cond_dim, groups, dtype),
+            ResnetBlock(d_out + d_in, d_out, cond_dim, groups, dtype, remat),
+            ResnetBlock(d_out + d_in, d_out, cond_dim, groups, dtype, remat),
             PreNormResidual(d_out, LinearAttention(d_out, dtype=dtype),
                             dtype),
             Upsample(d_out, d_in, dtype) if not last else
@@ -94,12 +94,14 @@ class DiffusionUNet(nn.Module):
 
     forward(x (b, channels, h, w), time (b,), param_cond (b, 4)) -> fp32
     (b, channels, h, w) prediction (x0 for the production objective).
+    ``remat`` recomputes every ResnetBlock in the backward instead of
+    keeping its activations (training memory; gradients do not change).
     """
 
     def __init__(self, dim: int = 64, param_cond_dim: int = 4,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), channels: int = 1,
                  resnet_block_groups: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.dim, self.channels, self.dtype = dim, channels, dtype
         time_dim = param_dim = dim * 4
@@ -112,13 +114,15 @@ class DiffusionUNet(nn.Module):
             Linear(param_dim, param_dim, dtype=dtype))
         cond_dim = time_dim + param_dim
         g = resnet_block_groups
+        self.remat = remat
         self.downs, self.ups, mid = _stages(dim, dim, dim_mults, cond_dim,
-                                            g, dtype)
-        self.mid_block1 = ResnetBlock(mid, mid, cond_dim, g, dtype)
+                                            g, dtype, remat)
+        self.mid_block1 = ResnetBlock(mid, mid, cond_dim, g, dtype, remat)
         self.mid_attn = PreNormResidual(mid, Attention(mid, dtype=dtype),
                                         dtype)
-        self.mid_block2 = ResnetBlock(mid, mid, cond_dim, g, dtype)
-        self.final_res_block = ResnetBlock(dim * 2, dim, cond_dim, g, dtype)
+        self.mid_block2 = ResnetBlock(mid, mid, cond_dim, g, dtype, remat)
+        self.final_res_block = ResnetBlock(dim * 2, dim, cond_dim, g, dtype,
+                                           remat)
         self.final_conv = nn.Conv2d(dim, channels, 1)
         self.final_conv.keep_fp32 = True
 

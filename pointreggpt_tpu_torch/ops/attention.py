@@ -1,10 +1,16 @@
 """K2: bottleneck full attention, with its plain PyTorch version.
 
-``multihead_attention`` runs the hand-written CUDA flash kernel
-(``csrc/attention.cu``, which replaces
+``multihead_attention`` is a ``torch.autograd.Function``. Its forward runs
+the hand-written CUDA flash kernel (``csrc/attention.cu``, which replaces
 ``pointreggpt_tpu/ops/attention.py::_attention_pallas``) for a CUDA tensor
 and ``multihead_attention_plain`` for a CPU tensor. No fallback: a CUDA
-tensor the kernel does not take raises. Inference only.
+tensor the kernel does not take raises.
+
+Its backward recomputes ``multihead_attention_plain`` under autograd and
+takes that function's gradient, on either device: the exact counterpart
+of ``_attention_pallas_ad_bwd``, whose backward is XLA's vjp of
+``_attention_xla``. The JAX package has no backward kernel for K2, so a
+plain backward is the faithful port here, not a missing kernel.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from pointreggpt_tpu_torch.ops import _build
 
@@ -33,6 +40,30 @@ def multihead_attention(q, k, v, *, scale: float) -> torch.Tensor:
     they share strides and each head's d values are contiguous. Returns a
     contiguous (b, n, h, d) tensor in q.dtype.
     """
+    return MultiheadAttentionFn.apply(q, k, v, scale)
+
+
+class MultiheadAttentionFn(torch.autograd.Function):
+    """K2 forward; the backward is the gradient of the plain version,
+    recomputed (``_attention_pallas_ad`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = multihead_attention_plain(*leaves, scale=ctx.scale)
+            return (*torch.autograd.grad(out, leaves, g), None)
+
+
+def _forward(q, k, v, scale: float) -> torch.Tensor:
+    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return multihead_attention_plain(q, k, v, scale=scale)
     if q.device.type != "cuda":

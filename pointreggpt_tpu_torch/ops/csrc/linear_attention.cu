@@ -23,7 +23,8 @@
 //
 // Design: the TPU kernel walks n sequentially with (m, s, C) carried in
 // VMEM. Here blocks run in parallel and carry nothing, so one wrapper call
-// is three launches:
+// is three launches (A and B are shared with K3 through
+// linear_attention_kv.cuh):
 //   A  kv_partials   grid (splits, b): each block streams its row range,
 //                    projects k and v in its own body, keeps a running
 //                    per-lane max and sum and the four 32x32 head blocks of
@@ -43,7 +44,7 @@
 // qkv, exp(k - m), C^, the softmaxed q, the core and the projected output
 // (+ bias) are rounded to T where that version materializes them in T.
 
-#include "common.cuh"
+#include "linear_attention_kv.cuh"
 
 #include <math.h>
 
@@ -52,142 +53,21 @@ namespace {
 using prgpt::from_f;
 using prgpt::rnd;
 using prgpt::to_f;
-
-constexpr int HID = 128;              // heads * dim_head
-constexpr int DH = 32;                // dim_head
-constexpr int NH = HID / DH;          // heads
-constexpr int QKV = 3 * HID;          // packed projection width
-constexpr int CBLK = NH * DH * DH;    // head-diagonal blocks of C
-constexpr int PSTRIDE = 2 * HID + CBLK;  // one partial: m, s, C blocks
-constexpr int THREADS = 256;
-constexpr int ROWS = 16;              // rows per tile
+using namespace prgpt::la;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 kv_partials(const T* __restrict__ x, const T* __restrict__ wqkv,
             float* __restrict__ part, int n, int c, int rows_per_split,
             int splits) {
-  extern __shared__ float smem[];
-  float* xs = smem;                     // ROWS * c
-  float* kv = xs + ROWS * c;            // ROWS * 2*HID, [k | v]
-  float* ek = kv + ROWS * 2 * HID;      // ROWS * HID, exp(k - m) in T
-  float* m_s = ek + ROWS * HID;         // HID running max
-  float* alpha_s = m_s + HID;           // HID rescale for this tile
-
-  const int tid = threadIdx.x;
-  const int split = blockIdx.x;
-  const int bi = blockIdx.y;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(n, r_begin + rows_per_split);
-  const T* xb = x + static_cast<size_t>(bi) * n * c;
-
-  // this thread's C entries: row cd, 16 columns inside cd's head block
-  const int cd = tid >> 1;
-  const int ce0 = (cd / DH) * DH + (tid & 1) * 16;
-  float acc[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.f;
-  float run_s = 0.f;
-  if (tid < HID) m_s[tid] = -INFINITY;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += ROWS) {
-    const int rows = min(ROWS, r_end - r0);
-    __syncthreads();
-    for (int i = tid; i < rows * c; i += THREADS)
-      xs[i] = to_f(xb[static_cast<size_t>(r0) * c + i]);
-    __syncthreads();
-
-    // kv column tid (k for tid < 128, v above), all rows of the tile
-    {
-      float a[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
-      const T* wcol = wqkv + HID + tid;
-      for (int ci = 0; ci < c; ++ci) {
-        const float w = to_f(wcol[static_cast<size_t>(ci) * QKV]);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) a[r] = fmaf(xs[r * c + ci], w, a[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        if (r < rows) kv[r * 2 * HID + tid] = rnd<T>(a[r]);
-    }
-    __syncthreads();
-
-    if (tid < HID) {
-      float tmax = -INFINITY;
-      for (int r = 0; r < rows; ++r) tmax = fmaxf(tmax, kv[r * 2 * HID + tid]);
-      const float m_old = m_s[tid];
-      const float m_new = fmaxf(m_old, tmax);
-      const float al = expf(m_old - m_new);
-      float ssum = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        const float e = expf(kv[r * 2 * HID + tid] - m_new);
-        ssum += e;
-        ek[r * HID + tid] = rnd<T>(e);
-      }
-      run_s = run_s * al + ssum;
-      m_s[tid] = m_new;
-      alpha_s[tid] = al;
-    }
-    __syncthreads();
-
-    const float al = alpha_s[cd];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[j] *= al;
-    for (int r = 0; r < rows; ++r) {
-      const float p = ek[r * HID + cd];
-      const float* vr = kv + r * 2 * HID + HID + ce0;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[j] = fmaf(p, vr[j], acc[j]);
-    }
-  }
-
-  __syncthreads();
-  float* out = part + (static_cast<size_t>(bi) * splits + split) * PSTRIDE;
-  if (tid < HID) {
-    out[tid] = m_s[tid];
-    out[HID + tid] = run_s;
-  }
-  float* cout = out + 2 * HID + (cd / DH) * DH * DH + (cd % DH) * DH +
-                (ce0 % DH);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) cout[j] = acc[j];
+  kv_partials_body<T>(x, wqkv, part, n, c, rows_per_split, splits);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 merge_context(const float* __restrict__ part, float* __restrict__ chat,
               int splits, float scale) {
-  __shared__ float m_s[HID];
-  __shared__ float inv_s[HID];
-  const int tid = threadIdx.x;
-  const int bi = blockIdx.x;
-  const float* pb = part + static_cast<size_t>(bi) * splits * PSTRIDE;
-
-  if (tid < HID) {
-    float m = -INFINITY;
-    for (int i = 0; i < splits; ++i) m = fmaxf(m, pb[i * PSTRIDE + tid]);
-    float s = 0.f;
-    for (int i = 0; i < splits; ++i) {
-      const float mi = pb[i * PSTRIDE + tid];
-      if (mi != -INFINITY) s += pb[i * PSTRIDE + HID + tid] * expf(mi - m);
-    }
-    m_s[tid] = m;
-    inv_s[tid] = 1.f / fmaxf(s, 1e-30f);
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < CBLK; idx += THREADS) {
-    const int d = (idx / (DH * DH)) * DH + (idx / DH) % DH;
-    float acc = 0.f;
-    for (int i = 0; i < splits; ++i) {
-      const float mi = pb[i * PSTRIDE + d];
-      if (mi != -INFINITY)
-        acc += pb[i * PSTRIDE + 2 * HID + idx] * expf(mi - m_s[d]);
-    }
-    chat[static_cast<size_t>(bi) * CBLK + idx] = rnd<T>(acc * scale * inv_s[d]);
-  }
+  merge_context_body<T>(part, chat, nullptr, splits, scale);
 }
 
 template <typename T>
@@ -299,7 +179,7 @@ cudaError_t launch(const void* x, const void* wqkv, const void* wout,
                    float* part, float* chat, int b, int n, int c,
                    int splits, int rows_per_split, float eps,
                    cudaStream_t stream) {
-  const size_t smem_a = sizeof(float) * (ROWS * c + ROWS * 3 * HID + 2 * HID);
+  const size_t smem_a = kv_partials_smem(c);
   const size_t smem_c = sizeof(float) * (ROWS * c + 2 * ROWS * HID + CBLK);
   cudaError_t err = prgpt::allow_smem(kv_partials<T>, smem_a);
   if (err != cudaSuccess) return err;

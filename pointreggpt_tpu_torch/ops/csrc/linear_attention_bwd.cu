@@ -1,0 +1,712 @@
+// K3: the analytic backward of the LinearAttention block (K1), hand-written
+// for Hopper (sm_90a).
+//
+// Replaces pointreggpt_tpu/ops/linear_attention.py::_pallas_fused_bwd.
+//
+// Given x and dy (b, n, c) in T (bf16 or fp32) and K1's weights (W_qkv
+// (c, 384) and W_out (128, c) in T, b_out and g fp32), returns
+//   dx_q  = the part of dx through the q projection            (b, n, c) T
+//   dx_kv = the part of dx through the k and v projections     (b, n, c) T
+//   dW_qkv (c, 384), dW_out (128, c), db_out (c), dg (c)        fp32
+// heads = 4, dim_head = 32 are compile-time constants.
+//
+// Bound on this card, at (32, 65536, 64) bf16: the function needs 515
+// GFLOP of products (per row 2 * (1536 c + 24,576): the q, k, v and out
+// projections once, their transposes for dx, the weight gradients, and the
+// six context products on the four head blocks), 0.52 ms at 989 TFLOP/s;
+// it must move x, dy, dx_q and dx_kv once, 1.07 GB, 0.32 ms at 3.35 TB/s:
+// it is operation-bound (ops/linear_attention.py::work_bwd counts every
+// shape, and chip_smoke.py turns that into the bound). This kernel, like
+// the TPU one, projects k and v a second time in its kv pass (another
+// 256 c products per row) rather than keep them.
+//
+// Design: the TPU kernel walks n sequentially per batch row in four phases
+// and keeps every weight-gradient accumulator in VMEM across the whole
+// grid. Hopper blocks carry nothing between them, so one call is these
+// launches, each a pure function of its inputs:
+//   1 bwd_kv_partials   (splits, b)  the forward's k/v statistics again
+//   2 bwd_merge_context (b)          C^ for the q path, and the merged m, s
+//                                    and unscaled C the fold needs
+//                                    (1 and 2 share their code with K1
+//                                    through linear_attention_kv.cuh)
+//   3 q_path_bwd        (splits, b)  per 16-row tile: recompute q, its
+//                        per-head softmax, the core and the pre-norm output;
+//                        LayerNorm backward -> dpre; dcore = dpre W_out^T;
+//                        dqs = dcore C^T; softmax backward -> dq; dx_q =
+//                        dq W_q^T. Writes core, dpre and dq (in T) for the
+//                        weight gradients, and per-block partials of dC^,
+//                        dg and db_out kept in registers across its tiles.
+//   4 fold_context      (b)          dC^ = round_T(sum of the partials);
+//                        dC = dC^ scale / s; ds = -sum_e dC^ C scale / s^2
+//   5 kv_path_bwd       (tiles, b)   recompute k, v and ek = exp(k - m);
+//                        dk = ek (round_T(v dC^T) + ds), dv = round_T(ek) dC,
+//                        dx_kv = dk W_k^T + dv W_v^T; writes dk, dv (in T)
+//   6 wgrad_partials x2  split-over-rows products dW_qkv = x^T [dq|dk|dv]
+//                        and dW_out = core^T dpre, 64x64 output tiles
+//   7 reduce_partials x4 sum the partials of dW_qkv, dW_out, dg, db_out
+// The gradient through the running max m cancels (C / s does not move when
+// m shifts), so m is a constant here, as in the TPU kernel. Every
+// reduction across blocks sums its partials in a fixed order, with no
+// atomics: two runs agree bit for bit. Products are fp32 FMAs on the CUDA
+// cores; tensor cores, TMA and keeping core / dpre / dqkv on chip are later
+// work (they cost 2 (128 + c + 384) bytes per row of traffic here).
+//
+// Rounding follows the plain PyTorch version (the autograd of K1's plain
+// version, ops/linear_attention.py::fused_linear_attention_bwd_plain): the
+// forward quantities are recomputed with K1's roundings, and dpre, dcore,
+// dC^ (after its sum over n), dqs, dq, v dC^T, dk, dv and both dx parts
+// are rounded to T where that version materializes them in T. The weight
+// gradients stay fp32 (the plain version rounds them to T: at most one T
+// step apart).
+
+#include "linear_attention_kv.cuh"
+
+#include <math.h>
+
+namespace {
+
+using prgpt::from_f;
+using prgpt::rnd;
+using prgpt::to_f;
+using prgpt::warp_max;
+using prgpt::warp_sum;
+using namespace prgpt::la;
+
+constexpr int MAX_C = 1024;           // widest c the q path's tiles fit
+constexpr int CPT = MAX_C / THREADS;  // dg / db columns per thread
+constexpr int WT = 64;                // weight-gradient output tile
+constexpr int WK = 32;                // rows per weight-gradient stage
+constexpr int TARGET_BLOCKS = 2 * 2 * 132;  // ~2x the SMs, two waves
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bwd_kv_partials(const T* __restrict__ x, const T* __restrict__ wqkv,
+                float* __restrict__ part, int n, int c, int rows_per_split,
+                int splits) {
+  kv_partials_body<T>(x, wqkv, part, n, c, rows_per_split, splits);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bwd_merge_context(const float* __restrict__ part, float* __restrict__ chat,
+                  float* __restrict__ stats, int splits, float scale) {
+  merge_context_body<T>(part, chat, stats, splits, scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+q_path_bwd(const T* __restrict__ x, const T* __restrict__ dy,
+           const T* __restrict__ wqkv, const T* __restrict__ wout,
+           const float* __restrict__ bout, const float* __restrict__ g,
+           const float* __restrict__ chat, T* __restrict__ dxq,
+           T* __restrict__ core_out, T* __restrict__ dpre_out,
+           T* __restrict__ dqkv, float* __restrict__ qpart, int n, int c,
+           int rows_per_split, int splits, float eps) {
+  extern __shared__ float smem[];
+  float* A = smem;                 // ROWS * c: x, then pre, then dpre
+  float* B = A + ROWS * c;         // ROWS * c: dy
+  float* qsm = B + ROWS * c;       // ROWS * HID: softmaxed q, fp32
+  float* cb = qsm + ROWS * HID;    // ROWS * HID: core, then dcore
+  float* db = cb + ROWS * HID;     // ROWS * HID: dqs, then dq
+  float* ch = db + ROWS * HID;     // CBLK: C^
+  float* rs = ch + CBLK;           // ROWS * 4: mean, 1/sigma, the two means
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int split = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(n, r_begin + rows_per_split);
+  const size_t base = static_cast<size_t>(bi) * n;
+
+  for (int i = tid; i < CBLK; i += THREADS)
+    ch[i] = chat[static_cast<size_t>(bi) * CBLK + i];
+
+  // this thread's dC^ entries: row cd, 16 columns inside cd's head block
+  const int cd = tid >> 1;
+  const int ce0 = (cd / DH) * DH + (tid & 1) * 16;
+  float dch[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) dch[j] = 0.f;
+  float dg_acc[CPT], db_acc[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) dg_acc[k] = db_acc[k] = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += ROWS) {
+    const int rows = min(ROWS, r_end - r0);
+    const size_t row0 = base + r0;
+    __syncthreads();
+    for (int i = tid; i < rows * c; i += THREADS) {
+      A[i] = to_f(x[row0 * c + i]);
+      B[i] = to_f(dy[row0 * c + i]);
+    }
+    __syncthreads();
+
+    // q = x W_q, rounded to T: column tid % 128, rows tid / 128 + 2k
+    {
+      const int col = tid & (HID - 1);
+      const int rh = tid >> 7;
+      float a[ROWS / 2];
+#pragma unroll
+      for (int k = 0; k < ROWS / 2; ++k) a[k] = 0.f;
+      for (int ci = 0; ci < c; ++ci) {
+        const float w = to_f(wqkv[static_cast<size_t>(ci) * QKV + col]);
+#pragma unroll
+        for (int k = 0; k < ROWS / 2; ++k)
+          a[k] = fmaf(A[(rh + 2 * k) * c + ci], w, a[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < ROWS / 2; ++k)
+        if (rh + 2 * k < rows) qsm[(rh + 2 * k) * HID + col] = rnd<T>(a[k]);
+    }
+    __syncthreads();
+
+    // softmax over each head's 32 lanes, kept in fp32 for its backward
+    for (int task = warp; task < rows * NH; task += THREADS / 32) {
+      float* qv = qsm + (task / NH) * HID + (task % NH) * DH;
+      const float v = qv[lane];
+      const float e = expf(v - warp_max(v));
+      qv[lane] = e / warp_sum(e);
+    }
+    __syncthreads();
+
+    // core = round_T(q_s) C^ on the head blocks, rounded; kept for dW_out
+    for (int idx = tid; idx < rows * HID; idx += THREADS) {
+      const int r = idx / HID;
+      const int e = idx % HID;
+      const int h = e / DH;
+      const float* qv = qsm + r * HID + h * DH;
+      const float* cv = ch + h * DH * DH + (e % DH);
+      float a = 0.f;
+#pragma unroll
+      for (int dl = 0; dl < DH; ++dl) a = fmaf(rnd<T>(qv[dl]), cv[dl * DH], a);
+      const float cr = rnd<T>(a);
+      cb[idx] = cr;
+      core_out[(row0 + r) * HID + e] = from_f<T>(cr);
+    }
+    __syncthreads();
+
+    // pre = round_T(round_T(core W_out) + round_T(b_out)), into A
+    for (int j = tid; j < c; j += THREADS) {
+      float a[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
+      for (int e = 0; e < HID; ++e) {
+        const float w = to_f(wout[static_cast<size_t>(e) * c + j]);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) a[r] = fmaf(cb[r * HID + e], w, a[r]);
+      }
+      const float bj = rnd<T>(bout[j]);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        if (r < rows) A[r * c + j] = rnd<T>(rnd<T>(a[r]) + bj);
+    }
+    __syncthreads();
+
+    // per row: LayerNorm mean and 1/sigma, and the means of dxhat and
+    // dxhat * xhat (dxhat = dy g) that its backward subtracts
+    for (int r = warp; r < rows; r += THREADS / 32) {
+      const float* yr = A + r * c;
+      const float* dr = B + r * c;
+      float s = 0.f;
+      for (int j = lane; j < c; j += 32) s += yr[j];
+      const float mean = warp_sum(s) / c;
+      float v = 0.f;
+      for (int j = lane; j < c; j += 32) {
+        const float d = yr[j] - mean;
+        v = fmaf(d, d, v);
+      }
+      const float inv = rsqrtf(warp_sum(v) / c + eps);
+      float s1 = 0.f, s2 = 0.f;
+      for (int j = lane; j < c; j += 32) {
+        const float dxh = dr[j] * g[j];
+        s1 += dxh;
+        s2 = fmaf(dxh, (yr[j] - mean) * inv, s2);
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        rs[4 * r] = mean;
+        rs[4 * r + 1] = inv;
+        rs[4 * r + 2] = s1 / c;
+        rs[4 * r + 3] = s2 / c;
+      }
+    }
+    __syncthreads();
+
+    // dpre = (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) / sigma, rounded,
+    // in place of pre; dg += dy xhat, db_out += dpre
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const int j = tid + k * THREADS;
+      if (j < c) {
+        const float gj = g[j];
+        for (int r = 0; r < rows; ++r) {
+          const float xh = (A[r * c + j] - rs[4 * r]) * rs[4 * r + 1];
+          const float dyv = B[r * c + j];
+          dg_acc[k] = fmaf(dyv, xh, dg_acc[k]);
+          const float dp = rnd<T>(rs[4 * r + 1] *
+                                  (dyv * gj - rs[4 * r + 2] -
+                                   xh * rs[4 * r + 3]));
+          db_acc[k] += dp;
+          A[r * c + j] = dp;
+          dpre_out[(row0 + r) * c + j] = from_f<T>(dp);
+        }
+      }
+    }
+    __syncthreads();
+
+    // dcore = round_T(dpre W_out^T): column e = tid % 128, rows tid/128 + 2k
+    {
+      const int e = tid & (HID - 1);
+      const int rh = tid >> 7;
+      float a[ROWS / 2];
+#pragma unroll
+      for (int k = 0; k < ROWS / 2; ++k) a[k] = 0.f;
+      const T* wrow = wout + static_cast<size_t>(e) * c;
+      for (int j = 0; j < c; ++j) {
+        const float w = to_f(wrow[j]);
+#pragma unroll
+        for (int k = 0; k < ROWS / 2; ++k)
+          a[k] = fmaf(A[(rh + 2 * k) * c + j], w, a[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < ROWS / 2; ++k)
+        if (rh + 2 * k < rows) cb[(rh + 2 * k) * HID + e] = rnd<T>(a[k]);
+    }
+    __syncthreads();
+
+    // dC^ partial += round_T(q_s)^T dcore over this tile's rows
+    for (int r = 0; r < rows; ++r) {
+      const float p = rnd<T>(qsm[r * HID + cd]);
+      const float* dv = cb + r * HID + ce0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) dch[j] = fmaf(p, dv[j], dch[j]);
+    }
+    // dqs = round_T(dcore C^T): lane d of head h takes row d of the block
+    for (int idx = tid; idx < rows * HID; idx += THREADS) {
+      const int r = idx / HID;
+      const int d = idx % HID;
+      const int h = d / DH;
+      const float* dv = cb + r * HID + h * DH;
+      const float* cv = ch + h * DH * DH + (d % DH) * DH;
+      float a = 0.f;
+#pragma unroll
+      for (int el = 0; el < DH; ++el) a = fmaf(dv[el], cv[el], a);
+      db[idx] = rnd<T>(a);
+    }
+    __syncthreads();
+
+    // softmax backward per (row, head): dq = q_s (dqs - sum(dqs q_s))
+    for (int task = warp; task < rows * NH; task += THREADS / 32) {
+      const int r = task / NH;
+      const int off = r * HID + (task % NH) * DH + lane;
+      const float qv = qsm[off];
+      const float dv = db[off];
+      const float s = warp_sum(dv * qv);
+      const float dq = rnd<T>(qv * (dv - s));
+      db[off] = dq;
+      dqkv[(row0 + r) * QKV + (task % NH) * DH + lane] = from_f<T>(dq);
+    }
+    __syncthreads();
+
+    // dx_q = dq W_q^T: column j, every row of the tile
+    for (int j = tid; j < c; j += THREADS) {
+      float a[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
+      const T* wrow = wqkv + static_cast<size_t>(j) * QKV;
+      for (int e = 0; e < HID; ++e) {
+        const float w = to_f(wrow[e]);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) a[r] = fmaf(db[r * HID + e], w, a[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        if (r < rows) dxq[(row0 + r) * c + j] = from_f<T>(a[r]);
+    }
+  }
+
+  // this block's partials: dC^ blocks, then dg, then db_out
+  const int qstride = CBLK + 2 * c;
+  float* out = qpart + (static_cast<size_t>(bi) * splits + split) * qstride;
+  float* cout = out + (cd / DH) * DH * DH + (cd % DH) * DH + (ce0 % DH);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) cout[j] = dch[j];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int j = tid + k * THREADS;
+    if (j < c) {
+      out[CBLK + j] = dg_acc[k];
+      out[CBLK + c + j] = db_acc[k];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fold_context(const float* __restrict__ qpart, const float* __restrict__ stats,
+             float* __restrict__ dctx, int splits, int c, float scale) {
+  __shared__ float dchs[CBLK];
+  const int tid = threadIdx.x;
+  const int bi = blockIdx.x;
+  const int qstride = CBLK + 2 * c;
+  const float* pb = qpart + static_cast<size_t>(bi) * splits * qstride;
+  const float* st = stats + static_cast<size_t>(bi) * STATS;  // m, s, C
+  float* out = dctx + static_cast<size_t>(bi) * (CBLK + HID);  // dC, ds
+
+  for (int idx = tid; idx < CBLK; idx += THREADS) {
+    float a = 0.f;
+    for (int i = 0; i < splits; ++i) a += pb[i * qstride + idx];
+    dchs[idx] = rnd<T>(a);
+  }
+  __syncthreads();
+
+  if (tid < HID) {
+    const int h = tid / DH;
+    const int dl = tid % DH;
+    const float s = fmaxf(st[HID + tid], 1e-30f);
+    const float* row = dchs + h * DH * DH + dl * DH;
+    const float* crow = st + 2 * HID + h * DH * DH + dl * DH;
+    float a = 0.f;
+#pragma unroll
+    for (int el = 0; el < DH; ++el) a = fmaf(row[el], crow[el], a);
+    out[CBLK + tid] = -a * scale / (s * s);
+  }
+  for (int idx = tid; idx < CBLK; idx += THREADS) {
+    const int d = (idx / (DH * DH)) * DH + (idx / DH) % DH;
+    out[idx] = dchs[idx] * scale / fmaxf(st[HID + d], 1e-30f);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+kv_path_bwd(const T* __restrict__ x, const T* __restrict__ wqkv,
+            const float* __restrict__ stats, const float* __restrict__ dctx,
+            T* __restrict__ dxkv, T* __restrict__ dqkv, int n, int c) {
+  extern __shared__ float smem[];
+  float* xs = smem;                  // ROWS * c
+  float* kv = xs + ROWS * c;         // ROWS * 2*HID: [k | v]
+  float* ek = kv + ROWS * 2 * HID;   // ROWS * HID: exp(k - m), fp32
+  float* dkv = ek + ROWS * HID;      // ROWS * 2*HID: [dk | dv]
+  float* dc = dkv + ROWS * 2 * HID;  // CBLK: dC
+  float* ds = dc + CBLK;             // HID
+  float* m = ds + HID;               // HID
+
+  const int tid = threadIdx.x;
+  const int bi = blockIdx.y;
+  const int r0 = blockIdx.x * ROWS;
+  const int rows = min(ROWS, n - r0);
+  const size_t row0 = static_cast<size_t>(bi) * n + r0;
+  const float* dcb = dctx + static_cast<size_t>(bi) * (CBLK + HID);
+
+  for (int i = tid; i < CBLK + HID; i += THREADS) dc[i] = dcb[i];
+  if (tid < HID) m[tid] = stats[static_cast<size_t>(bi) * STATS + tid];
+  for (int i = tid; i < rows * c; i += THREADS) xs[i] = to_f(x[row0 * c + i]);
+  __syncthreads();
+
+  // k, v = x W_kv rounded to T: column tid, every row of the tile
+  {
+    float a[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
+    const T* wcol = wqkv + HID + tid;
+    for (int ci = 0; ci < c; ++ci) {
+      const float w = to_f(wcol[static_cast<size_t>(ci) * QKV]);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) a[r] = fmaf(xs[r * c + ci], w, a[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      if (r < rows) kv[r * 2 * HID + tid] = rnd<T>(a[r]);
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < rows * HID; idx += THREADS) {
+    const int r = idx / HID;
+    const int d = idx % HID;
+    ek[idx] = expf(kv[r * 2 * HID + d] - m[d]);
+  }
+  __syncthreads();
+
+  // dk = round_T(ek (round_T(v dC^T) + ds)), dv = round_T(round_T(ek) dC)
+  for (int idx = tid; idx < rows * 2 * HID; idx += THREADS) {
+    const int r = idx / (2 * HID);
+    const int col = idx % (2 * HID);
+    float a = 0.f;
+    if (col < HID) {
+      const int h = col / DH;
+      const float* vr = kv + r * 2 * HID + HID + h * DH;
+      const float* cr = dc + h * DH * DH + (col % DH) * DH;
+#pragma unroll
+      for (int el = 0; el < DH; ++el) a = fmaf(vr[el], cr[el], a);
+      dkv[idx] = rnd<T>(ek[r * HID + col] * (rnd<T>(a) + ds[col]));
+    } else {
+      const int e = col - HID;
+      const int h = e / DH;
+      const float* er = ek + r * HID + h * DH;
+      const float* cc = dc + h * DH * DH + (e % DH);
+#pragma unroll
+      for (int dl = 0; dl < DH; ++dl) a = fmaf(rnd<T>(er[dl]), cc[dl * DH], a);
+      dkv[idx] = rnd<T>(a);
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < rows * 2 * HID; idx += THREADS) {
+    const int r = idx / (2 * HID);
+    dqkv[(row0 + r) * QKV + HID + idx % (2 * HID)] = from_f<T>(dkv[idx]);
+  }
+  // dx_kv = dk W_k^T + dv W_v^T: column j, every row of the tile
+  for (int j = tid; j < c; j += THREADS) {
+    float a[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
+    const T* wrow = wqkv + static_cast<size_t>(j) * QKV + HID;
+    for (int e = 0; e < 2 * HID; ++e) {
+      const float w = to_f(wrow[e]);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) a[r] = fmaf(dkv[r * 2 * HID + e], w, a[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      if (r < rows) dxkv[(row0 + r) * c + j] = from_f<T>(a[r]);
+  }
+}
+
+// part[split] (P, Q) = sum over the split's rows of a[row]^T b[row]: a is
+// (rows, P), b (rows, Q), both row-major in T. One 64x64 output tile per
+// block, a 4x4 micro-tile per thread.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+wgrad_partials(const T* __restrict__ a, const T* __restrict__ b,
+               float* __restrict__ part, long long rows, int P, int Q,
+               long long rows_per_split) {
+  __shared__ __align__(16) float as[WK][WT];
+  __shared__ __align__(16) float bs[WK][WT];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int p0 = blockIdx.x * WT;
+  const int q0 = blockIdx.y * WT;
+  const int split = blockIdx.z;
+  const long long r_begin = split * rows_per_split;
+  const long long r_end = min(rows, r_begin + rows_per_split);
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (long long k0 = r_begin; k0 < r_end; k0 += WK) {
+    __syncthreads();
+    for (int i = tid; i < WK * WT; i += THREADS) {
+      const int kk = i / WT;
+      const int cc = i % WT;
+      const long long r = k0 + kk;
+      const bool in = r < r_end;
+      as[kk][cc] = (in && p0 + cc < P) ? to_f(a[r * P + p0 + cc]) : 0.f;
+      bs[kk][cc] = (in && q0 + cc < Q) ? to_f(b[r * Q + q0 + cc]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < WK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+  }
+
+  float* out = part + static_cast<size_t>(split) * P * Q;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = p0 + ty * 4 + i;
+    if (p >= P) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = q0 + tx * 4 + j;
+      if (q < Q) out[static_cast<size_t>(p) * Q + q] = acc[i][j];
+    }
+  }
+}
+
+// out[i] = sum over s < count of part[s * stride + i], in order of s
+__global__ void __launch_bounds__(THREADS)
+reduce_partials(const float* __restrict__ part, long long stride, int count,
+                int len, float* __restrict__ out) {
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < len;
+       i += gridDim.x * THREADS) {
+    float a = 0.f;
+    for (int s = 0; s < count; ++s) a += part[s * stride + i];
+    out[i] = a;
+  }
+}
+
+// How one call divides its work: row splits of the two streaming passes,
+// row splits of the two weight-gradient products, and the fp32 and T
+// scratch they need (counts of elements).
+struct Plan {
+  int splits, rows_per_split;          // passes 1 and 3
+  int ws_qkv, ws_out;                  // weight-gradient row splits
+  long long wrows_qkv, wrows_out;      // rows per weight-gradient split
+  size_t part, chat, stats, qpart, dctx, wq, wo, f_total;  // fp32 offsets
+  size_t core, dpre, dqkv, t_total;    // T offsets
+};
+
+inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// Row splits of `rows` in whole `step`s for about `target` blocks.
+inline void split_rows(long long rows, long long step, long long target,
+                       int* splits, long long* per) {
+  const long long steps = cdiv(rows, step);
+  long long s = target < 1 ? 1 : target;
+  if (s > steps) s = steps;
+  const long long steps_per = cdiv(steps, s);
+  *splits = static_cast<int>(cdiv(steps, steps_per));
+  *per = steps_per * step;
+}
+
+inline Plan plan(int b, int n, int c) {
+  Plan p;
+  long long per;
+  split_rows(n, ROWS, cdiv(TARGET_BLOCKS, b), &p.splits, &per);
+  p.rows_per_split = static_cast<int>(per);
+  const long long rows = static_cast<long long>(b) * n;
+  split_rows(rows, WK, cdiv(TARGET_BLOCKS, cdiv(c, WT) * cdiv(QKV, WT)),
+             &p.ws_qkv, &p.wrows_qkv);
+  split_rows(rows, WK, cdiv(TARGET_BLOCKS, cdiv(HID, WT) * cdiv(c, WT)),
+             &p.ws_out, &p.wrows_out);
+  size_t o = 0;
+  p.part = o;  o += static_cast<size_t>(b) * p.splits * PSTRIDE;
+  p.chat = o;  o += static_cast<size_t>(b) * CBLK;
+  p.stats = o; o += static_cast<size_t>(b) * STATS;
+  p.qpart = o; o += static_cast<size_t>(b) * p.splits * (CBLK + 2 * c);
+  p.dctx = o;  o += static_cast<size_t>(b) * (CBLK + HID);
+  p.wq = o;    o += static_cast<size_t>(p.ws_qkv) * c * QKV;
+  p.wo = o;    o += static_cast<size_t>(p.ws_out) * HID * c;
+  p.f_total = o;
+  o = 0;
+  p.core = o;  o += static_cast<size_t>(rows) * HID;
+  p.dpre = o;  o += static_cast<size_t>(rows) * c;
+  p.dqkv = o;  o += static_cast<size_t>(rows) * QKV;
+  p.t_total = o;
+  return p;
+}
+
+inline cudaError_t reduce(const float* part, long long stride, int count,
+                          int len, float* out, cudaStream_t stream) {
+  const int blocks = static_cast<int>(
+      cdiv(len, THREADS) < 1024 ? cdiv(len, THREADS) : 1024);
+  reduce_partials<<<blocks, THREADS, 0, stream>>>(part, stride, count, len,
+                                                  out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* x_, const void* dy_, const void* wqkv_,
+                   const void* wout_, const float* bout, const float* g,
+                   void* dxq_, void* dxkv_, float* dwqkv, float* dwout,
+                   float* dbout, float* dg, float* fs, void* ts_, int b,
+                   int n, int c, float eps, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(x_);
+  const T* dy = static_cast<const T*>(dy_);
+  const T* wqkv = static_cast<const T*>(wqkv_);
+  const T* wout = static_cast<const T*>(wout_);
+  T* ts = static_cast<T*>(ts_);
+  const Plan p = plan(b, n, c);
+  const float scale = rsqrtf(static_cast<float>(DH)) / static_cast<float>(n);
+
+  const size_t smem_a = kv_partials_smem(c);
+  const size_t smem_q =
+      sizeof(float) * (2 * ROWS * c + 3 * ROWS * HID + CBLK + 4 * ROWS);
+  const size_t smem_kv =
+      sizeof(float) * (ROWS * c + 5 * ROWS * HID + CBLK + 2 * HID);
+  cudaError_t err = prgpt::allow_smem(bwd_kv_partials<T>, smem_a);
+  if (err != cudaSuccess) return err;
+  err = prgpt::allow_smem(q_path_bwd<T>, smem_q);
+  if (err != cudaSuccess) return err;
+  err = prgpt::allow_smem(kv_path_bwd<T>, smem_kv);
+  if (err != cudaSuccess) return err;
+
+  bwd_kv_partials<T><<<dim3(p.splits, b), THREADS, smem_a, stream>>>(
+      x, wqkv, fs + p.part, n, c, p.rows_per_split, p.splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_merge_context<T><<<b, THREADS, 0, stream>>>(
+      fs + p.part, fs + p.chat, fs + p.stats, p.splits, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  q_path_bwd<T><<<dim3(p.splits, b), THREADS, smem_q, stream>>>(
+      x, dy, wqkv, wout, bout, g, fs + p.chat, static_cast<T*>(dxq_),
+      ts + p.core, ts + p.dpre, ts + p.dqkv, fs + p.qpart, n, c,
+      p.rows_per_split, p.splits, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fold_context<T><<<b, THREADS, 0, stream>>>(
+      fs + p.qpart, fs + p.stats, fs + p.dctx, p.splits, c, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kv_path_bwd<T><<<dim3(cdiv(n, ROWS), b), THREADS, smem_kv, stream>>>(
+      x, wqkv, fs + p.stats, fs + p.dctx, static_cast<T*>(dxkv_),
+      ts + p.dqkv, n, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const long long rows = static_cast<long long>(b) * n;
+  wgrad_partials<T><<<dim3(cdiv(c, WT), cdiv(QKV, WT), p.ws_qkv), THREADS,
+                      0, stream>>>(x, ts + p.dqkv, fs + p.wq, rows, c, QKV,
+                                   p.wrows_qkv);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wgrad_partials<T><<<dim3(cdiv(HID, WT), cdiv(c, WT), p.ws_out), THREADS,
+                      0, stream>>>(ts + p.core, ts + p.dpre, fs + p.wo, rows,
+                                   HID, c, p.wrows_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const long long qstride = CBLK + 2 * c;
+  if ((err = reduce(fs + p.wq, static_cast<long long>(c) * QKV, p.ws_qkv,
+                    c * QKV, dwqkv, stream)) != cudaSuccess)
+    return err;
+  if ((err = reduce(fs + p.wo, static_cast<long long>(HID) * c, p.ws_out,
+                    HID * c, dwout, stream)) != cudaSuccess)
+    return err;
+  if ((err = reduce(fs + p.qpart + CBLK, qstride, b * p.splits, c, dg,
+                    stream)) != cudaSuccess)
+    return err;
+  return reduce(fs + p.qpart + CBLK + c, qstride, b * p.splits, c, dbout,
+                stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Widest c the kernel takes.
+int prgpt_linear_attention_bwd_max_c() { return MAX_C; }
+
+// fp32 and T scratch elements the wrapper must allocate for (b, n, c).
+long long prgpt_linear_attention_bwd_fscratch(int b, int n, int c) {
+  return static_cast<long long>(plan(b, n, c).f_total);
+}
+long long prgpt_linear_attention_bwd_tscratch(int b, int n, int c) {
+  return static_cast<long long>(plan(b, n, c).t_total);
+}
+
+int prgpt_linear_attention_bwd(const void* x, const void* dy,
+                               const void* wqkv, const void* wout,
+                               const float* bout, const float* g, void* dxq,
+                               void* dxkv, float* dwqkv, float* dwout,
+                               float* dbout, float* dg, float* fscratch,
+                               void* tscratch, int b, int n, int c, float eps,
+                               int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(x, dy, wqkv, wout, bout, g, dxq, dxkv, dwqkv,
+                                 dwout, dbout, dg, fscratch, tscratch, b, n,
+                                 c, eps, s);
+  return launch<float>(x, dy, wqkv, wout, bout, g, dxq, dxkv, dwqkv, dwout,
+                       dbout, dg, fscratch, tscratch, b, n, c, eps, s);
+}
+
+}  // extern "C"

@@ -1,0 +1,180 @@
+// The k/v side of the LinearAttention block, shared by K1
+// (linear_attention.cu, the forward) and K3 (linear_attention_bwd.cu, its
+// backward, which recomputes these statistics exactly as the forward made
+// them):
+//
+//   k, v = x W_qkv[:, 128:256], x W_qkv[:, 256:384]   (rounded to T)
+//   m    = max_n k                   (per lane, online)
+//   s    = sum_n exp(k - m)
+//   C    = sum_n round_T(exp(k - m))^T v   (the four 32x32 head blocks)
+//   C^   = round_T(C / max(s, 1e-30) * 32^-1/2 / n)
+//
+// Blocks run in parallel and carry nothing, so the statistics come in two
+// launches: kv_partials_body over (split, batch) writes per-split (m, s, C)
+// partials; merge_context_body over batch merges them with max-rescaling.
+// Each kernel file wraps these bodies in __global__ kernels of its own
+// names, so a profile tells the forward's launches from the backward's.
+
+#pragma once
+
+#include "common.cuh"
+
+#include <math.h>
+
+namespace prgpt {
+namespace la {
+
+constexpr int HID = 128;              // heads * dim_head
+constexpr int DH = 32;                // dim_head
+constexpr int NH = HID / DH;          // heads
+constexpr int QKV = 3 * HID;          // packed projection width
+constexpr int CBLK = NH * DH * DH;    // head-diagonal blocks of C
+constexpr int PSTRIDE = 2 * HID + CBLK;  // one partial: m, s, C blocks
+constexpr int STATS = 2 * HID + CBLK;    // merged m, s, C of one batch row
+constexpr int THREADS = 256;
+constexpr int ROWS = 16;              // rows per tile
+
+// Dynamic shared memory of kv_partials_body for c channels.
+inline size_t kv_partials_smem(int c) {
+  return sizeof(float) * (ROWS * c + ROWS * 3 * HID + 2 * HID);
+}
+
+template <typename T>
+__device__ __forceinline__ void kv_partials_body(
+    const T* __restrict__ x, const T* __restrict__ wqkv,
+    float* __restrict__ part, int n, int c, int rows_per_split,
+    int splits) {
+  extern __shared__ float smem[];
+  float* xs = smem;                     // ROWS * c
+  float* kv = xs + ROWS * c;            // ROWS * 2*HID, [k | v]
+  float* ek = kv + ROWS * 2 * HID;      // ROWS * HID, exp(k - m) in T
+  float* m_s = ek + ROWS * HID;         // HID running max
+  float* alpha_s = m_s + HID;           // HID rescale for this tile
+
+  const int tid = threadIdx.x;
+  const int split = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int r_begin = split * rows_per_split;
+  const int r_end = min(n, r_begin + rows_per_split);
+  const T* xb = x + static_cast<size_t>(bi) * n * c;
+
+  // this thread's C entries: row cd, 16 columns inside cd's head block
+  const int cd = tid >> 1;
+  const int ce0 = (cd / DH) * DH + (tid & 1) * 16;
+  float acc[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) acc[j] = 0.f;
+  float run_s = 0.f;
+  if (tid < HID) m_s[tid] = -INFINITY;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += ROWS) {
+    const int rows = min(ROWS, r_end - r0);
+    __syncthreads();
+    for (int i = tid; i < rows * c; i += THREADS)
+      xs[i] = to_f(xb[static_cast<size_t>(r0) * c + i]);
+    __syncthreads();
+
+    // kv column tid (k for tid < 128, v above), all rows of the tile
+    {
+      float a[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
+      const T* wcol = wqkv + HID + tid;
+      for (int ci = 0; ci < c; ++ci) {
+        const float w = to_f(wcol[static_cast<size_t>(ci) * QKV]);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) a[r] = fmaf(xs[r * c + ci], w, a[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        if (r < rows) kv[r * 2 * HID + tid] = rnd<T>(a[r]);
+    }
+    __syncthreads();
+
+    if (tid < HID) {
+      float tmax = -INFINITY;
+      for (int r = 0; r < rows; ++r) tmax = fmaxf(tmax, kv[r * 2 * HID + tid]);
+      const float m_old = m_s[tid];
+      const float m_new = fmaxf(m_old, tmax);
+      const float al = expf(m_old - m_new);
+      float ssum = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float e = expf(kv[r * 2 * HID + tid] - m_new);
+        ssum += e;
+        ek[r * HID + tid] = rnd<T>(e);
+      }
+      run_s = run_s * al + ssum;
+      m_s[tid] = m_new;
+      alpha_s[tid] = al;
+    }
+    __syncthreads();
+
+    const float al = alpha_s[cd];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[j] *= al;
+    for (int r = 0; r < rows; ++r) {
+      const float p = ek[r * HID + cd];
+      const float* vr = kv + r * 2 * HID + HID + ce0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[j] = fmaf(p, vr[j], acc[j]);
+    }
+  }
+
+  __syncthreads();
+  float* out = part + (static_cast<size_t>(bi) * splits + split) * PSTRIDE;
+  if (tid < HID) {
+    out[tid] = m_s[tid];
+    out[HID + tid] = run_s;
+  }
+  float* cout = out + 2 * HID + (cd / DH) * DH * DH + (cd % DH) * DH +
+                (ce0 % DH);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) cout[j] = acc[j];
+}
+
+// Merge the partials of batch row blockIdx.x: C^ (rounded to T) into chat
+// and, when stats is not null, the merged m, s and unscaled C into
+// stats[bi * STATS + (0 | HID | 2 * HID)].
+template <typename T>
+__device__ __forceinline__ void merge_context_body(
+    const float* __restrict__ part, float* __restrict__ chat,
+    float* __restrict__ stats, int splits, float scale) {
+  __shared__ float m_s[HID];
+  __shared__ float inv_s[HID];
+  const int tid = threadIdx.x;
+  const int bi = blockIdx.x;
+  const float* pb = part + static_cast<size_t>(bi) * splits * PSTRIDE;
+  float* st = stats ? stats + static_cast<size_t>(bi) * STATS : nullptr;
+
+  if (tid < HID) {
+    float m = -INFINITY;
+    for (int i = 0; i < splits; ++i) m = fmaxf(m, pb[i * PSTRIDE + tid]);
+    float s = 0.f;
+    for (int i = 0; i < splits; ++i) {
+      const float mi = pb[i * PSTRIDE + tid];
+      if (mi != -INFINITY) s += pb[i * PSTRIDE + HID + tid] * expf(mi - m);
+    }
+    m_s[tid] = m;
+    inv_s[tid] = 1.f / fmaxf(s, 1e-30f);
+    if (st) {
+      st[tid] = m;
+      st[HID + tid] = s;
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < CBLK; idx += THREADS) {
+    const int d = (idx / (DH * DH)) * DH + (idx / DH) % DH;
+    float acc = 0.f;
+    for (int i = 0; i < splits; ++i) {
+      const float mi = pb[i * PSTRIDE + d];
+      if (mi != -INFINITY)
+        acc += pb[i * PSTRIDE + 2 * HID + idx] * expf(mi - m_s[d]);
+    }
+    chat[static_cast<size_t>(bi) * CBLK + idx] = rnd<T>(acc * scale * inv_s[d]);
+    if (st) st[2 * HID + idx] = acc;
+  }
+}
+
+}  // namespace la
+}  // namespace prgpt

@@ -1,10 +1,16 @@
-"""K1: the fused LinearAttention block, with its plain PyTorch version.
+"""K1 and K3: the fused LinearAttention block and its analytic backward,
+each with its plain PyTorch version.
 
-``fused_linear_attention`` runs the hand-written CUDA kernel
+``fused_linear_attention`` is a ``torch.autograd.Function`` (the port of
+the JAX ``custom_vjp``). Its forward runs the hand-written CUDA kernel K1
 (``csrc/linear_attention.cu``, which replaces
 ``pointreggpt_tpu/ops/linear_attention.py::_pallas_fused``) for a CUDA
-tensor and ``fused_linear_attention_plain`` for a CPU tensor. There is no
-fallback: a CUDA tensor the kernel does not take raises.
+tensor and ``fused_linear_attention_plain`` for a CPU tensor. It saves only
+``(x, w_qkv, w_out, b_out, g_out)``, the JAX residuals. Its backward runs
+K3 (``csrc/linear_attention_bwd.cu``, which replaces ``_pallas_fused_bwd``)
+through ``fused_linear_attention_bwd`` for a CUDA tensor and
+``fused_linear_attention_bwd_plain`` for a CPU tensor. There is no
+fallback: a CUDA tensor a kernel does not take raises.
 
 Block body: qkv projection -> softmax-q (over d per head) / softmax-k (over
 n) linear attention core -> out projection + bias -> channel LayerNorm
@@ -17,6 +23,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from pointreggpt_tpu_torch.ops import _build
 
@@ -49,6 +56,26 @@ def _core_plain(qkv: torch.Tensor, heads: int, dim_head: int
     return out.reshape(b, n, heads * dim_head).to(dtype)
 
 
+def _fused_plain(xq, xkv, w_qkv, w_out, b_out, g_out, heads, dim_head,
+                 eps) -> torch.Tensor:
+    """K1's plain body with x given twice: ``xq`` feeds the q projection,
+    ``xkv`` the k and v projections (the same tensor in the forward; two
+    leaves in the backward, so that dx comes out in its two parts)."""
+    dtype = xq.dtype
+    hidden = heads * dim_head
+    w = w_qkv.to(dtype).float()
+    qkv = torch.cat([xq.float() @ w[:, :hidden],
+                     xkv.float() @ w[:, hidden:]], dim=-1).to(dtype)
+    core = _core_plain(qkv, heads, dim_head)
+    out = (core.float() @ w_out.to(dtype).float()).to(dtype) + \
+        b_out.to(dtype)
+    xf = out.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    ln = (xf - mean) * torch.rsqrt(var + eps) * g_out.float()
+    return ln.to(dtype)
+
+
 def fused_linear_attention_plain(x, w_qkv, w_out, b_out, g_out,
                                  heads: int = HEADS,
                                  dim_head: int = DIM_HEAD,
@@ -60,16 +87,27 @@ def fused_linear_attention_plain(x, w_qkv, w_out, b_out, g_out,
         w_qkv: (c, 3*heads*dim_head); w_out: (heads*dim_head, c) — cast to
             x.dtype; b_out, g_out: (c,) fp32.
     """
-    dtype = x.dtype
-    qkv = (x.float() @ w_qkv.to(dtype).float()).to(dtype)
-    core = _core_plain(qkv, heads, dim_head)
-    out = (core.float() @ w_out.to(dtype).float()).to(dtype) + \
-        b_out.to(dtype)
-    xf = out.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, unbiased=False, keepdim=True)
-    ln = (xf - mean) * torch.rsqrt(var + eps) * g_out.float()
-    return ln.to(dtype)
+    return _fused_plain(x, x, w_qkv, w_out, b_out, g_out, heads, dim_head,
+                        eps)
+
+
+def fused_linear_attention_bwd_plain(x, dy, w_qkv, w_out, b_out, g_out,
+                                     heads: int = HEADS,
+                                     dim_head: int = DIM_HEAD,
+                                     eps: float = 1e-5) -> tuple:
+    """Plain PyTorch version of K3, a port of ``jax.vjp(_xla_fused)``: the
+    autograd of :func:`fused_linear_attention_plain` at ``dy``, with x as
+    two leaves (one feeds the q projection, the other k and v).
+
+    Returns ``(dx_q, dx_kv, dw_qkv, dw_out, db_out, dg)``, the outputs of
+    ``_pallas_fused_bwd``: the dx parts in x.dtype, the others in the
+    dtypes and shapes of the weights given.
+    """
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (x, x, w_qkv, w_out, b_out, g_out)]
+        out = _fused_plain(*leaves, heads, dim_head, eps)
+        return torch.autograd.grad(out, leaves, dy.to(out.dtype))
 
 
 def _splits(b: int, n: int, rows: int):
@@ -81,46 +119,48 @@ def _splits(b: int, n: int, rows: int):
     return -(-tiles // tiles_per_split), tiles_per_split * rows
 
 
-def fused_linear_attention(x, w_qkv, w_out, b_out, g_out,
-                           heads: int = HEADS, dim_head: int = DIM_HEAD,
-                           eps: float = 1e-5) -> torch.Tensor:
-    """LinearAttention block body (K1); add the residual outside.
-
-    A CPU tensor takes :func:`fused_linear_attention_plain`; a CUDA tensor
-    launches the kernel or raises. Returns (b, n, c) in x.dtype.
-    """
-    if x.device.type == "cpu":
-        return fused_linear_attention_plain(x, w_qkv, w_out, b_out, g_out,
-                                            heads, dim_head, eps)
+def _kernel_args(what, x, w_qkv, w_out, b_out, g_out, heads, dim_head,
+                 max_c):
+    """Check what K1 and K3 take and return the weights as the kernels
+    read them: W_qkv and W_out in x.dtype, b_out and g in fp32, each
+    contiguous on x's device."""
     if x.device.type != "cuda":
-        raise ValueError(f"fused_linear_attention: unsupported device "
-                         f"{x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if (heads, dim_head) != (HEADS, DIM_HEAD):
-        raise ValueError("fused_linear_attention kernel is built for 4 heads "
-                         f"x 32, got {heads} x {dim_head}")
+        raise ValueError(f"{what} kernel is built for 4 heads x 32, got "
+                         f"{heads} x {dim_head}")
     if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"fused_linear_attention: dtype {x.dtype}")
+        raise ValueError(f"{what}: dtype {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("fused_linear_attention: x must be a contiguous "
-                         "(b, n, c) tensor")
-    b, n, c = x.shape
-    if not 1 <= c <= 2048:
-        raise ValueError(f"fused_linear_attention: c={c} outside [1, 2048]")
+        raise ValueError(f"{what}: x must be a contiguous (b, n, c) tensor")
+    c = x.shape[2]
+    if not 1 <= c <= max_c:
+        raise ValueError(f"{what}: c={c} outside [1, {max_c}]")
     w_qkv = w_qkv.to(x.dtype).contiguous()
     w_out = w_out.to(x.dtype).contiguous()
     b_out = b_out.float().contiguous()
     g_out = g_out.float().contiguous()
     if w_qkv.shape != (c, 3 * HIDDEN) or w_out.shape != (HIDDEN, c) or \
             b_out.shape != (c,) or g_out.shape != (c,):
-        raise ValueError("fused_linear_attention: weight shapes "
-                         f"{tuple(w_qkv.shape)} {tuple(w_out.shape)} "
-                         f"{tuple(b_out.shape)} {tuple(g_out.shape)} do not "
-                         f"match c={c}")
+        raise ValueError(f"{what}: weight shapes {tuple(w_qkv.shape)} "
+                         f"{tuple(w_out.shape)} {tuple(b_out.shape)} "
+                         f"{tuple(g_out.shape)} do not match c={c}")
     for t in (w_qkv, w_out, b_out, g_out):
         if t.device != x.device:
-            raise ValueError("fused_linear_attention: weights on "
-                             f"{t.device}, x on {x.device}")
+            raise ValueError(f"{what}: weights on {t.device}, x on "
+                             f"{x.device}")
+    return w_qkv, w_out, b_out, g_out
 
+
+def _forward(x, w_qkv, w_out, b_out, g_out, heads, dim_head, eps):
+    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return fused_linear_attention_plain(x, w_qkv, w_out, b_out, g_out,
+                                            heads, dim_head, eps)
+    w_qkv, w_out, b_out, g_out = _kernel_args(
+        "fused_linear_attention", x, w_qkv, w_out, b_out, g_out, heads,
+        dim_head, 2048)
+    b, n, c = x.shape
     lib = _lib()
     splits, rows_per_split = _splits(
         b, n, lib.prgpt_linear_attention_rows_per_tile())
@@ -140,11 +180,96 @@ def fused_linear_attention(x, w_qkv, w_out, b_out, g_out,
     return out
 
 
+def fused_linear_attention_bwd(x, dy, w_qkv, w_out, b_out, g_out,
+                               heads: int = HEADS, dim_head: int = DIM_HEAD,
+                               eps: float = 1e-5) -> tuple:
+    """K3: the backward of the block at ``dy`` (same shape and dtype as x).
+
+    A CPU tensor takes :func:`fused_linear_attention_bwd_plain`; a CUDA
+    tensor launches the kernel or raises. Returns ``(dx_q, dx_kv, dw_qkv,
+    dw_out, db_out, dg)``: the dx parts (b, n, c) in x.dtype, the weight
+    gradients in fp32.
+    """
+    if x.device.type == "cpu":
+        return fused_linear_attention_bwd_plain(x, dy, w_qkv, w_out, b_out,
+                                                g_out, heads, dim_head, eps)
+    lib = _bwd_lib()
+    w_qkv, w_out, b_out, g_out = _kernel_args(
+        "fused_linear_attention_bwd", x, w_qkv, w_out, b_out, g_out, heads,
+        dim_head, lib.prgpt_linear_attention_bwd_max_c())
+    if dy.shape != x.shape or dy.dtype != x.dtype or \
+            dy.device != x.device or not dy.is_contiguous():
+        raise ValueError("fused_linear_attention_bwd: dy must be a "
+                         f"contiguous {tuple(x.shape)} {x.dtype} tensor on "
+                         f"{x.device}, got {tuple(dy.shape)} {dy.dtype} "
+                         f"on {dy.device}")
+    b, n, c = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # the scratch is freed on return while the launches still run: the
+    # caching allocator hands it out again only in the order of this stream
+    fscratch = torch.empty(lib.prgpt_linear_attention_bwd_fscratch(b, n, c),
+                           **f32)
+    tscratch = torch.empty(lib.prgpt_linear_attention_bwd_tscratch(b, n, c),
+                           dtype=x.dtype, device=x.device)
+    dx_q, dx_kv = torch.empty_like(x), torch.empty_like(x)
+    dw_qkv = torch.empty((c, 3 * HIDDEN), **f32)
+    dw_out = torch.empty((HIDDEN, c), **f32)
+    db_out, dg = torch.empty(c, **f32), torch.empty(c, **f32)
+    rc = lib.prgpt_linear_attention_bwd(
+        x.data_ptr(), dy.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
+        b_out.data_ptr(), g_out.data_ptr(), dx_q.data_ptr(),
+        dx_kv.data_ptr(), dw_qkv.data_ptr(), dw_out.data_ptr(),
+        db_out.data_ptr(), dg.data_ptr(), fscratch.data_ptr(),
+        tscratch.data_ptr(), b, n, c, float(eps),
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "fused_linear_attention_bwd")
+    fused_linear_attention_bwd.launches += 1
+    return dx_q, dx_kv, dw_qkv, dw_out, db_out, dg
+
+
+fused_linear_attention_bwd.launches = 0
+
+
+class FusedLinearAttentionFn(torch.autograd.Function):
+    """K1 forward, K3 backward (the JAX ``custom_vjp`` of
+    ``fused_linear_attention``)."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, w_out, b_out, g_out, heads, dim_head, eps):
+        ctx.save_for_backward(x, w_qkv, w_out, b_out, g_out)
+        ctx.config = (heads, dim_head, eps)
+        return _forward(x, w_qkv, w_out, b_out, g_out, heads, dim_head, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w_qkv, w_out, b_out, g_out = ctx.saved_tensors
+        dx_q, dx_kv, dw_qkv, dw_out, db_out, dg = fused_linear_attention_bwd(
+            x, dy.to(x.dtype).contiguous(), w_qkv, w_out, b_out, g_out,
+            *ctx.config)
+        return (dx_q + dx_kv, dw_qkv.to(w_qkv.dtype), dw_out.to(w_out.dtype),
+                db_out.to(b_out.dtype), dg.to(g_out.dtype), None, None, None)
+
+
+def fused_linear_attention(x, w_qkv, w_out, b_out, g_out,
+                           heads: int = HEADS, dim_head: int = DIM_HEAD,
+                           eps: float = 1e-5) -> torch.Tensor:
+    """LinearAttention block body (K1, differentiated by K3); add the
+    residual outside. Returns (b, n, c) in x.dtype."""
+    return FusedLinearAttentionFn.apply(x, w_qkv, w_out, b_out, g_out, heads,
+                                        dim_head, eps)
+
+
 fused_linear_attention.launches = 0
 
 
 def _lib():
     return bind(_build.load("linear_attention"))
+
+
+def _bwd_lib():
+    return bind_bwd(_build.load("linear_attention_bwd"))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -163,6 +288,24 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from
+    ``csrc/linear_attention_bwd.cu`` (once per library)."""
+    if not getattr(lib, "_prgpt_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.prgpt_linear_attention_bwd.argtypes = [p] * 14 + [i, i, i, f, i,
+                                                              p]
+        lib.prgpt_linear_attention_bwd.restype = i
+        lib.prgpt_linear_attention_bwd_max_c.argtypes = []
+        lib.prgpt_linear_attention_bwd_max_c.restype = i
+        for fn in (lib.prgpt_linear_attention_bwd_fscratch,
+                   lib.prgpt_linear_attention_bwd_tscratch):
+            fn.argtypes = [i, i, i]
+            fn.restype = ctypes.c_longlong
+        lib._prgpt_typed = True
+    return lib
+
+
 def work(b: int, n: int, c: int, itemsize: int) -> dict:
     """Bytes and operations of one K1 call: x, the weights and the output
     each moved once; per row the three projections and the out projection
@@ -173,6 +316,25 @@ def work(b: int, n: int, c: int, itemsize: int) -> dict:
     return {"bytes": 2 * b * n * c * itemsize + weights,
             "flops": 2 * b * n * (4 * HIDDEN * c
                                   + 2 * HEADS * DIM_HEAD * DIM_HEAD)}
+
+
+def work_bwd(b: int, n: int, c: int, itemsize: int) -> dict:
+    """Bytes and operations that one K3 call needs. Bytes: x and dy read
+    once, dx_q and dx_kv written once (itemsize each), the weights read
+    once and their gradients written once in fp32. Operations per row:
+    the q, k, v and out projections once each, their transposes for dcore,
+    dx_q and dx_kv, and the weight gradients dW_out, dW_q, dW_k, dW_v —
+    1536 c products in all — plus six context products on the four 32x32
+    head blocks (C, q C^, dC^, dqs, v dC^T, ek dC; the per-head softmax
+    sums are not counted, as in :func:`work`). The kernel, like
+    ``_pallas_fused_bwd``, projects k and v a second time in its kv pass
+    (another 256 c per row); the function does not need that, so it is
+    not counted."""
+    weights = 4 * HIDDEN * c * itemsize + 2 * c * 4
+    grads = 4 * HIDDEN * c * 4 + 2 * c * 4
+    return {"bytes": 4 * b * n * c * itemsize + weights + grads,
+            "flops": 2 * b * n * (12 * HIDDEN * c
+                                  + 6 * HEADS * DIM_HEAD * DIM_HEAD)}
 
 
 def check_inputs(b: int, n: int, c: int, dtype: torch.dtype, device,
@@ -206,3 +368,15 @@ def check_inputs(b: int, n: int, c: int, dtype: torch.dtype, device,
     t = lambda a, dt: torch.tensor(a, dtype=dt, device=device)
     return (t(x, dtype), t(w_qkv, dtype), t(w_out, dtype),
             t(b_out, torch.float32), t(g_out, torch.float32))
+
+
+def check_inputs_bwd(b: int, n: int, c: int, dtype: torch.dtype, device,
+                     seed: int = 0) -> tuple:
+    """``(x, dy, w_qkv, w_out, b_out, g_out)`` that hold K3 against
+    :func:`fused_linear_attention_bwd_plain`: :func:`check_inputs` (on
+    which the core, not the bias, carries the block's output, so every
+    gradient term through the core counts) and dy ~ N(0, 1)."""
+    x, w_qkv, w_out, b_out, g_out = check_inputs(b, n, c, dtype, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = torch.randn(x.shape, generator=gen, device=device).to(dtype)
+    return x, dy, w_qkv, w_out, b_out, g_out

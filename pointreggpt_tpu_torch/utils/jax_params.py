@@ -9,13 +9,18 @@ port's ``state_dict`` (reference key names). They invert the layouts of
 ``model``, every key and shape must match its ``state_dict``; anything else
 raises.
 
+``adam_state_from_jax`` carries an optax ``chain(clip_by_global_norm,
+adam)`` state into a torch Adam ``state_dict``, so a JAX training state
+continues in the port. Gradient trees map through
+``diffusion_unet_from_jax`` like params.
+
 ``load_reference_checkpoint`` reads a reference ``.pt`` checkpoint.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -190,3 +195,49 @@ def strip_prefix(state_dict: Mapping, prefix: str) -> Dict:
     """Keys under ``prefix`` (e.g. ``ema_model.``) with the prefix cut."""
     n = len(prefix)
     return {k[n:]: v for k, v in state_dict.items() if k.startswith(prefix)}
+
+
+def _adam_moments(node: Any):
+    """The ``(count, mu, nu)`` of the first Adam state (a
+    ``ScaleByAdamState`` with numpy leaves) inside an optax state's nested
+    tuples, or None."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node.count, node.mu, node.nu
+    if isinstance(node, tuple):
+        for child in node:
+            found = _adam_moments(child)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state_np: Any, model: torch.nn.Module, *,
+                        lr: float = 8e-5,
+                        betas: Tuple[float, float] = (0.9, 0.99),
+                        eps: float = 1e-8) -> Dict:
+    """optax Adam state (numpy leaves) -> ``torch.optim.Adam`` state dict
+    for ``model.parameters()`` (a DiffusionUNet), with these
+    hyperparameters.
+
+    optax's ``count`` is the Adam step; ``mu`` and ``nu`` are param-shaped
+    trees, mapped through :func:`diffusion_unet_from_jax` onto the port's
+    parameter names (``exp_avg`` and ``exp_avg_sq``). The update formulas
+    agree: optax divides ``mu / (1 - b1^t)`` by ``sqrt(nu / (1 - b2^t)) +
+    eps``, torch the same quantities in another arrangement.
+    """
+    found = _adam_moments(opt_state_np)
+    if found is None:
+        raise ValueError("adam_state_from_jax: no (count, mu, nu) Adam "
+                         "state in the given optax state")
+    count, mu, nu = found
+    mu_sd = diffusion_unet_from_jax(mu, model)
+    nu_sd = diffusion_unet_from_jax(nu, model)
+    step = torch.tensor(float(np.asarray(count)))
+    names = [n for n, _ in model.named_parameters()]
+    template = torch.optim.Adam(model.parameters(), lr=lr, betas=betas,
+                                eps=eps).state_dict()
+    template["state"] = {
+        i: {"step": step.clone(), "exp_avg": mu_sd[n].clone(),
+            "exp_avg_sq": nu_sd[n].clone()}
+        for i, n in enumerate(names)}
+    return template

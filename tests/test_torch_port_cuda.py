@@ -1,5 +1,6 @@
 """Hand-written kernels of the PyTorch port against their plain versions,
-on the card (``-m cuda``); they skip without one.
+on the card (``-m cuda``), and gradients through them in a training step;
+they skip without a card.
 
 Run on a machine with an H100:  python -m pytest tests/test_torch_port_cuda.py
 """
@@ -11,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from pointreggpt_tpu_torch.models import DiffusionUNet
+from pointreggpt_tpu_torch.models.blocks import PreNormResidual
 from pointreggpt_tpu_torch.ops import _build
 from pointreggpt_tpu_torch.ops import attention as K2
 from pointreggpt_tpu_torch.ops import linear_attention as K1
@@ -86,27 +89,37 @@ K1_FAULTS = {
 }
 
 
-@pytest.fixture(scope="module")
-def k1_mutants(cuda, tmp_path_factory):
-    """One library per planted fault, built in parallel."""
-    root = tmp_path_factory.mktemp("k1_mutants")
-    src = (_build.CSRC / "linear_attention.cu").read_text()
-    (root / "common.cuh").write_bytes((_build.CSRC / "common.cuh")
-                                      .read_bytes())
+def build_mutants(root, source, faults, bind):
+    """One library per planted fault, built in parallel: each fault's
+    (text, replacement) is applied to whichever of ``source``.cu and the
+    shared headers holds the text, in a directory of its own."""
+    files = {p.name: p.read_text()
+             for p in [_build.CSRC / f"{source}.cu",
+                       *sorted(_build.CSRC.glob("*.cuh"))]}
     procs = {}
-    for name, (old, new) in K1_FAULTS.items():
-        assert old in src, name
-        cu = root / f"{name}.cu"
-        cu.write_text(src.replace(old, new))
+    for name, (old, new) in faults.items():
+        hits = [f for f, text in files.items() if old in text]
+        assert len(hits) == 1, (name, hits)
+        d = root / name
+        d.mkdir()
+        for f, text in files.items():
+            (d / f).write_text(text.replace(old, new) if f == hits[0]
+                               else text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.FLAGS, "-o", str(root / f"{name}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [_build.nvcc_path(), *_build.FLAGS, "-o", str(d / "lib.so"),
+             str(d / f"{source}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
     for name, proc in procs.items():
         out, _ = proc.communicate()
         assert proc.returncode == 0, out
-    return {name: K1.bind(ctypes.CDLL(str(root / f"{name}.so")))
-            for name in K1_FAULTS}
+    return {name: bind(ctypes.CDLL(str(root / name / "lib.so")))
+            for name in faults}
+
+
+@pytest.fixture(scope="module")
+def k1_mutants(cuda, tmp_path_factory):
+    return build_mutants(tmp_path_factory.mktemp("k1_mutants"),
+                         "linear_attention", K1_FAULTS, K1.bind)
 
 
 @pytest.mark.parametrize("dtype,atol,eps", K1_TOL)
@@ -146,3 +159,117 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 16, 4, 16), device=cuda)
     with pytest.raises(ValueError):
         K2.multihead_attention(q, q, q, scale=0.25)  # dim_head 16
+
+
+# K3 against its plain version: max |got - ref| / max |ref| per output, on
+# K1.check_inputs_bwd (the core carries the output, dy ~ N(0, 1)). bf16:
+# the kernel rounds where the plain version does, but its fp32 sums run in
+# another order, so a few values land one or two bf16 steps (2^-8
+# relative) apart, and those steps feed later products; fp32: sum order.
+K3_TOL = {torch.bfloat16: (3e-2, 1e-3, 32), torch.float32: (1e-4, 1e-5, 8)}
+
+
+def _k3_errs(device, dtype, n, c, batch, cache=None):
+    atol, eps, _ = K3_TOL[dtype]
+    key = (dtype, n, c, batch)
+    if cache is not None and key in cache:
+        args, ref = cache[key]
+    else:
+        args = K1.check_inputs_bwd(batch, n, c, dtype, device)
+        ref = K1.fused_linear_attention_bwd_plain(*args, eps=eps)
+        if cache is not None:
+            cache[key] = args, ref
+    got = K1.fused_linear_attention_bwd(*args, eps=eps)
+    torch.cuda.synchronize()
+    return [((a.float() - r.float()).abs().max() / r.float().abs().max())
+            .item() for a, r in zip(got, ref)]
+
+
+@pytest.mark.parametrize("dtype", sorted(K3_TOL, key=str))
+@pytest.mark.parametrize("n,c", [(256, 64), (1000, 72)] +
+                         sorted(set(K1_SHAPES)))
+def test_linear_attention_bwd_kernel_matches_plain(cuda, dtype, n, c):
+    atol, _, batch = K3_TOL[dtype]
+    before = K1.fused_linear_attention_bwd.launches
+    errs = _k3_errs(cuda, dtype, n, c, batch if n * c >= 65536 else 3)
+    assert K1.fused_linear_attention_bwd.launches == before + 1
+    assert max(errs) <= atol, errs
+
+
+def test_linear_attention_bwd_is_deterministic(cuda):
+    args = K1.check_inputs_bwd(8, 4096, 128, torch.bfloat16, cuda)
+    a = K1.fused_linear_attention_bwd(*args, eps=1e-3)
+    b = K1.fused_linear_attention_bwd(*args, eps=1e-3)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# Faults planted in a copy of csrc/linear_attention_bwd.cu; the K3 check
+# must fail on each at the production shapes, in both types.
+K3_FAULTS = {
+    "ds_dropped": ("(rnd<T>(a) + ds[col])", "(rnd<T>(a) + 0.f * ds[col])"),
+    # each split's dC^ partial keeps its first row tile only
+    "dchat_one_tile": ("for (int j = 0; j < 16; ++j) dch[j] = fmaf(p, dv[j], "
+                       "dch[j]);",
+                       "for (int j = 0; j < 16; ++j) dch[j] = r0 == r_begin "
+                       "? fmaf(p, dv[j], dch[j]) : dch[j];"),
+    "dx_kv_zeroed": ("dxkv[(row0 + r) * c + j] = from_f<T>(a[r]);",
+                     "dxkv[(row0 + r) * c + j] = from_f<T>(0.f * a[r]);"),
+    "ln_mean_term_dropped": ("xh * rs[4 * r + 3]", "0.f * rs[4 * r + 3]"),
+    "wgrad_split_dropped": ("for (int s = 0; s < count; ++s)",
+                            "for (int s = 1; s < count; ++s)"),
+}
+
+
+@pytest.fixture(scope="module")
+def k3_mutants(cuda, tmp_path_factory):
+    return build_mutants(tmp_path_factory.mktemp("k3_mutants"),
+                         "linear_attention_bwd", K3_FAULTS, K1.bind_bwd)
+
+
+@pytest.fixture(scope="module")
+def k3_refs():
+    return {}
+
+
+@pytest.mark.parametrize("dtype", sorted(K3_TOL, key=str))
+@pytest.mark.parametrize("fault", sorted(K3_FAULTS))
+def test_linear_attention_bwd_check_sees_planted_fault(cuda, k3_mutants,
+                                                       k3_refs, monkeypatch,
+                                                       fault, dtype):
+    atol, _, batch = K3_TOL[dtype]
+    monkeypatch.setattr(K1, "_bwd_lib", lambda: k3_mutants[fault])
+    errs = {(n, c): max(_k3_errs(cuda, dtype, n, c, batch, k3_refs))
+            for n, c in sorted(set(K1_SHAPES))}
+    print(fault, dtype, errs)
+    assert max(errs.values()) > atol, errs
+
+
+def test_training_backward_reaches_every_attention_parameter(cuda):
+    """A DiffusionUNet loss's backward on the card gives every parameter of
+    every LinearAttention and of mid_attn a nonzero gradient, through K3
+    and K2's recompute (their forwards write through raw pointers, so
+    without the autograd Functions these parameters got no gradient)."""
+    torch.manual_seed(0)
+    net = DiffusionUNet(dim=8, dim_mults=(1, 2)).to(
+        cuda, memory_format=torch.channels_last)
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.normal(size=(2, 1, 32, 32)), dtype=torch.float32,
+                     device=cuda).contiguous(memory_format=torch.channels_last)
+    t = torch.tensor([3.0, 700.0], device=cuda)
+    pc = torch.tensor(rng.uniform(100, 600, (2, 4)), dtype=torch.float32,
+                      device=cuda)
+    before = (K1.fused_linear_attention.launches,
+              K1.fused_linear_attention_bwd.launches,
+              K2.multihead_attention.launches)
+    net(x, t, pc).abs().mean().backward()
+    torch.cuda.synchronize()
+    assert (K1.fused_linear_attention.launches - before[0],
+            K1.fused_linear_attention_bwd.launches - before[1],
+            K2.multihead_attention.launches - before[2]) == (4, 4, 1)
+    mods = [m for m in net.modules() if isinstance(m, PreNormResidual)]
+    assert len(mods) == 5
+    for m in mods:
+        for name, prm in m.named_parameters():
+            assert prm.grad is not None, name
+            assert prm.grad.abs().max() > 0, name

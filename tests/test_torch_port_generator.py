@@ -312,13 +312,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'pointreggpt_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'pointreggpt_tpu'))\n"
         "print('MODULES', len([n for n in sys.modules\n"
         "      if n.startswith('pointreggpt_tpu_torch')]))\n"
+        "print('TRAIN', all(m in sys.modules for m in (\n"
+        "    'pointreggpt_tpu_torch.train.trainer',\n"
+        "    'pointreggpt_tpu_torch.data.datasets',\n"
+        "    'pointreggpt_tpu_torch.cli.train_successive_ddnm_diffusion')))\n"
         "print('BAD', bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "BAD []" in r.stdout, r.stdout
-    assert int(r.stdout.split("MODULES ")[1].split()[0]) >= 20
+    assert "TRAIN True" in r.stdout, r.stdout
+    assert int(r.stdout.split("MODULES ")[1].split()[0]) >= 25

@@ -1,11 +1,13 @@
 """PyTorch port, kernels' plain versions against the JAX package (CPU).
 
-K1 (fused LinearAttention) and K2 (bottleneck attention) run on the card
-as hand-written CUDA kernels; on a CPU tensor each wrapper takes its plain
-PyTorch version, which is held here against the JAX reference: the XLA
-path and, for K1, the Pallas kernel in interpret mode.
+K1 (fused LinearAttention), its backward K3 and K2 (bottleneck attention)
+run on the card as hand-written CUDA kernels; on a CPU tensor each wrapper
+takes its plain PyTorch version, which is held here against the JAX
+reference: the XLA path (and its vjp) and, for K1 and K3, the Pallas
+kernels in interpret mode.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,14 +88,98 @@ def test_k2_plain_matches_xla(n):
                                rtol=RTOL)
 
 
+# the bounds of tests/test_linear_attention.py for the Pallas backward
+BWD_ATOL = BWD_RTOL = 5e-4
+BWD_NAMES = ("dx_q", "dx_kv", "dw_qkv", "dw_out", "db_out", "dg")
+
+
+def _k3_inputs(c, n, b, seed=4):
+    x, w_qkv, w_out, b_out, g_out = _k1_inputs(c, n, b, seed)
+    dy = np.random.default_rng(seed + 1).normal(size=x.shape).astype(
+        np.float32)
+    return x, dy, w_qkv, w_out, b_out, g_out
+
+
+@pytest.mark.parametrize("c,n,b", [(64, 256, 2), (128, 512, 1)])
+def test_k3_plain_matches_pallas_bwd_interpret(c, n, b):
+    args = _k3_inputs(c, n, b)
+    ref = JLA._pallas_fused_bwd(*map(jnp.asarray, args), HEADS, D, 1e-5,
+                                interpret=True)
+    got = K1.fused_linear_attention_bwd(*map(torch.from_numpy, args),
+                                        HEADS, D, 1e-5)
+    for name, g, r in zip(BWD_NAMES, got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("c,n,b", [(64, 256, 2), (128, 512, 1)])
+def test_k3_plain_matches_xla_vjp(c, n, b):
+    x, dy, *w = _k3_inputs(c, n, b)
+    _, vjp = jax.vjp(lambda *a: JLA._xla_fused(*a, HEADS, D, 1e-5),
+                     *map(jnp.asarray, (x, *w)))
+    dx, *dw = vjp(jnp.asarray(dy))
+    got = K1.fused_linear_attention_bwd_plain(
+        *map(torch.from_numpy, (x, dy, *w)), HEADS, D, 1e-5)
+    np.testing.assert_allclose((got[0] + got[1]).numpy(), np.asarray(dx),
+                               atol=BWD_ATOL, rtol=BWD_RTOL)
+    for name, g, r in zip(BWD_NAMES[2:], got[2:], dw):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL, err_msg=name)
+
+
+def test_k1_autograd_runs_k3_and_saves_the_jax_residuals():
+    x, dy, *w = map(torch.from_numpy, _k3_inputs(16, 64, 2))
+    leaves = [t.clone().requires_grad_() for t in (x, *w)]
+    out = K1.fused_linear_attention(*leaves, HEADS, D, 1e-5)
+    assert type(out.grad_fn).__name__ == "FusedLinearAttentionFnBackward"
+    # x and the four weights, never the packed qkv
+    assert [tuple(t.shape) for t in out.grad_fn.saved_tensors] == \
+        [tuple(t.shape) for t in leaves]
+    out.backward(dy)
+    want = K1.fused_linear_attention_bwd_plain(x, dy, *w, HEADS, D, 1e-5)
+    torch.testing.assert_close(leaves[0].grad, want[0] + want[1])
+    for leaf, g in zip(leaves[1:], want[2:]):
+        torch.testing.assert_close(leaf.grad, g)
+
+
+def test_k3_plain_casts_dy_and_keeps_weight_dtypes():
+    x, dy, w_qkv, w_out, b_out, g_out = map(torch.from_numpy,
+                                            _k3_inputs(16, 64, 2))
+    grads = K1.fused_linear_attention_bwd_plain(
+        x.bfloat16(), dy, w_qkv, w_out, b_out, g_out, HEADS, D, 1e-3)
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 2 + \
+        [torch.float32] * 4
+    assert [tuple(g.shape) for g in grads[2:]] == [
+        (16, 384), (128, 16), (16,), (16,)]
+
+
+def test_k2_backward_matches_xla_vjp():
+    rng = np.random.default_rng(6)
+    q, k, v, g = (rng.normal(size=(2, 64, HEADS, D)).astype(np.float32)
+                  for _ in range(4))
+    _, vjp = jax.vjp(lambda *a: JA._attention_xla(*a, D**-0.5),
+                     *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = K2.multihead_attention(*leaves, scale=D**-0.5)
+    assert type(out.grad_fn).__name__ == "MultiheadAttentionFnBackward"
+    out.backward(torch.from_numpy(g))
+    for leaf, r in zip(leaves, ref):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(r),
+                                   atol=1e-5, rtol=0)
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     before = (K1.fused_linear_attention.launches,
+              K1.fused_linear_attention_bwd.launches,
               K2.multihead_attention.launches)
-    args = _k1_inputs(8, 64)
-    K1.fused_linear_attention(*map(torch.from_numpy, args))
-    q = torch.zeros((1, 16, HEADS, D))
-    K2.multihead_attention(q, q, q, scale=0.5)
+    x, dy, *w = map(torch.from_numpy, _k3_inputs(8, 64, 2))
+    x.requires_grad_()
+    K1.fused_linear_attention(x, *w).backward(dy)
+    q = torch.zeros((1, 16, HEADS, D), requires_grad=True)
+    K2.multihead_attention(q, q, q, scale=0.5).sum().backward()
     assert (K1.fused_linear_attention.launches,
+            K1.fused_linear_attention_bwd.launches,
             K2.multihead_attention.launches) == before
     assert not _build._libs  # nothing was built or loaded
 
@@ -115,11 +201,23 @@ def test_work_counts():
     # blocks only (the rest of C is masked away)
     assert k1["flops"] == 2 * 8 * 65536 * (4 * 128 * 64 + 2 * 4 * 32 * 32)
     assert K2.work(8, 1024, 4, 32, 2)["flops"] == 4 * 8 * 4 * 1024**2 * 32
+    k3 = K1.work_bwd(8, 65536, 64, 2)
+    assert k3["bytes"] == (4 * 8 * 65536 * 64 * 2 + 4 * 128 * 64 * 2 +
+                           2 * 64 * 4 + 4 * 128 * 64 * 4 + 2 * 64 * 4)
+    # what the function needs per row: the q, k, v and out projections
+    # once, their three transposes, the four weight gradients (1536 c
+    # products), and six context products on the head blocks
+    assert k3["flops"] == 2 * 8 * 65536 * (1536 * 64 + 6 * 4 * 32 * 32)
+    shapes = [(65536, 64), (16384, 64), (4096, 128), (1024, 256),
+              (1024, 512), (4096, 256), (16384, 128), (65536, 64)]
+    total = sum(K1.work_bwd(32, n, c, 2)["flops"] for n, c in shapes)
+    assert 1.63e12 < total < 1.65e12  # one training forward's backwards
 
 
 def test_build_is_keyed_on_the_sources():
     paths = {n: _build.library_path(n) for n in _build.SOURCES}
-    assert set(paths) == {"linear_attention", "attention"}
+    assert set(paths) == {"linear_attention", "linear_attention_bwd",
+                          "attention"}
     for n, p in paths.items():
         assert p.parent == _build.BUILD_DIR
         assert p.name.startswith(n + "-") and p.suffix == ".so"
