@@ -19,32 +19,47 @@ Phases, each printing one JSON line:
 5. ``k3_*``: K3 (K1's backward) against its plain version (the autograd
    of K1's plain version) at the eight shapes, bf16 at microbatch 32 and
    fp32 at batch 8: max |got - ref| / max |ref| per output, times, bounds;
-6. ``net_parity``: a small whole-U-Net forward on the card against the
+6. ``k4_*``: K4 (the LinearAttention core on packed qkv) driven through
+   ``linear_attention_core`` at (8, n, 384) for the U-Net's four n, held
+   against its plain version by max |got - ref| / max |ref| (3e-2 bf16,
+   1e-4 fp32), with times and bounds; also n = 1000 and, in fp32, the
+   backward against autograd of the plain version;
+7. ``conv_tools``: the two conv tools' entry points,
+   ``pointreggpt_tpu_torch.tools.profile_conv.main`` (K5 through the
+   ``conv3x3`` op at the U-Net's four hot conv shapes, bf16, against the
+   shift9 and pair lowerings and cuDNN) and ``profile_conv_igemm.main``
+   (K6 at (2, 32, 32, 64) and batches 8 and 16 at 256^2, 64 -> 64),
+   launch counters reset just before each; K5 and K6 within 1e-2 relative
+   of their plain versions at every shape, ``conv3x3``'s gradients
+   against autograd of ``conv3x3_plain`` (fp32 at a small shape, 1e-4;
+   bf16 at (16, 256, 256, 128 -> 64), 3e-2);
+8. ``net_parity``: a small whole-U-Net forward on the card against the
    same net on the CPU (fp32, plain path);
-7. ``forward_profile``: one production DiffusionUNet forward (bf16,
+9. ``forward_profile``: one production DiffusionUNet forward (bf16,
    256^2, batch 8): its time and device time by kernel category; and one
    fp32 MaskUNet forward;
-8. ``grad_parity``: the loss gradients of a dim-64 fp32 DiffusionUNet at
+10. ``grad_parity``: the loss gradients of a dim-64 fp32 DiffusionUNet at
    64^2 on the card against the CPU, per parameter;
-9. ``train_step``: one production optimizer step (microbatch 32 x
+11. ``train_step``: one production optimizer step (microbatch 32 x
    accumulation 2, 256^2, bf16): seconds, img/s, peak memory, launches
    (16 K1, 16 K3, 2 K2), and the device time of one microbatch forward +
    backward by kernel category;
-10. ``main_path``: ``pointreggpt_tpu_torch.cli.generate_dataset.main`` at
+12. ``main_path``: ``pointreggpt_tpu_torch.cli.generate_dataset.main`` at
    the production configuration (dim 64, 256^2, batch 8, 250 DDIM steps,
    eta 1, MaskUNet on, memory 2^18) on a synthetic 3DMatch tree with
    random weights made from ``--seed``, two sample steps; checks the output
    contract and 2,016 K1, 252 K2 and no K3 launches per sample step;
-11. ``train_path``: ``pointreggpt_tpu_torch.cli.
+13. ``train_path``: ``pointreggpt_tpu_torch.cli.
    train_successive_ddnm_diffusion.main`` at the production configuration
    on 64 synthetic depth frames, 3 steps with a milestone at step 3;
    checks the losses, the 5x5 sample grid, the checkpoint's reference
    layout, that ``Generator.load`` reads it, and the launches (16 K1,
    16 K3 and 2 K2 per optimizer step; the milestone's grid counted apart).
 
-The last three lines are the kernel table (one JSON object, launch counts
-from the two main paths), the card's name and power limit, and ``{"ok":
-true, "device": {...}}``.
+The last three lines are the kernel table (one JSON object: K1-K3's
+launch counts from the two main paths, K4's from its op's drive, K5's and
+K6's from their tools' entry points), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -112,6 +127,12 @@ def bound(work: dict, peak: float) -> tuple:
                                  else "operations")
 
 
+def summed_bound(works, peak: float) -> tuple:
+    """:func:`bound` of the summed work of several calls."""
+    return bound({k: sum(w[k] for w in works) for k in ("bytes", "flops")},
+                 peak)
+
+
 def phase_k1(torch, K1, dev, dtype):
     """K1 against its plain version at the eight shapes of one forward,
     in ``dtype`` (bf16 for the DiffusionUNet, fp32 for the MaskUNet)."""
@@ -144,13 +165,11 @@ def phase_k1(torch, K1, dev, dtype):
             torch.cuda.empty_cache()
         rows.append(cache[(n, c)])
     emit(f"k1_{name}", shapes=rows, atol=atol)
-    t_bytes = sum(r["bytes"] for r in rows) / MEM_BW * 1e3
-    t_ops = sum(r["flops"] for r in rows) / peak * 1e3
+    b_ms, b_by = summed_bound(rows, peak)
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=sum(r["ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_ms=b_ms, bound_by=b_by)
 
 
 K3_ATOL = {"bfloat16": 3e-2, "float32": 1e-4}
@@ -206,14 +225,12 @@ def phase_k3(torch, K1, dev, dtype, batch):
             torch.cuda.empty_cache()
         rows.append(cache[(n, c)])
     emit(f"k3_{name}", batch=batch, shapes=rows, atol=atol)
-    t_bytes = sum(r["bytes"] for r in rows) / MEM_BW * 1e3
-    t_ops = sum(r["flops"] for r in rows) / peak * 1e3
+    b_ms, b_by = summed_bound(rows, peak)
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
                 max_rel_err=max(r["max_rel_err"] for r in rows),
                 ms=sum(r["ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_k2(torch, K2, dev, dtype):
@@ -249,6 +266,157 @@ def phase_k2(torch, K2, dev, dtype):
     emit(f"k2_{name}", shape=[b, n, h, d], atol=atol,
          library_max_abs_err=lib_err, **res)
     return res
+
+
+K4_N = [65536, 16384, 4096, 1024]  # the U-Net's n at 256^2, batch 8
+# max |got - ref| / max |ref|: the core's output is O(1/n) (a weighted mean
+# of zero-mean v over ~n/e^4 rows, scaled by 32^-1/2 / n), so an absolute
+# bound would pass a kernel that writes zeros; bf16 roundings where the
+# plain version rounds, fp32 sums in another order
+K4_RTOL = {"bfloat16": 3e-2, "float32": 1e-4}
+
+
+def phase_k4(torch, K1, dev, dtype):
+    """K4 driven through ``linear_attention_core`` at (8, n, 384) for the
+    four n, against its plain version on ``K1.check_inputs_core``."""
+    from pointreggpt_tpu_torch.tools import errors
+
+    name = str(dtype).split(".")[-1]
+    rtol, size = K4_RTOL[name], torch.tensor([], dtype=dtype).element_size()
+    inputs = {n: K1.check_inputs_core(8, n, dtype, dev) for n in K4_N}
+    K1.linear_attention_core.launches = 0
+    outs = {n: K1.linear_attention_core(qkv) for n, qkv in inputs.items()}
+    torch.cuda.synchronize()
+    launches = K1.linear_attention_core.launches
+    if launches != len(K4_N):
+        raise AssertionError(f"K4 {name}: {launches} launches for "
+                             f"{len(K4_N)} calls")
+    rows = []
+    for n, qkv in inputs.items():
+        ref = K1.linear_attention_core_plain(qkv)
+        e = errors(outs.pop(n), ref)
+        err = e["rel_err"]
+        if not np.isfinite(err) or err > rtol:
+            raise AssertionError(f"K4 {name} at (8, {n}): relative error "
+                                 f"{err} > {rtol}")
+        ms = time_ms(lambda: K1.linear_attention_core(qkv), 20)
+        plain_ms = time_ms(lambda: K1.linear_attention_core_plain(qkv), 2, 1)
+        wk = K1.work_core(8, n, size)
+        b_ms, b_by = bound(wk, PEAK[name])
+        rows.append(dict(n=n, **e, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, **wk))
+        del ref
+    del inputs
+    # a row count that is no multiple of the 16-row tile
+    qkv = K1.check_inputs_core(8, 1000, dtype, dev)
+    odd_err = errors(K1.linear_attention_core(qkv),
+                     K1.linear_attention_core_plain(qkv))["rel_err"]
+    if not odd_err <= rtol:
+        raise AssertionError(f"K4 {name} at (8, 1000): {odd_err} > {rtol}")
+    extra = dict(n1000_rel_err=odd_err)
+    if name == "float32":
+        # the backward: the gradient of the plain version, recomputed
+        g = torch.randn(8, 4096, 128, device=dev)
+        leaf = K1.check_inputs_core(8, 4096, dtype, dev).requires_grad_()
+        K1.linear_attention_core(leaf).backward(g)
+        ref = leaf.detach().clone().requires_grad_()
+        K1.linear_attention_core_plain(ref).backward(g)
+        grad_err = errors(leaf.grad, ref.grad)["rel_err"]
+        if not grad_err <= 1e-4:
+            raise AssertionError(f"K4 backward at (8, 4096): {grad_err} > "
+                                 "1e-4")
+        extra["backward_rel_err"] = grad_err
+    torch.cuda.empty_cache()
+    emit(f"k4_{name}", shapes=rows, rtol=rtol, launches=launches, **extra)
+    b_ms, b_by = summed_bound(rows, PEAK[name])
+    return dict(launches=launches,
+                max_rel_err=max(r["rel_err"] for r in rows),
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+CONV_RTOL = 1e-2  # K5 and K6 against their plain versions, bf16
+CONV_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def conv_summary(rows, KC, launches) -> dict:
+    """The kernels-line numbers of K5 or K6 from per-shape rows (each with
+    shape, ms, plain_ms, library_ms, rel_err, max_abs_err): times summed
+    over the shapes, the bound from the summed work."""
+    b_ms, b_by = summed_bound([KC.work_conv(*r["shape"], 2) for r in rows],
+                              PEAK["bfloat16"])
+    ms = sum(r["ms"] for r in rows)
+    library_ms = sum(r["library_ms"] for r in rows)
+    return dict(launches=launches,
+                max_rel_err=max(r["rel_err"] for r in rows),
+                max_abs_err=max(r["max_abs_err"] for r in rows), ms=ms,
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, vs_library=ms / library_ms)
+
+
+def phase_conv_tools(torch, dev):
+    """Both conv tools' entry points at their default shapes, launch
+    counters reset just before each; K5 and K6 against their plain
+    versions at every shape they run, ``conv3x3``'s gradients."""
+    from pointreggpt_tpu_torch.ops import conv as KC
+    from pointreggpt_tpu_torch.tools import (errors, profile_conv,
+                                             profile_conv_igemm)
+
+    KC.conv3x3.launches = KC.conv3_igemm.launches = 0
+    pc = profile_conv.main()
+    torch.cuda.synchronize()
+    k5_launches = KC.conv3x3.launches
+    KC.conv3x3.launches = KC.conv3_igemm.launches = 0
+    ig = profile_conv_igemm.main()
+    torch.cuda.synchronize()
+    k6_launches = KC.conv3_igemm.launches
+
+    k5_rows = [dict(shape=r["shape"], **r["kernel"], plain_ms=r["plain_ms"],
+                    library_ms=r["conv"]["ms"],
+                    grad_rel_err=r["grad_rel_err"], fwd_bwd=r["fwd_bwd"])
+               for r in pc["shapes"]]
+    k6_rows = [dict(shape=r["shape"], **k, plain_ms=r["plain_ms"],
+                    library_ms=r["library_ms"])
+               for r in ig["batches"] for k in r["igemm"] if k["rows"] == 8]
+    bad = [(r["shape"], r["rel_err"]) for r in k5_rows + k6_rows
+           if not r["rel_err"] <= CONV_RTOL]
+    if not ig["correctness"]["rel_err"] <= CONV_RTOL:
+        bad.append(([2, 32, 32, 64, 64], ig["correctness"]["rel_err"]))
+    if bad:
+        raise AssertionError(f"conv kernels against their plain versions: "
+                             f"{bad} > {CONV_RTOL}")
+    (big,) = [r for r in k5_rows if r["shape"] == [16, 256, 256, 128, 64]]
+    grad_errs = {"bfloat16": max(big["grad_rel_err"].values())}
+
+    # fp32 gradients at a small shape with edges, cin != cout and a
+    # partial tile in every direction
+    x, w = KC.check_inputs_conv(2, 9, 37, 70, 36, torch.float32, dev)
+    got = [t.detach().requires_grad_() for t in (x, w)]
+    (KC.conv3x3(*got) ** 2).sum().backward()
+    ref = [t.detach().requires_grad_() for t in (x, w)]
+    (KC.conv3x3_plain(*ref) ** 2).sum().backward()
+    grad_errs["float32"] = max(errors(a.grad, b.grad)["rel_err"]
+                               for a, b in zip(got, ref))
+    for name, err in grad_errs.items():
+        if not err <= CONV_GRAD_RTOL[name]:
+            raise AssertionError(f"conv3x3 gradients {name}: {err} > "
+                                 f"{CONV_GRAD_RTOL[name]}")
+
+    # each kernel's bound and its factor against cuDNN, per shape
+    for r in k5_rows + k6_rows:
+        r["bound_ms"], r["bound_by"] = bound(KC.work_conv(*r["shape"], 2),
+                                             PEAK["bfloat16"])
+        r["vs_library"] = r["ms"] / r["library_ms"]
+    emit("conv_tools", card=card_line(), rtol=CONV_RTOL,
+         grad_rel_err=grad_errs, grad_rtol=CONV_GRAD_RTOL,
+         k5_launches=k5_launches, k6_launches=k6_launches, k5=k5_rows,
+         k6_small=ig["correctness"], k6=k6_rows)
+    torch.cuda.empty_cache()
+    return (conv_summary(k5_rows, KC, k5_launches),
+            conv_summary(k6_rows, KC, k6_launches))
 
 
 def let_cores_count(torch, net, x, t, pc) -> None:
@@ -786,6 +954,9 @@ def main(argv=None) -> int:
     k2_f32 = phase_k2(torch, K2, dev, torch.float32)
     k3 = phase_k3(torch, K1, dev, torch.bfloat16, 32)
     k3_f32 = phase_k3(torch, K1, dev, torch.float32, 8)
+    k4 = phase_k4(torch, K1, dev, torch.bfloat16)
+    k4_f32 = phase_k4(torch, K1, dev, torch.float32)
+    k5, k6 = phase_conv_tools(torch, dev)
     phase_net_parity(torch, dev)
     phase_forward_profile(torch, dev)
     phase_grad_parity(torch, dev)
@@ -832,6 +1003,35 @@ def main(argv=None) -> int:
                   "8 shapes); max_abs_err is the largest absolute error of "
                   "the six outputs, max_rel_err the one the check bounds",
              fp32=k3_f32, **k3),
+        dict(name="linear_attention_core", route="cuda",
+             source="pointreggpt_tpu_torch/ops/csrc/linear_attention_core.cu",
+             replaces="pointreggpt_tpu/ops/linear_attention.py:95",
+             library_ms=None,
+             work="linear_attention_core at (8, n, 384) bf16 for n = 65536, "
+                  "16384, 4096, 1024, one call each (times and bounds "
+                  "summed over the 4 shapes); launches counted over those "
+                  "calls; max_rel_err is the one the check bounds",
+             fp32={k: v for k, v in k4_f32.items() if k != "launches"},
+             **k4),
+        dict(name="conv3x3", route="cuda",
+             source="pointreggpt_tpu_torch/ops/csrc/conv3x3.cu",
+             replaces="tools/profile_conv.py:111",
+             work="profile_conv.main: the 4 shapes (16,256,256,64->64), "
+                  "(16,256,256,128->64), (8,256,256,64->64), "
+                  "(16,128,128,128->128), bf16, one forward each (times "
+                  "and bounds summed over the 4 shapes; library_ms is "
+                  "F.conv2d, cuDNN, bf16 channels-last); launches counted "
+                  "over one call of the tool's main (forwards, and the "
+                  "backward's dx, of its timing and gradient loops)",
+             **k5),
+        dict(name="conv3_igemm", route="cuda",
+             source="pointreggpt_tpu_torch/ops/csrc/conv3_igemm.cu",
+             replaces="tools/profile_conv_igemm.py:37",
+             work="profile_conv_igemm.main: batches 8 and 16 at 256^2, "
+                  "64->64, bf16, rows 8 (times and bounds summed over the "
+                  "2 shapes; library_ms is F.conv2d, cuDNN); launches "
+                  "counted over one call of the tool's main",
+             **k6),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

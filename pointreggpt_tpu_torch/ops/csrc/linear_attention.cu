@@ -60,7 +60,8 @@ __global__ void __launch_bounds__(THREADS)
 kv_partials(const T* __restrict__ x, const T* __restrict__ wqkv,
             float* __restrict__ part, int n, int c, int rows_per_split,
             int splits) {
-  kv_partials_body<T>(x, wqkv, part, n, c, rows_per_split, splits);
+  kv_partials_body<T>(ProjectKV<T>{x, wqkv, c}, part, n, c,
+                      rows_per_split, splits);
 }
 
 template <typename T>
@@ -115,28 +116,8 @@ emit_out(const T* __restrict__ x, const T* __restrict__ wqkv,
   }
   __syncthreads();
 
-  // softmax over each head's 32 lanes: one warp per (row, head)
-  for (int task = warp; task < rows * NH; task += THREADS / 32) {
-    float* qv = qs + (task / NH) * HID + (task % NH) * DH;
-    const float v = qv[lane];
-    const float e = expf(v - prgpt::warp_max(v));
-    qv[lane] = rnd<T>(e / prgpt::warp_sum(e));
-  }
-  __syncthreads();
-
-  // core = q C^, head blocks only
-  for (int idx = tid; idx < rows * HID; idx += THREADS) {
-    const int r = idx / HID;
-    const int e = idx % HID;
-    const int h = e / DH;
-    const float* qv = qs + r * HID + h * DH;
-    const float* cv = ch + h * DH * DH + (e % DH);
-    float a = 0.f;
-#pragma unroll
-    for (int dl = 0; dl < DH; ++dl) a = fmaf(qv[dl], cv[dl * DH], a);
-    core[idx] = rnd<T>(a);
-  }
-  __syncthreads();
+  // per-head softmax of q, then core = q C^ (head blocks only)
+  q_context_body<T>(qs, ch, core, rows);
 
   // y = core W_out + b_out, into xs
   for (int j = tid; j < c; j += THREADS) {

@@ -83,7 +83,8 @@ __global__ void __launch_bounds__(THREADS)
 bwd_kv_partials(const T* __restrict__ x, const T* __restrict__ wqkv,
                 float* __restrict__ part, int n, int c, int rows_per_split,
                 int splits) {
-  kv_partials_body<T>(x, wqkv, part, n, c, rows_per_split, splits);
+  kv_partials_body<T>(ProjectKV<T>{x, wqkv, c}, part, n, c,
+                      rows_per_split, splits);
 }
 
 template <typename T>

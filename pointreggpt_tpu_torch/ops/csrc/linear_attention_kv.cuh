@@ -1,9 +1,10 @@
-// The k/v side of the LinearAttention block, shared by K1
-// (linear_attention.cu, the forward) and K3 (linear_attention_bwd.cu, its
+// The k/v side of the LinearAttention core, shared by K1
+// (linear_attention.cu, the forward), K3 (linear_attention_bwd.cu, its
 // backward, which recomputes these statistics exactly as the forward made
-// them):
+// them) and K4 (linear_attention_core.cu, the core alone on packed qkv):
 //
-//   k, v = x W_qkv[:, 128:256], x W_qkv[:, 256:384]   (rounded to T)
+//   k, v = x W_qkv[:, 128:256], x W_qkv[:, 256:384]   (rounded to T; K1, K3)
+//   k, v = qkv[:, 128:256], qkv[:, 256:384]           (K4)
 //   m    = max_n k                   (per lane, online)
 //   s    = sum_n exp(k - m)
 //   C    = sum_n round_T(exp(k - m))^T v   (the four 32x32 head blocks)
@@ -12,8 +13,11 @@
 // Blocks run in parallel and carry nothing, so the statistics come in two
 // launches: kv_partials_body over (split, batch) writes per-split (m, s, C)
 // partials; merge_context_body over batch merges them with max-rescaling.
-// Each kernel file wraps these bodies in __global__ kernels of its own
-// names, so a profile tells the forward's launches from the backward's.
+// kv_partials_body takes its rows of k and v from a row loader:
+// ProjectKV (K1, K3) or LoadKV (K4). q_context_body is the q side the
+// forwards share: per-head softmax of q, then q C^. Each kernel file wraps
+// these bodies in __global__ kernels of its own names, so a profile tells
+// the kernels' launches apart.
 
 #pragma once
 
@@ -34,18 +38,67 @@ constexpr int STATS = 2 * HID + CBLK;    // merged m, s, C of one batch row
 constexpr int THREADS = 256;
 constexpr int ROWS = 16;              // rows per tile
 
-// Dynamic shared memory of kv_partials_body for c channels.
+// Dynamic shared memory of kv_partials_body whose loader stages c
+// channels of x per row (c = 0: LoadKV stages nothing).
 inline size_t kv_partials_smem(int c) {
   return sizeof(float) * (ROWS * c + ROWS * 3 * HID + 2 * HID);
 }
 
+// Row loaders of kv_partials_body: called by all THREADS threads, each
+// fills kv[r * 2 * HID + j] (r < rows, j < 2 * HID: k, then v) for rows
+// r0 .. r0 + rows of batch row bi, rounded to T; xs is its ROWS * c floats
+// of staging.
 template <typename T>
+struct ProjectKV {  // k and v projected from x (b, n, c): K1, K3
+  const T* x;
+  const T* wqkv;
+  int c;
+
+  __device__ __forceinline__ void operator()(float* xs, float* kv, int bi,
+                                             int n, int r0,
+                                             int rows) const {
+    const int tid = threadIdx.x;
+    const T* xb = x + static_cast<size_t>(bi) * n * c;
+    for (int i = tid; i < rows * c; i += THREADS)
+      xs[i] = to_f(xb[static_cast<size_t>(r0) * c + i]);
+    __syncthreads();
+
+    // kv column tid (k for tid < 128, v above), all rows of the tile
+    float a[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
+    const T* wcol = wqkv + HID + tid;
+    for (int ci = 0; ci < c; ++ci) {
+      const float w = to_f(wcol[static_cast<size_t>(ci) * QKV]);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) a[r] = fmaf(xs[r * c + ci], w, a[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      if (r < rows) kv[r * 2 * HID + tid] = rnd<T>(a[r]);
+  }
+};
+
+template <typename T>
+struct LoadKV {  // k and v read from packed qkv (b, n, 3 * HID): K4
+  const T* qkv;
+
+  __device__ __forceinline__ void operator()(float*, float* kv, int bi,
+                                             int n, int r0,
+                                             int rows) const {
+    const int tid = threadIdx.x;  // lane tid of [k | v]
+    const T* src = qkv + (static_cast<size_t>(bi) * n + r0) * QKV + HID + tid;
+    for (int r = 0; r < rows; ++r)
+      kv[r * 2 * HID + tid] = to_f(src[static_cast<size_t>(r) * QKV]);
+  }
+};
+
+template <typename T, typename LoadRows>
 __device__ __forceinline__ void kv_partials_body(
-    const T* __restrict__ x, const T* __restrict__ wqkv,
-    float* __restrict__ part, int n, int c, int rows_per_split,
-    int splits) {
+    const LoadRows& load_rows, float* __restrict__ part, int n, int c,
+    int rows_per_split, int splits) {
   extern __shared__ float smem[];
-  float* xs = smem;                     // ROWS * c
+  float* xs = smem;                     // ROWS * c, the loader's staging
   float* kv = xs + ROWS * c;            // ROWS * 2*HID, [k | v]
   float* ek = kv + ROWS * 2 * HID;      // ROWS * HID, exp(k - m) in T
   float* m_s = ek + ROWS * HID;         // HID running max
@@ -56,7 +109,6 @@ __device__ __forceinline__ void kv_partials_body(
   const int bi = blockIdx.y;
   const int r_begin = split * rows_per_split;
   const int r_end = min(n, r_begin + rows_per_split);
-  const T* xb = x + static_cast<size_t>(bi) * n * c;
 
   // this thread's C entries: row cd, 16 columns inside cd's head block
   const int cd = tid >> 1;
@@ -70,25 +122,7 @@ __device__ __forceinline__ void kv_partials_body(
   for (int r0 = r_begin; r0 < r_end; r0 += ROWS) {
     const int rows = min(ROWS, r_end - r0);
     __syncthreads();
-    for (int i = tid; i < rows * c; i += THREADS)
-      xs[i] = to_f(xb[static_cast<size_t>(r0) * c + i]);
-    __syncthreads();
-
-    // kv column tid (k for tid < 128, v above), all rows of the tile
-    {
-      float a[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
-      const T* wcol = wqkv + HID + tid;
-      for (int ci = 0; ci < c; ++ci) {
-        const float w = to_f(wcol[static_cast<size_t>(ci) * QKV]);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) a[r] = fmaf(xs[r * c + ci], w, a[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        if (r < rows) kv[r * 2 * HID + tid] = rnd<T>(a[r]);
-    }
+    load_rows(xs, kv, bi, n, r0, rows);
     __syncthreads();
 
     if (tid < HID) {
@@ -174,6 +208,42 @@ __device__ __forceinline__ void merge_context_body(
     chat[static_cast<size_t>(bi) * CBLK + idx] = rnd<T>(acc * scale * inv_s[d]);
     if (st) st[2 * HID + idx] = acc;
   }
+}
+
+// The q side of the forwards (K1, K4) for one tile of rows: qs holds q
+// (rows x HID, rounded to T) and becomes its per-head softmax (rounded to
+// T); core = qs C^ on the head blocks (rounded to T), ch holding C^
+// (CBLK). Called by all THREADS threads; returns after a barrier.
+template <typename T>
+__device__ __forceinline__ void q_context_body(float* qs,
+                                               const float* ch,
+                                               float* core, int rows) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // softmax over each head's 32 lanes: one warp per (row, head)
+  for (int task = warp; task < rows * NH; task += THREADS / 32) {
+    float* qv = qs + (task / NH) * HID + (task % NH) * DH;
+    const float v = qv[lane];
+    const float e = expf(v - prgpt::warp_max(v));
+    qv[lane] = rnd<T>(e / prgpt::warp_sum(e));
+  }
+  __syncthreads();
+
+  // core = q C^, head blocks only
+  for (int idx = tid; idx < rows * HID; idx += THREADS) {
+    const int r = idx / HID;
+    const int e = idx % HID;
+    const int h = e / DH;
+    const float* qv = qs + r * HID + h * DH;
+    const float* cv = ch + h * DH * DH + (e % DH);
+    float a = 0.f;
+#pragma unroll
+    for (int dl = 0; dl < DH; ++dl) a = fmaf(qv[dl], cv[dl * DH], a);
+    core[idx] = rnd<T>(a);
+  }
+  __syncthreads();
 }
 
 }  // namespace la

@@ -1,5 +1,5 @@
-"""K1 and K3: the fused LinearAttention block and its analytic backward,
-each with its plain PyTorch version.
+"""K1, K3 and K4: the fused LinearAttention block, its analytic backward
+and the core alone on packed qkv, each with its plain PyTorch version.
 
 ``fused_linear_attention`` is a ``torch.autograd.Function`` (the port of
 the JAX ``custom_vjp``). Its forward runs the hand-written CUDA kernel K1
@@ -15,6 +15,15 @@ fallback: a CUDA tensor a kernel does not take raises.
 Block body: qkv projection -> softmax-q (over d per head) / softmax-k (over
 n) linear attention core -> out projection + bias -> channel LayerNorm
 (scale only, biased variance). heads = 4, dim_head = 32.
+
+``linear_attention_core`` is the core alone, (b, n, 3*hidden) packed
+``[q | k | v]`` -> (b, n, hidden), the port of the JAX ``custom_vjp`` of the
+same name. Its forward runs K4 (``csrc/linear_attention_core.cu``, which
+replaces ``_pallas_core``) for a CUDA tensor and
+``linear_attention_core_plain`` for a CPU tensor; its backward is the
+gradient of the plain version, recomputed, on either device: the JAX
+package has no backward kernel for K4 (its ``_bwd`` takes XLA's vjp of
+``_xla_core``), so a plain backward is the faithful port here.
 """
 
 from __future__ import annotations
@@ -33,10 +42,12 @@ HIDDEN = HEADS * DIM_HEAD
 _TARGET_BLOCKS = 2 * 2 * 132  # keep ~2x the SMs busy in the kv phase
 
 
-def _core_plain(qkv: torch.Tensor, heads: int, dim_head: int
-                ) -> torch.Tensor:
-    """Port of ``_xla_core``: (b, n, 3*h*d) packed [q | k | v] ->
-    (b, n, h*d), qkv.dtype; products accumulate in fp32."""
+def linear_attention_core_plain(qkv: torch.Tensor, heads: int = HEADS,
+                                dim_head: int = DIM_HEAD) -> torch.Tensor:
+    """Plain PyTorch version of K4, a port of ``_xla_core``: (b, n, 3*h*d)
+    packed [q | k | v] (head-major within each third) -> (b, n, h*d),
+    qkv.dtype; products accumulate in fp32, and exp(k - m), the context,
+    the softmaxed q and the output are rounded to qkv.dtype."""
     b, n, _ = qkv.shape
     dtype = qkv.dtype
     x = qkv.reshape(b, n, 3, heads, dim_head)
@@ -66,7 +77,7 @@ def _fused_plain(xq, xkv, w_qkv, w_out, b_out, g_out, heads, dim_head,
     w = w_qkv.to(dtype).float()
     qkv = torch.cat([xq.float() @ w[:, :hidden],
                      xkv.float() @ w[:, hidden:]], dim=-1).to(dtype)
-    core = _core_plain(qkv, heads, dim_head)
+    core = linear_attention_core_plain(qkv, heads, dim_head)
     out = (core.float() @ w_out.to(dtype).float()).to(dtype) + \
         b_out.to(dtype)
     xf = out.float()
@@ -264,8 +275,87 @@ def fused_linear_attention(x, w_qkv, w_out, b_out, g_out,
 fused_linear_attention.launches = 0
 
 
+def _core_forward(qkv: torch.Tensor, heads: int, dim_head: int
+                  ) -> torch.Tensor:
+    """K4 on a CUDA tensor, its plain version on a CPU tensor."""
+    if qkv.device.type == "cpu":
+        return linear_attention_core_plain(qkv, heads, dim_head)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"linear_attention_core: unsupported device "
+                         f"{qkv.device}")
+    if (heads, dim_head) != (HEADS, DIM_HEAD):
+        raise ValueError("linear_attention_core kernel is built for 4 heads "
+                         f"x 32, got {heads} x {dim_head}")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"linear_attention_core: dtype {qkv.dtype}")
+    if qkv.dim() != 3 or qkv.shape[2] != 3 * HIDDEN or qkv.shape[1] < 1 \
+            or not qkv.is_contiguous():
+        raise ValueError("linear_attention_core: qkv must be a contiguous "
+                         f"(b, n >= 1, {3 * HIDDEN}) tensor, got "
+                         f"{tuple(qkv.shape)}")
+    b, n, _ = qkv.shape
+    lib = _core_lib()
+    splits, rows_per_split = _splits(
+        b, n, lib.prgpt_linear_attention_core_rows_per_tile())
+    # the scratch may be freed on return while the launches still run: the
+    # caching allocator hands its memory out again only in the order of
+    # this stream
+    scratch = torch.empty(lib.prgpt_linear_attention_core_scratch(b, splits),
+                          dtype=torch.float32, device=qkv.device)
+    out = torch.empty((b, n, HIDDEN), dtype=qkv.dtype, device=qkv.device)
+    rc = lib.prgpt_linear_attention_core(
+        qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, splits,
+        rows_per_split, int(qkv.dtype == torch.bfloat16),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(rc, "linear_attention_core")
+    linear_attention_core.launches += 1
+    return out
+
+
+class LinearAttentionCoreFn(torch.autograd.Function):
+    """K4 forward; the backward is the gradient of the plain version,
+    recomputed (the JAX ``custom_vjp``'s ``_bwd``, XLA's vjp of
+    ``_xla_core``). Saves only ``qkv``, the JAX residual."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, dim_head):
+        ctx.save_for_backward(qkv)
+        ctx.config = (heads, dim_head)
+        return _core_forward(qkv, heads, dim_head)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        with torch.enable_grad():
+            qkv = ctx.saved_tensors[0].detach().requires_grad_()
+            out = linear_attention_core_plain(qkv, *ctx.config)
+            return torch.autograd.grad(out, qkv, g)[0], None, None
+
+
+def linear_attention_core(qkv: torch.Tensor, heads: int = HEADS,
+                          dim_head: int = DIM_HEAD) -> torch.Tensor:
+    """softmax-q / softmax-k linear attention over packed qkv (K4).
+
+    Args:
+        qkv: (b, n, 3*heads*dim_head) packed [q | k | v], head-major within
+            each third; on a CUDA tensor contiguous bf16 or fp32 with 4
+            heads x 32 and any n >= 1.
+
+    Returns:
+        (b, n, heads*dim_head) in qkv.dtype.
+    """
+    return LinearAttentionCoreFn.apply(qkv, heads, dim_head)
+
+
+linear_attention_core.launches = 0
+
+
 def _lib():
     return bind(_build.load("linear_attention"))
+
+
+def _core_lib():
+    return bind_core(_build.load("linear_attention_core"))
 
 
 def _bwd_lib():
@@ -306,6 +396,21 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_core(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from
+    ``csrc/linear_attention_core.cu`` (once per library)."""
+    if not getattr(lib, "_prgpt_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.prgpt_linear_attention_core.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.prgpt_linear_attention_core.restype = i
+        lib.prgpt_linear_attention_core_rows_per_tile.argtypes = []
+        lib.prgpt_linear_attention_core_rows_per_tile.restype = i
+        lib.prgpt_linear_attention_core_scratch.argtypes = [i, i]
+        lib.prgpt_linear_attention_core_scratch.restype = ctypes.c_longlong
+        lib._prgpt_typed = True
+    return lib
+
+
 def work(b: int, n: int, c: int, itemsize: int) -> dict:
     """Bytes and operations of one K1 call: x, the weights and the output
     each moved once; per row the three projections and the out projection
@@ -335,6 +440,34 @@ def work_bwd(b: int, n: int, c: int, itemsize: int) -> dict:
     return {"bytes": 4 * b * n * c * itemsize + weights + grads,
             "flops": 2 * b * n * (12 * HIDDEN * c
                                   + 6 * HEADS * DIM_HEAD * DIM_HEAD)}
+
+
+def work_core(b: int, n: int, itemsize: int) -> dict:
+    """Bytes and operations of one K4 call: packed qkv read once and the
+    output written once; per row the two context products on the four
+    32x32 head blocks (the rest of C is masked away; the softmaxes are not
+    counted, as in :func:`work`)."""
+    return {"bytes": b * n * (3 * HIDDEN + HIDDEN) * itemsize,
+            "flops": 2 * b * n * 2 * HEADS * DIM_HEAD * DIM_HEAD}
+
+
+def check_inputs_core(b: int, n: int, dtype: torch.dtype, device,
+                      seed: int = 0) -> torch.Tensor:
+    """Packed qkv (b, n, 384) that holds K4 against
+    :func:`linear_attention_core_plain` by max |got - ref| / max |ref|.
+
+    Zero-mean normals: with a nonzero mean C^ would be v's mean, the same
+    for every lane and every kv split. k's spread of 2 makes the softmax
+    over n weigh the rows unevenly (about n/e^4 effective rows), so every
+    kv split, the running max's rescaling and every lane of C^ move the
+    output; q's spread of 2 makes each head's softmax over its 32 lanes
+    uneven, so a softmax taken across heads shows too.
+    """
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, n, 3, HIDDEN))
+    x[:, :, :2] *= 2.0
+    return torch.tensor(x.reshape(b, n, 3 * HIDDEN), dtype=dtype,
+                        device=device)
 
 
 def check_inputs(b: int, n: int, c: int, dtype: torch.dtype, device,

@@ -16,6 +16,7 @@ from pointreggpt_tpu_torch.models import DiffusionUNet
 from pointreggpt_tpu_torch.models.blocks import PreNormResidual
 from pointreggpt_tpu_torch.ops import _build
 from pointreggpt_tpu_torch.ops import attention as K2
+from pointreggpt_tpu_torch.ops import conv as KC
 from pointreggpt_tpu_torch.ops import linear_attention as K1
 
 pytestmark = pytest.mark.cuda
@@ -273,3 +274,244 @@ def test_training_backward_reaches_every_attention_parameter(cuda):
         for name, prm in m.named_parameters():
             assert prm.grad is not None, name
             assert prm.grad.abs().max() > 0, name
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() /
+            ref.float().abs().max()).item()
+
+
+# K4 against its plain version by max |got - ref| / max |ref| on
+# K1.check_inputs_core: bf16 roundings where the plain version rounds, one
+# bf16 step apart where the kernel's fp32 sums run in another order; fp32
+# summation order only.
+K4_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+K4_N = [1024, 4096, 16384, 65536]  # the U-Net's n at 256^2, batch 8
+
+
+def _k4_err(device, dtype, b, n, cache=None):
+    key = (dtype, b, n)
+    if cache is not None and key in cache:
+        qkv, ref = cache[key]
+    else:
+        qkv = K1.check_inputs_core(b, n, dtype, device)
+        ref = K1.linear_attention_core_plain(qkv)
+        if cache is not None:
+            cache[key] = qkv, ref
+    out = K1.linear_attention_core(qkv)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    return _rel(out, ref)
+
+
+@pytest.mark.parametrize("dtype", sorted(K4_TOL, key=str))
+@pytest.mark.parametrize("b,n", [(1, 1), (2, 100), (3, 1000)] +
+                         [(8, n) for n in K4_N])
+def test_linear_attention_core_kernel_matches_plain(cuda, dtype, b, n):
+    before = K1.linear_attention_core.launches
+    err = _k4_err(cuda, dtype, b, n)
+    assert K1.linear_attention_core.launches == before + 1
+    assert err <= K4_TOL[dtype], err
+
+
+def test_linear_attention_core_backward_on_the_card(cuda):
+    qkv = K1.check_inputs_core(2, 1000, torch.float32, cuda)
+    g = torch.randn(2, 1000, 128, device=cuda)
+    leaf = qkv.clone().requires_grad_()
+    K1.linear_attention_core(leaf).backward(g)
+    ref = qkv.clone().requires_grad_()
+    K1.linear_attention_core_plain(ref).backward(g)
+    assert _rel(leaf.grad, ref.grad) <= 1e-4
+
+
+# Faults planted in a copy of csrc/linear_attention_core.cu or the shared
+# header; the K4 check must fail on each at the production shapes.
+K4_FAULTS = {
+    "context_zeroed": K1_FAULTS["context_zeroed"],
+    "kv_split_dropped": K1_FAULTS["kv_split_dropped"],
+    "kv_rescale_dropped": K1_FAULTS["kv_rescale_dropped"],
+    "q_softmax_across_heads": K1_FAULTS["q_softmax_across_heads"],
+}
+
+
+@pytest.fixture(scope="module")
+def k4_mutants(cuda, tmp_path_factory):
+    return build_mutants(tmp_path_factory.mktemp("k4_mutants"),
+                         "linear_attention_core", K4_FAULTS, K1.bind_core)
+
+
+@pytest.fixture(scope="module")
+def k4_refs():
+    return {}
+
+
+@pytest.mark.parametrize("dtype", sorted(K4_TOL, key=str))
+@pytest.mark.parametrize("fault", sorted(K4_FAULTS))
+def test_linear_attention_core_check_sees_planted_fault(
+        cuda, k4_mutants, k4_refs, monkeypatch, fault, dtype):
+    monkeypatch.setattr(K1, "_core_lib", lambda: k4_mutants[fault])
+    errs = {n: _k4_err(cuda, dtype, 8, n, k4_refs) for n in K4_N}
+    print(fault, dtype, errs)
+    assert max(errs.values()) > K4_TOL[dtype], errs
+
+
+# K5 and K6 against their plain versions by max |got - ref| / max |ref| on
+# KC.check_inputs_conv: bf16 sums of exact products in another order,
+# rounded once (one bf16 step, 2^-8 relative); fp32 summation order only.
+CONV_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# small shapes with edges, partial tiles and cin != cout (each
+# (b, h, w, cin, cout)), then the tools' shapes
+CONV_SMALL = [(1, 1, 1, 1, 1), (2, 7, 37, 5, 3), (1, 9, 33, 70, 130),
+              (2, 16, 40, 64, 36)]
+K5_SHAPES = [(16, 256, 256, 64, 64), (16, 256, 256, 128, 64),
+             (8, 256, 256, 64, 64), (16, 128, 128, 128, 128)]
+
+
+def _k5_err(device, dtype, shape, cache=None):
+    key = (dtype, shape)
+    if cache is not None and key in cache:
+        x, w, ref = cache[key]
+    else:
+        x, w = KC.check_inputs_conv(*shape, dtype, device)
+        ref = KC.conv3x3_plain(x, w)
+        if cache is not None:
+            cache[key] = x, w, ref
+    with torch.no_grad():
+        out = KC.conv3x3(x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    return _rel(out, ref)
+
+
+@pytest.mark.parametrize("dtype", sorted(CONV_TOL, key=str))
+@pytest.mark.parametrize("shape", CONV_SMALL + K5_SHAPES[1:3])
+def test_conv3x3_kernel_matches_plain(cuda, dtype, shape):
+    before = KC.conv3x3.launches
+    err = _k5_err(cuda, dtype, shape)
+    assert KC.conv3x3.launches == before + 1
+    assert err <= CONV_TOL[dtype], err
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((2, 9, 37, 70, 36), torch.float32, 1e-4),
+    ((16, 256, 256, 128, 64), torch.bfloat16, 3e-2)])
+def test_conv3x3_gradients_on_the_card(cuda, shape, dtype, tol):
+    x, w = KC.check_inputs_conv(*shape, dtype, cuda)
+    before = KC.conv3x3.launches
+    got = [t.detach().requires_grad_() for t in (x, w)]
+    (KC.conv3x3(*got).float() ** 2).sum().backward()
+    assert KC.conv3x3.launches == before + 2  # y, then dx
+    ref = [t.detach().requires_grad_() for t in (x, w)]
+    (KC.conv3x3_plain(*ref).float() ** 2).sum().backward()
+    for a, r in zip(got, ref):
+        assert a.grad.dtype == r.dtype
+        assert _rel(a.grad, r.grad) <= tol
+
+
+K6_SHAPES = [((2, 32, 32, 64, 64), 8), ((8, 256, 256, 64, 64), 8)]
+
+
+def _k6_err(device, shape, rows, cache=None):
+    key = (shape, rows)
+    if cache is not None and key in cache:
+        x, w, ref = cache[key]
+    else:
+        x, w = KC.check_inputs_conv(*shape, torch.bfloat16, device,
+                                    w_dtype=torch.float32)
+        ref = KC.conv3_igemm_plain(x, w, rows)
+        if cache is not None:
+            cache[key] = x, w, ref
+    out = KC.conv3_igemm(x, w, rows)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    return _rel(out, ref)
+
+
+@pytest.mark.parametrize("shape,rows", [((1, 1, 1, 1, 1), 1),
+                                        ((2, 6, 37, 5, 3), 3),
+                                        ((1, 16, 33, 70, 130), 16),
+                                        ((2, 16, 40, 64, 36), 8)] +
+                         K6_SHAPES + [((16, 256, 256, 64, 64), 8)])
+def test_conv3_igemm_kernel_matches_plain(cuda, shape, rows):
+    before = KC.conv3_igemm.launches
+    err = _k6_err(cuda, shape, rows)
+    assert KC.conv3_igemm.launches == before + 1
+    assert err <= CONV_TOL[torch.bfloat16], err
+
+
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    qkv = torch.zeros((1, 16, 384), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError):
+        K1.linear_attention_core(qkv)  # fp16
+    with pytest.raises(ValueError):
+        K1.linear_attention_core(qkv.float(), 8, 16)  # 8 heads x 16
+    with pytest.raises(ValueError):
+        K1.linear_attention_core(qkv.float()[:, ::2])  # not contiguous
+    x = torch.zeros((1, 8, 8, 4), device=cuda)
+    w = torch.zeros((3, 3, 4, 4), device=cuda)
+    with pytest.raises(ValueError):
+        KC.conv3x3(x.half(), w)
+    with pytest.raises(ValueError):
+        KC.conv3x3(x, torch.zeros((3, 3, 4, 8192), device=cuda))
+    with pytest.raises(ValueError):
+        KC.conv3_igemm(x, w)  # K6 has no fp32 version
+    with pytest.raises(ValueError):
+        KC.conv3_igemm(torch.zeros((1, 32, 8, 4), dtype=torch.bfloat16,
+                                   device=cuda), w, rows=32)
+
+
+# Faults planted in copies of csrc/conv3x3.cu and csrc/conv3_igemm.cu;
+# each kernel's check must fail on each.
+_DX_LOOP = "for (int dx = 0; dx < 3; ++dx) {"
+_HALO = ("gy >= 0 &&", "gy >= y0 &&")
+_WRAP = ("const int gx = x0 - 1 + pos % (WT + 2);",
+         "const int gx = (x0 - 1 + pos % (WT + 2) + wd) % wd;")
+K5_FAULTS = {
+    "tap_dropped": (_DX_LOOP, _DX_LOOP + " if (dy == 2 && dx == 2) continue;"),
+    "halo_row_lost": _HALO,
+    "edge_wrapped": _WRAP,
+}
+_KK_LOOP = "for (int kk = 0; kk < KC; kk += 16) {"
+K6_FAULTS = {
+    "tap_dropped": ("for (int tap = 0; tap < 9; ++tap) {",
+                    "for (int tap = 0; tap < 8; ++tap) {"),
+    "halo_row_lost": _HALO,
+    "edge_wrapped": _WRAP,
+    "cin_slice_dropped": (_KK_LOOP,
+                          _KK_LOOP + " if (k0 + kk == 16) continue;"),
+}
+
+
+@pytest.fixture(scope="module")
+def conv_mutants(cuda, tmp_path_factory):
+    root = tmp_path_factory.mktemp("conv_mutants")
+    (root / "k5").mkdir()
+    (root / "k6").mkdir()
+    return (build_mutants(root / "k5", "conv3x3", K5_FAULTS,
+                          KC.bind_conv3x3),
+            build_mutants(root / "k6", "conv3_igemm", K6_FAULTS,
+                          KC.bind_igemm))
+
+
+@pytest.fixture(scope="module")
+def conv_refs():
+    return {}
+
+
+@pytest.mark.parametrize("fault", sorted(K5_FAULTS))
+def test_conv3x3_check_sees_planted_fault(cuda, conv_mutants, conv_refs,
+                                          monkeypatch, fault):
+    monkeypatch.setattr(KC, "_conv3x3_lib", lambda: conv_mutants[0][fault])
+    errs = {s: _k5_err(cuda, torch.bfloat16, s, conv_refs)
+            for s in [CONV_SMALL[3], K5_SHAPES[2]]}
+    print(fault, errs)
+    assert max(errs.values()) > CONV_TOL[torch.bfloat16], errs
+
+
+@pytest.mark.parametrize("fault", sorted(K6_FAULTS))
+def test_conv3_igemm_check_sees_planted_fault(cuda, conv_mutants, conv_refs,
+                                              monkeypatch, fault):
+    monkeypatch.setattr(KC, "_igemm_lib", lambda: conv_mutants[1][fault])
+    errs = {s: _k6_err(cuda, s, rows, conv_refs) for s, rows in K6_SHAPES}
+    print(fault, errs)
+    assert max(errs.values()) > CONV_TOL[torch.bfloat16], errs
