@@ -14,8 +14,8 @@ Phases, each printing one JSON line:
    DiffusionUNet) and fp32 (the MaskUNet), with times, bounds and errors;
 4. ``k2_*``: K2 (bottleneck attention) against its plain version at
    (8, 1024, 4, 32) in both types, plus ``F.scaled_dot_product_attention``
-   (fp32) as the library yardstick — timed here only, never called by the
-   port;
+   in the same type as the library yardstick — timed here only, never
+   called by the port;
 5. ``k3_*``: K3 (K1's backward) against its plain version (the autograd
    of K1's plain version) at the eight shapes, bf16 at microbatch 32 and
    fp32 at batch 8: max |got - ref| / max |ref| per output, times, bounds;
@@ -30,9 +30,12 @@ Phases, each printing one JSON line:
    shift9 and pair lowerings and cuDNN) and ``profile_conv_igemm.main``
    (K6 at (2, 32, 32, 64) and batches 8 and 16 at 256^2, 64 -> 64),
    launch counters reset just before each; K5 and K6 within 1e-2 relative
-   of their plain versions at every shape, ``conv3x3``'s gradients
-   against autograd of ``conv3x3_plain`` (fp32 at a small shape, 1e-4;
-   bf16 at (16, 256, 256, 128 -> 64), 3e-2);
+   of their plain versions at every shape, each shape's TFLOP/s and share
+   of its bound beside cuDNN's, ``conv3x3``'s gradients against autograd
+   of ``conv3x3_plain`` (fp32 at a small shape, 1e-4; bf16 at (16, 256,
+   256, 128 -> 64), 3e-2); then K5's fp32 path (the direct CUDA-core
+   kernel) at (8, 256, 256, 64 -> 64) against its plain version (1e-5)
+   and fp32 cuDNN;
 8. ``net_parity``: a small whole-U-Net forward on the card against the
    same net on the CPU (fp32, plain path);
 9. ``forward_profile``: one production DiffusionUNet forward (bf16,
@@ -234,8 +237,8 @@ def phase_k3(torch, K1, dev, dtype, batch):
 
 
 def phase_k2(torch, K2, dev, dtype):
-    """K2 against its plain version at (8, 1024, 4, 32), with SDPA (fp32)
-    timed as the library yardstick."""
+    """K2 against its plain version at (8, 1024, 4, 32), with SDPA in the
+    same type timed as the library yardstick."""
     import torch.nn.functional as F
 
     name = str(dtype).split(".")[-1]
@@ -255,9 +258,9 @@ def phase_k2(torch, K2, dev, dtype):
     ms = time_ms(lambda: K2.multihead_attention(q, k, v, scale=scale), 50)
     plain_ms = time_ms(
         lambda: K2.multihead_attention_plain(q, k, v, scale=scale), 10)
-    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))
     lib = F.scaled_dot_product_attention(qf, kf, vf, scale=scale)
-    lib_err = (lib.transpose(1, 2) - ref.float()).abs().max().item()
+    lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max().item()
     library_ms = time_ms(
         lambda: F.scaled_dot_product_attention(qf, kf, vf, scale=scale), 50)
     b_ms, b_by = bound(K2.work(b, n, h, d, q.element_size()), PEAK[name])
@@ -405,18 +408,53 @@ def phase_conv_tools(torch, dev):
             raise AssertionError(f"conv3x3 gradients {name}: {err} > "
                                  f"{CONV_GRAD_RTOL[name]}")
 
-    # each kernel's bound and its factor against cuDNN, per shape
+    # each kernel's bound, rate and share of the bound beside cuDNN's, and
+    # its factor against cuDNN, per shape
     for r in k5_rows + k6_rows:
-        r["bound_ms"], r["bound_by"] = bound(KC.work_conv(*r["shape"], 2),
-                                             PEAK["bfloat16"])
+        wk = KC.work_conv(*r["shape"], 2)
+        r["bound_ms"], r["bound_by"] = bound(wk, PEAK["bfloat16"])
         r["vs_library"] = r["ms"] / r["library_ms"]
+        r["tflops"] = wk["flops"] / r["ms"] / 1e9
+        r["library_tflops"] = wk["flops"] / r["library_ms"] / 1e9
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["library_share_of_bound"] = r["bound_ms"] / r["library_ms"]
+    fp32 = conv_fp32_direct(torch, KC, dev)
     emit("conv_tools", card=card_line(), rtol=CONV_RTOL,
          grad_rel_err=grad_errs, grad_rtol=CONV_GRAD_RTOL,
          k5_launches=k5_launches, k6_launches=k6_launches, k5=k5_rows,
-         k6_small=ig["correctness"], k6=k6_rows)
+         k6_small=ig["correctness"], k6=k6_rows, k5_fp32=fp32)
     torch.cuda.empty_cache()
-    return (conv_summary(k5_rows, KC, k5_launches),
+    return (dict(conv_summary(k5_rows, KC, k5_launches), fp32=fp32),
             conv_summary(k6_rows, KC, k6_launches))
+
+
+CONV_FP32_SHAPE = (8, 256, 256, 64, 64)
+CONV_FP32_RTOL = 1e-5  # the direct kernel's fp32 sums in another order
+
+
+def conv_fp32_direct(torch, KC, dev) -> dict:
+    """K5's fp32 path (the direct CUDA-core kernel) at one tool shape,
+    apart from the bf16 path: error against ``conv3x3_plain``, time, bound
+    (fp32 outside the tensor cores) and fp32 cuDNN (TF32 off)."""
+    from pointreggpt_tpu_torch.tools import errors
+
+    x, w = KC.check_inputs_conv(*CONV_FP32_SHAPE, torch.float32, dev)
+    with torch.no_grad():
+        e = errors(KC.conv3x3(x, w), KC.conv3x3_plain(x, w))
+        if not e["rel_err"] <= CONV_FP32_RTOL:
+            raise AssertionError(f"K5 fp32 at {CONV_FP32_SHAPE}: "
+                                 f"{e['rel_err']} > {CONV_FP32_RTOL}")
+        ms = time_ms(lambda: KC.conv3x3(x, w), 5, 1)
+        plain_ms = time_ms(lambda: KC.conv3x3_plain(x, w), 2, 1)
+        library_ms = time_ms(lambda: KC.conv_library(x, w), 10)
+    wk = KC.work_conv(*CONV_FP32_SHAPE, 4)
+    b_ms, b_by = bound(wk, PEAK["float32"])
+    del x, w
+    return dict(shape=list(CONV_FP32_SHAPE), rel_err=e["rel_err"],
+                max_abs_err=e["max_abs_err"], rtol=CONV_FP32_RTOL, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, vs_library=ms / library_ms,
+                tflops=wk["flops"] / ms / 1e9)
 
 
 def let_cores_count(torch, net, x, t, pc) -> None:
@@ -981,9 +1019,13 @@ def main(argv=None) -> int:
                     per_optimizer_step=train_res["per_optimizer_step"][i],
                     launches_train_grid=train_res["grid_launches"][i])
 
+    csrc = "pointreggpt_tpu_torch/ops/csrc/"
+    KV_HEADER, CONV_HEADER = csrc + "linear_attention_kv.cuh", \
+        csrc + "conv3_tc.cuh"
     kernels = [
         dict(name="fused_linear_attention", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention.cu",
+             headers=[KV_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:202",
              **launches(0, "k1_launches"), library_ms=None,
              work="the 8 calls of one dim-64 U-Net forward, bf16, batch 8, "
@@ -996,6 +1038,7 @@ def main(argv=None) -> int:
              work="one call at (8, 1024, 4, 32) bf16", fp32=k2_f32, **k2),
         dict(name="fused_linear_attention_bwd", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_bwd.cu",
+             headers=[KV_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:316",
              **launches(1, "k3_launches"), library_ms=None,
              work="the 8 calls of one dim-64 U-Net backward, bf16, "
@@ -1005,6 +1048,7 @@ def main(argv=None) -> int:
              fp32=k3_f32, **k3),
         dict(name="linear_attention_core", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_core.cu",
+             headers=[KV_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:95",
              library_ms=None,
              work="linear_attention_core at (8, n, 384) bf16 for n = 65536, "
@@ -1015,6 +1059,7 @@ def main(argv=None) -> int:
              **k4),
         dict(name="conv3x3", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/conv3x3.cu",
+             headers=[CONV_HEADER],
              replaces="tools/profile_conv.py:111",
              work="profile_conv.main: the 4 shapes (16,256,256,64->64), "
                   "(16,256,256,128->64), (8,256,256,64->64), "
@@ -1022,10 +1067,13 @@ def main(argv=None) -> int:
                   "and bounds summed over the 4 shapes; library_ms is "
                   "F.conv2d, cuDNN, bf16 channels-last); launches counted "
                   "over one call of the tool's main (forwards, and the "
-                  "backward's dx, of its timing and gradient loops)",
+                  "backward's dx, of its timing and gradient loops); the "
+                  "bf16 kernel is conv3_tc.cuh's implicit GEMM, fp32 "
+                  "(under fp32, one shape) the direct CUDA-core kernel",
              **k5),
         dict(name="conv3_igemm", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/conv3_igemm.cu",
+             headers=[CONV_HEADER],
              replaces="tools/profile_conv_igemm.py:37",
              work="profile_conv_igemm.main: batches 8 and 16 at 256^2, "
                   "64->64, bf16, rows 8 (times and bounds summed over the "

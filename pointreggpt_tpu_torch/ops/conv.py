@@ -9,14 +9,20 @@ is needed.
 
 - ``conv3x3`` is a ``torch.autograd.Function`` (the port of the JAX
   ``custom_vjp``). Its forward runs K5 (``csrc/conv3x3.cu``, which replaces
-  ``_conv3x3_pallas``) on w cast to x.dtype. Its backward computes dx as K5
-  again, on the spatially flipped weights with in and out channels swapped,
-  and dw as nine shifted (pixels x cin)^T @ (pixels x cout) products in
-  fp32 (``_wgrad``; plain matrix products, as the JAX package leaves them
-  to XLA outside any Pallas kernel).
+  ``_conv3x3_pallas``) on w cast to x.dtype: in bf16 the tensor-core
+  implicit GEMM of ``csrc/conv3_tc.cuh``, in fp32 a direct conv on the
+  CUDA cores. Its backward computes dx as K5 again, on the spatially
+  flipped weights with in and out channels swapped, and dw as nine shifted
+  (pixels x cin)^T @ (pixels x cout) products in fp32 (``_wgrad``; plain
+  matrix products, as the JAX package leaves them to XLA outside any
+  Pallas kernel).
 - ``conv3_igemm`` is K6 (``csrc/conv3_igemm.cu``, which replaces
   ``conv3_igemm``): the same conv as one implicit (pixels x 9 cin) @
-  (9 cin x cout) product on the tensor cores, bf16 only.
+  (9 cin x cout) product on the tensor cores, bf16 only, through the same
+  ``conv3_tc.cuh`` with ``rows`` output rows per tile.
+
+Both bf16 kernels walk their tiles on a persistent grid of one block per
+SM; :func:`conv_tiles` is that walk in Python.
 
 A CPU tensor takes the plain version (``conv3x3_plain``,
 ``conv3_igemm_plain``); a CUDA tensor launches the kernel or raises.
@@ -158,6 +164,7 @@ def _k5(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     rc = lib.prgpt_conv3x3(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h,
                            wd, cin, cout, int(x.dtype == torch.bfloat16),
+                           _sms(x.device),
                            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "conv3x3")
     conv3x3.launches += 1
@@ -202,7 +209,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 conv3x3.launches = 0
 
-ROWS = 8  # output rows per block of K6, as the JAX tool's default
+ROWS = 8  # output rows per tile of K6, as the JAX tool's default
 
 
 def conv3_igemm_plain(x: torch.Tensor, w: torch.Tensor,
@@ -223,8 +230,8 @@ def conv3_igemm(x: torch.Tensor, w: torch.Tensor,
         x: (b, h, w, c); on a CUDA tensor contiguous bf16 (the kernel has
             no fp32 version: an fp32 CUDA tensor raises).
         w: (3, 3, c, cout), fp32 in the JAX tool; cast to x.dtype.
-        rows: the row block; must divide h (asserted, as in the JAX tool);
-            the kernel takes 1 .. 16.
+        rows: the row block, output rows per tile; must divide h
+            (asserted, as in the JAX tool); the kernel takes 1 .. 16.
 
     Returns:
         (b, h, w, cout) in x.dtype.
@@ -243,7 +250,7 @@ def conv3_igemm(x: torch.Tensor, w: torch.Tensor,
     wmat = w.reshape(9 * c, cout).to(x.dtype).contiguous()
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     rc = lib.prgpt_conv3_igemm(x.data_ptr(), wmat.data_ptr(), out.data_ptr(),
-                               b, h, wd, c, cout, rows,
+                               b, h, wd, c, cout, rows, _sms(x.device),
                                torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "conv3_igemm")
     conv3_igemm.launches += 1
@@ -251,6 +258,11 @@ def conv3_igemm(x: torch.Tensor, w: torch.Tensor,
 
 
 conv3_igemm.launches = 0
+
+
+def _sms(device: torch.device) -> int:
+    """The card's SM count: the persistent grid of the bf16 kernels."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _conv3x3_lib():
@@ -266,7 +278,7 @@ def bind_conv3x3(lib: ctypes.CDLL) -> ctypes.CDLL:
     ``csrc/conv3x3.cu`` (once per library)."""
     if not getattr(lib, "_prgpt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.prgpt_conv3x3.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.prgpt_conv3x3.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         lib.prgpt_conv3x3.restype = i
         lib.prgpt_conv3x3_max_c.argtypes = []
         lib.prgpt_conv3x3_max_c.restype = i
@@ -279,12 +291,50 @@ def bind_igemm(lib: ctypes.CDLL) -> ctypes.CDLL:
     ``csrc/conv3_igemm.cu`` (once per library)."""
     if not getattr(lib, "_prgpt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.prgpt_conv3_igemm.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.prgpt_conv3_igemm.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         lib.prgpt_conv3_igemm.restype = i
         lib.prgpt_conv3_igemm_max_rows.argtypes = []
         lib.prgpt_conv3_igemm_max_rows.restype = i
         lib._prgpt_typed = True
     return lib
+
+
+K5_TILE_ROWS = 16  # output rows per tile of K5's bf16 path (conv3x3.cu TR)
+TILE_N = 64        # output channels per tile (conv3_tc.cuh BN)
+
+
+def tile_cols(rows: int, cin: int) -> int:
+    """Output columns per tile of K5 and K6 (conv3_igemm.cu): 64 up to 4
+    rows, 32 up to 8, 16 above, so that a tile fills the block's 256
+    pixels (4 warps of 64 whole-row pixels); 16 at any rows where cin > 64,
+    whose weights leave room only for the 18 x 18 window. K5's 16-row tiles
+    take 16."""
+    if cin > 64 or rows > 8:
+        return 16
+    return 32 if rows > 4 else 64
+
+
+def conv_tiles(b: int, h: int, w: int, cout: int, tile_rows: int,
+               tile_cols: int, bn: int = TILE_N, blocks: int = 132) -> list:
+    """The persistent tile walk of ``csrc/conv3_tc.cuh``, by the kernel's
+    formula: tiles numbered column fastest, then row tile, image, n tile;
+    block g of ``min(tiles, blocks)`` takes tiles g, g + G, ... Returns
+    per block its tiles as ``(image, y0, x0, n0)``, in order."""
+    col_tiles = -(-w // tile_cols)
+    row_tiles = -(-h // tile_rows)
+    spatial = b * row_tiles * col_tiles
+    tiles = -(-cout // bn) * spatial
+    grid = min(tiles, blocks)
+    walk = []
+    for g in range(grid):
+        mine = []
+        for t in range(g, tiles, grid):
+            n, s = divmod(t, spatial)
+            img, s = divmod(s, row_tiles * col_tiles)
+            r, c = divmod(s, col_tiles)
+            mine.append((img, r * tile_rows, c * tile_cols, n * bn))
+        walk.append(mine)
+    return walk
 
 
 def work_conv(b: int, h: int, w: int, cin: int, cout: int,

@@ -13,23 +13,28 @@
 //
 // Bound on this card, at (16, 256, 256, 64 -> 64) bf16: 77.3 GFLOP of
 // products, 78 us at 989 TFLOP/s; x and out are 268 MB, 80 us at
-// 3.35 TB/s (ops/conv.py::work_conv counts every shape, chip_smoke.py
-// turns that into the bound).
+// 3.35 TB/s; at 128 -> 64 and 128 -> 128 the products bound it
+// (ops/conv.py::work_conv counts every shape, chip_smoke.py turns that
+// into the bound). Either way only the tensor cores can reach it: the
+// fp32 rate outside them (67 TFLOP/s) needs 1.15 ms for the 77.3 GFLOP.
 //
 // Design: the TPU kernel pairs taps along the channel axis (K = 2 cin
 // contractions) to fill the MXU's contraction depth; that has no meaning
-// here. This is a direct conv on the CUDA cores. A block owns R x WT
-// output pixels of one image and CT output channels. For each stage of KC
-// input channels it stages the (R + 2) x (WT + 2) halo window of x (zeros
-// outside the image, so the four edges need no masks in the inner loop,
-// and halo rows shared by two row tiles are read by both) and the
-// 9 x KC x CT slice of w in shared memory, as fp32. Each thread keeps
-// PX x CO outputs (PX neighbouring pixels of one row, CO neighbouring
-// channels) in fp32 registers; for each window row and channel it reads
-// PX + 2 inputs once and uses them for the three taps of that row.
-// Tensor cores (bf16) and a deeper pipeline are later work.
+// here. bf16 runs the tensor-core implicit GEMM of conv3_tc.cuh (shared
+// with K6) on tiles of TR (16) output rows x 16 columns x 64 output
+// channels: each warp owns 4 whole rows of 16 pixels, so each A fragment
+// it loads serves up to three taps, the window's halo is 27% of its
+// pixels, and the weights of cin <= 128 stay resident in shared memory.
+// The last row tile is masked at h. fp32 has no tensor-core path that keeps its tolerance
+// (TF32 keeps about three digits), so it stays a direct conv on the CUDA
+// cores: a block owns R x WT output pixels of one image and CT output
+// channels; for each stage of KC input channels it stages the halo window
+// (zeros outside the image) and the 9 x KC x CT weight slice in shared
+// memory, and each thread keeps PX x CO outputs in registers, reading
+// PX + 2 inputs once for the three taps of a window row.
 
 #include "common.cuh"
+#include "conv3_tc.cuh"
 
 namespace {
 
@@ -45,6 +50,7 @@ constexpr int CO = 4;         // output channels per thread
 constexpr int THREADS = (R * WT / PX) * (CT / CO);  // 256
 constexpr int WIN = (R + 2) * (WT + 2);             // window positions
 constexpr int MAX_C = 4096;
+constexpr int TR = 16;        // tensor-core path: output rows per tile
 static_assert(THREADS == 256, "thread layout");
 
 template <typename T>
@@ -157,10 +163,12 @@ extern "C" {
 int prgpt_conv3x3_max_c() { return MAX_C; }
 
 int prgpt_conv3x3(const void* x, const void* w, void* out, int b, int h,
-                  int wd, int cin, int cout, int is_bf16, void* stream) {
+                  int wd, int cin, int cout, int is_bf16, int sms,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, w, out, b, h, wd, cin, cout, s);
+    return prgpt::conv3::launch<16>(x, w, out, b, h, wd, cin, cout, TR, sms,
+                                    s);
   return launch<float>(x, w, out, b, h, wd, cin, cout, s);
 }
 

@@ -14,8 +14,9 @@ The port of ``tools/profile_conv.py``. Variants per shape (NHWC, bf16,
 each with its time (CUDA events), its rate and share of the card's dense
 bf16 peak, and its error max |got - ref| / max |ref| against
 ``conv3x3_plain``. Then forward + backward through ``conv3x3`` (K5 for y
-and dx, fp32 products for dw) against autograd of the library conv, and
-the gradients' errors against autograd of ``conv3x3_plain``. Lines go to
+and dx, fp32 products for dw, timed alone too) against autograd of the
+library conv, and the gradients' errors against autograd of
+``conv3x3_plain``. Lines go to
 stderr; :func:`main` returns the measurements.
 """
 
@@ -85,11 +86,16 @@ def main(shapes=SHAPES, iters: int = 5, device=None, seed: int = 0) -> dict:
         del g_ref, g_k
         t_cv = time_ms(lambda: grads(K.conv3x3, x, w), dev, iters)
         t_ad = time_ms(lambda: grads(K.conv_library, x, w), dev, iters)
-        row["fwd_bwd"] = dict(conv3x3_ms=t_cv, library_autograd_ms=t_ad)
-        log(f"{tag} fwd+bwd: conv3x3 {t_cv:.3f} ms vs library autograd "
-            f"{t_ad:.3f} ms ({card}); grad err dx "
+        # dw alone: the nine fp32 products of conv3x3's backward
+        dy = torch.ones((b, h, w_, cout), dtype=x.dtype, device=dev)
+        t_wg = time_ms(lambda: K._wgrad(x, dy), dev, iters)
+        row["fwd_bwd"] = dict(conv3x3_ms=t_cv, library_autograd_ms=t_ad,
+                              wgrad_ms=t_wg)
+        log(f"{tag} fwd+bwd: conv3x3 {t_cv:.3f} ms (dw {t_wg:.3f}) vs "
+            f"library autograd {t_ad:.3f} ms ({card}); grad err dx "
             f"{row['grad_rel_err']['dx']:.1e} dw "
             f"{row['grad_rel_err']['dw']:.1e}")
+        del dy
         rows.append(row)
         del x, w, ref
         if dev.type == "cuda":

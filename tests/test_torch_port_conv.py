@@ -23,7 +23,8 @@ import torch
 from test_torch_port_generator import single_torch_thread  # noqa: F401
 from pointreggpt_tpu_torch.ops import _build
 from pointreggpt_tpu_torch.ops import conv as K
-from pointreggpt_tpu_torch.tools import profile_conv, profile_conv_igemm
+from pointreggpt_tpu_torch.tools import (kernel_resources, profile_conv,
+                                         profile_conv_igemm)
 
 REPO = Path(__file__).resolve().parent.parent
 # both tools set these at import: a persistent compilation cache under
@@ -210,20 +211,25 @@ def test_check_inputs_conv_are_seeded_and_typed():
 def _conv_with_fault(x, w, fault, tile_rows):
     """The conv as K5 or K6 computes it, with one planted fault of
     tests/test_torch_port_cuda.py: fp32 sums of the x.dtype products, each
-    block of ``tile_rows`` output rows reading its own halo window."""
+    tile of ``tile_rows`` output rows reading its own halo window (with
+    ``stale_ring_stage``, the window of the tile before it, and zeros for
+    the first)."""
     b, h, wd, cin = x.shape
     xf, wf = x.float(), w.to(x.dtype).float()
     if fault == "cin_slice_dropped":  # input channels 16..31 left out
         wf = wf.clone()
         wf[:, :, 16:32] = 0
     out = torch.zeros((b, h, wd, w.shape[-1]))
+    pad = torch.nn.functional.pad(xf, (0, 0, 1, 1, 1, 1))
+    prev = torch.zeros_like(pad[:, :tile_rows + 2])
     for y0 in range(0, h, tile_rows):
-        pad = torch.nn.functional.pad(xf, (0, 0, 1, 1, 1, 1))
         win = pad[:, y0:y0 + tile_rows + 2].clone()  # rows y0-1 .. y0+R
         if fault == "halo_row_lost" and y0 > 0:
             win[:, 0] = 0
         if fault == "edge_wrapped":
             win[:, :, 0], win[:, :, -1] = _wrapped_cols(xf, y0, tile_rows)
+        if fault == "stale_ring_stage":
+            win, prev = prev, win
         for dy in range(3):
             for dx in range(3):
                 if fault == "tap_dropped" and (dy, dx) == (2, 2):
@@ -248,18 +254,69 @@ def _wrapped_cols(xf, y0, tile_rows):
 
 # The card checks hold K5 and K6 against their plain versions by max |got -
 # ref| / max |ref| <= 1e-2 in bf16 on K.check_inputs_conv; each planted
-# fault must move the output past that. Row tiles: K5's 4, K6's 8.
-@pytest.mark.parametrize("tile_rows", [4, 8])
+# fault must move the output past that. Row tiles: K5's 16, K6's 8; h = 32
+# gives each at least two.
+@pytest.mark.parametrize("tile_rows", [K.K5_TILE_ROWS, K.ROWS])
 @pytest.mark.parametrize("fault", [None, "tap_dropped", "halo_row_lost",
-                                   "edge_wrapped", "cin_slice_dropped"])
+                                   "edge_wrapped", "cin_slice_dropped",
+                                   "stale_ring_stage"])
 def test_conv_check_inputs_expose_faults(fault, tile_rows):
-    x, w = K.check_inputs_conv(2, 16, 16, 64, 64, torch.bfloat16, "cpu")
+    x, w = K.check_inputs_conv(2, 32, 16, 64, 64, torch.bfloat16, "cpu")
     ref = K.conv3x3_plain(x, w)
     err = _rel(_np(_conv_with_fault(x, w, fault, tile_rows)), _np(ref))
     if fault is None:
         assert err <= 1e-2, err
     else:
         assert err > 3e-2, err
+
+
+def _tile_cover(b, h, w, cout, tile_rows, tile_cols, blocks):
+    """How often the walk of :func:`K.conv_tiles` writes each (image,
+    output pixel, n tile), with the kernel's masks at h, w and the tile's
+    rows."""
+    walk = K.conv_tiles(b, h, w, cout, tile_rows, tile_cols, blocks=blocks)
+    n_tiles = -(-cout // K.TILE_N)
+    count = np.zeros((b, h, w, n_tiles), np.int64)
+    for mine in walk:
+        for img, y0, x0, n0 in mine:
+            assert n0 % K.TILE_N == 0 and x0 % tile_cols == 0
+            count[img, y0:min(y0 + tile_rows, h),
+                  x0:min(x0 + tile_cols, w), n0 // K.TILE_N] += 1
+    return walk, count
+
+
+@pytest.mark.parametrize("b,h,w,cout,blocks", [
+    (3, 37, 50, 130, 132), (1, 1, 1, 1, 132), (2, 16, 40, 36, 5),
+    (16, 128, 128, 128, 132), (4, 40, 100, 72, 132)])
+def test_conv_tiles_cover_every_output_once_k5(b, h, w, cout, blocks):
+    walk, count = _tile_cover(b, h, w, cout, K.K5_TILE_ROWS,
+                              K.tile_cols(K.K5_TILE_ROWS, 64), blocks)
+    assert (count == 1).all()
+    tiles = sum(len(m) for m in walk)
+    assert len(walk) == min(tiles, blocks)
+    # block g walks tiles g, g + G, ...: counts differ by at most one
+    assert max(map(len, walk)) - min(map(len, walk)) <= 1
+
+
+@pytest.mark.parametrize("rows", range(1, 17))
+def test_conv_tiles_cover_every_output_once_k6(rows):
+    for cin in (64, 128):
+        walk, count = _tile_cover(3, 3 * rows, 137, 100, rows,
+                                  K.tile_cols(rows, cin), 7)
+        assert (count == 1).all()
+        # n tile slowest: a block's n tile never goes back
+        for mine in walk:
+            ns = [t[3] for t in mine]
+            assert ns == sorted(ns)
+
+
+def test_tile_cols_fill_the_block():
+    # 4 warps x 64 pixels: the tile's full height times its columns
+    for rows in range(1, 17):
+        full = 4 if rows <= 4 else 8 if rows <= 8 else 16
+        assert full * K.tile_cols(rows, 64) == 256
+        assert K.tile_cols(rows, 65) == 16
+    assert K.tile_cols(K.K5_TILE_ROWS, 64) == 16
 
 
 def test_profile_conv_main_runs_on_the_cpu():
@@ -271,6 +328,8 @@ def test_profile_conv_main_runs_on_the_cpu():
     # the CPU takes the plain version: the kernel variant is exact
     assert row["kernel"]["rel_err"] == 0.0
     assert row["grad_rel_err"]["dw"] <= 1e-2
+    assert set(row["fwd_bwd"]) == {"conv3x3_ms", "library_autograd_ms",
+                                   "wgrad_ms"}
 
 
 def test_profile_conv_igemm_main_runs_on_the_cpu(monkeypatch):
@@ -282,3 +341,22 @@ def test_profile_conv_igemm_main_runs_on_the_cpu(monkeypatch):
     (row,) = res["batches"]
     assert [r["rows"] for r in row["igemm"]] == [4, 8]
     assert "blockdiag_ms" in row and row["library_ms"] > 0
+
+
+def test_kernel_resources_reads_ptxas_output():
+    text = """\
+ptxas info    : Compiling entry function '_Z4kernA' for 'sm_90a'
+ptxas info    : Function properties for _Z4kernA
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 135 registers, used 1 barriers, 16 bytes smem
+ptxas info    : Compiling entry function '_Z4kernB' for 'sm_90a'
+ptxas info    : Function properties for _Z4kernB
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 78 registers
+"""
+    rows = kernel_resources.parse(text)
+    assert rows == [
+        dict(kernel="_Z4kernA", stack_frame=0, spill_stores=8,
+             spill_loads=12, registers=135, static_smem=16),
+        dict(kernel="_Z4kernB", stack_frame=0, spill_stores=0,
+             spill_loads=0, registers=78)]

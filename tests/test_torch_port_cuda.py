@@ -363,6 +363,11 @@ CONV_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # (b, h, w, cin, cout)), then the tools' shapes
 CONV_SMALL = [(1, 1, 1, 1, 1), (2, 7, 37, 5, 3), (1, 9, 33, 70, 130),
               (2, 16, 40, 64, 36)]
+# more tiles than the persistent grid has blocks (4 x 3 x 7 x 2 = 168 for
+# K5, 4 x 20 x 2 x 2 = 320 for K6 at rows 2, on 132 SMs); cin % 8 != 0
+# (element-wise staging); cin = 200, whose weights do not fit beside the
+# ring and stream with the windows
+CONV_TC = [(4, 40, 100, 16, 72), (2, 24, 24, 13, 72), (1, 20, 20, 200, 40)]
 K5_SHAPES = [(16, 256, 256, 64, 64), (16, 256, 256, 128, 64),
              (8, 256, 256, 64, 64), (16, 128, 128, 128, 128)]
 
@@ -384,7 +389,7 @@ def _k5_err(device, dtype, shape, cache=None):
 
 
 @pytest.mark.parametrize("dtype", sorted(CONV_TOL, key=str))
-@pytest.mark.parametrize("shape", CONV_SMALL + K5_SHAPES[1:3])
+@pytest.mark.parametrize("shape", CONV_SMALL + CONV_TC + K5_SHAPES[1:3])
 def test_conv3x3_kernel_matches_plain(cuda, dtype, shape):
     before = KC.conv3x3.launches
     err = _k5_err(cuda, dtype, shape)
@@ -430,7 +435,10 @@ def _k6_err(device, shape, rows, cache=None):
 @pytest.mark.parametrize("shape,rows", [((1, 1, 1, 1, 1), 1),
                                         ((2, 6, 37, 5, 3), 3),
                                         ((1, 16, 33, 70, 130), 16),
-                                        ((2, 16, 40, 64, 36), 8)] +
+                                        ((2, 16, 40, 64, 36), 8),
+                                        (CONV_TC[0], 2), (CONV_TC[1], 12),
+                                        (CONV_TC[2], 4), (CONV_TC[2], 5),
+                                        ((2, 16, 40, 128, 64), 8)] +
                          K6_SHAPES + [((16, 256, 256, 64, 64), 8)])
 def test_conv3_igemm_kernel_matches_plain(cuda, shape, rows):
     before = KC.conv3_igemm.launches
@@ -461,25 +469,37 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
 
 
 # Faults planted in copies of csrc/conv3x3.cu and csrc/conv3_igemm.cu;
-# each kernel's check must fail on each.
-_DX_LOOP = "for (int dx = 0; dx < 3; ++dx) {"
-_HALO = ("gy >= 0 &&", "gy >= y0 &&")
-_WRAP = ("const int gx = x0 - 1 + pos % (WT + 2);",
-         "const int gx = (x0 - 1 + pos % (WT + 2) + wd) % wd;")
-K5_FAULTS = {
-    "tap_dropped": (_DX_LOOP, _DX_LOOP + " if (dy == 2 && dx == 2) continue;"),
-    "halo_row_lost": _HALO,
-    "edge_wrapped": _WRAP,
+# all six are in the tensor-core body both include (csrc/conv3_tc.cuh), and
+# each kernel's check must fail on each: the four of the old kernels, and
+# two of the new design, a ring stage read one item late (tile t computes
+# on the window of the block's tile before) and the window's chunks written
+# unswizzled while ldmatrix reads them swizzled.
+CONV_FAULTS = {
+    "tap_dropped": ("if (r >= 0 && r < RW) {",
+                    "if (r >= 0 && r < RW && !(dy == 2 && dx == 2)) {"),
+    "halo_row_lost": ("in = gy >= 0 && gy < g.h",
+                      "in = gy >= tl.y0 && gy < g.h"),
+    "edge_wrapped": ("const int gx = tl.x0 - 1 + (pos - wr * WC);",
+                     "const int gx = (tl.x0 - 1 + (pos - wr * WC) + g.wd) % "
+                     "g.wd;"),
+    "cin_slice_dropped": ("for (int kk = 0; kk < KCH / 16; ++kk) {",
+                          "for (int kk = 0; kk < KCH / 16; ++kk) { "
+                          "if (c * KCH + 16 * kk == 16) continue;"),
+    "stale_ring_stage": (
+        "const uint32_t xsm = ring + (i % stages) * stage_bytes;",
+        "const uint32_t xsm = ring + ((i + stages - 1) % stages) * "
+        "stage_bytes;"),
+    "swizzle_mismatch": (
+        "cp16(dst + pos * ROW_BYTES + ((j ^ (pos & 7)) << 4), src, in);",
+        "cp16(dst + pos * ROW_BYTES + (j << 4), src, in);"),
 }
-_KK_LOOP = "for (int kk = 0; kk < KC; kk += 16) {"
-K6_FAULTS = {
-    "tap_dropped": ("for (int tap = 0; tap < 9; ++tap) {",
-                    "for (int tap = 0; tap < 8; ++tap) {"),
-    "halo_row_lost": _HALO,
-    "edge_wrapped": _WRAP,
-    "cin_slice_dropped": (_KK_LOOP,
-                          _KK_LOOP + " if (k0 + kk == 16) continue;"),
-}
+K5_FAULTS = CONV_FAULTS
+K6_FAULTS = CONV_FAULTS
+
+
+def _check_fails(errs: dict, tol: float) -> bool:
+    """The kernel check (err <= tol) fails at some shape; a NaN fails it."""
+    return any(not e <= tol for e in errs.values())
 
 
 @pytest.fixture(scope="module")
@@ -505,7 +525,7 @@ def test_conv3x3_check_sees_planted_fault(cuda, conv_mutants, conv_refs,
     errs = {s: _k5_err(cuda, torch.bfloat16, s, conv_refs)
             for s in [CONV_SMALL[3], K5_SHAPES[2]]}
     print(fault, errs)
-    assert max(errs.values()) > CONV_TOL[torch.bfloat16], errs
+    assert _check_fails(errs, CONV_TOL[torch.bfloat16]), errs
 
 
 @pytest.mark.parametrize("fault", sorted(K6_FAULTS))
@@ -514,4 +534,4 @@ def test_conv3_igemm_check_sees_planted_fault(cuda, conv_mutants, conv_refs,
     monkeypatch.setattr(KC, "_igemm_lib", lambda: conv_mutants[1][fault])
     errs = {s: _k6_err(cuda, s, rows, conv_refs) for s, rows in K6_SHAPES}
     print(fault, errs)
-    assert max(errs.values()) > CONV_TOL[torch.bfloat16], errs
+    assert _check_fails(errs, CONV_TOL[torch.bfloat16]), errs
