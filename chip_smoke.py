@@ -11,11 +11,16 @@ Phases, each printing one JSON line:
    (one nvcc per source, all at once);
 3. ``k1_*``: K1 (fused LinearAttention) against its plain version at the
    eight (8, n, c) shapes of a dim-64 U-Net forward at 256^2, in bf16 (the
-   DiffusionUNet) and fp32 (the MaskUNet), with times, bounds and errors;
-4. ``k2_*``: K2 (bottleneck attention) against its plain version at
-   (8, 1024, 4, 32) in both types, plus ``F.scaled_dot_product_attention``
-   in the same type as the library yardstick — timed here only, never
-   called by the port;
+   DiffusionUNet, tensor cores) and fp32 (the MaskUNet, CUDA cores), with
+   times, bounds, TFLOP/s, shares of the bound and errors;
+4. ``k2_*``: K2 (bottleneck attention) against its plain version on
+   ``K2.check_inputs`` at (8, 1024, 4, 32) (generation) and (32, 1024, 4,
+   32) (the training microbatch) in both types, beside
+   ``F.scaled_dot_product_attention`` in the same type as the library
+   yardstick — timed here only, never called by the port; kernel and SDPA
+   each timed over 3 interleaved repeats, the median reported. K1's and
+   K2's ``ms`` (and SDPA's) are device time, calls captured in a CUDA graph
+   (``graph_ms``); ``event_ms`` times back-to-back launches, host included;
 5. ``k3_*``: K3 (K1's backward) against its plain version (the autograd
    of K1's plain version) at the eight shapes, bf16 at microbatch 32 and
    fp32 at batch 8: max |got - ref| / max |ref| per output, times, bounds;
@@ -123,6 +128,34 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(torch, fn, iters: int, reps: int = 3) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed ``reps`` times between two events. Unlike
+    :func:`time_ms` it leaves out the host's time per call, which is what
+    back-to-back launches of a kernel shorter than its wrapper's host
+    time measure."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # capture wants a warm-up off the default
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (reps * iters)
+
+
 def bound(work: dict, peak: float) -> tuple:
     t_bytes = work["bytes"] / MEM_BW * 1e3
     t_ops = work["flops"] / peak * 1e3
@@ -155,24 +188,33 @@ def phase_k1(torch, K1, dev, dtype):
             if not np.isfinite(err) or err > atol:
                 raise AssertionError(f"K1 {name} at (8, {n}, {c}): max abs "
                                      f"err {err} > {atol}")
-            ms = time_ms(lambda: K1.fused_linear_attention(*args, eps=eps),
-                         20)
+            ms = graph_ms(torch,
+                          lambda: K1.fused_linear_attention(*args, eps=eps),
+                          10)
+            event_ms = time_ms(
+                lambda: K1.fused_linear_attention(*args, eps=eps), 20)
             plain_ms = time_ms(
                 lambda: K1.fused_linear_attention_plain(*args, eps=eps), 3, 1)
             wk = K1.work(8, n, c, size)
             b_ms, b_by = bound(wk, peak)
             cache[(n, c)] = dict(n=n, c=c, max_abs_err=err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, **wk)
+                                 event_ms=event_ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms,
+                                 bound_by=b_by,
+                                 tflops=wk["flops"] / ms / 1e9,
+                                 share_of_bound=b_ms / ms, **wk)
             del args, out, ref
             torch.cuda.empty_cache()
         rows.append(cache[(n, c)])
     emit(f"k1_{name}", shapes=rows, atol=atol)
     b_ms, b_by = summed_bound(rows, peak)
-    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=sum(r["ms"] for r in rows),
+    ms = sum(r["ms"] for r in rows)
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=ms,
+                event_ms=sum(r["event_ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by,
+                tflops=sum(r["flops"] for r in rows) / ms / 1e9,
+                share_of_bound=b_ms / ms)
 
 
 K3_ATOL = {"bfloat16": 3e-2, "float32": 1e-4}
@@ -236,39 +278,69 @@ def phase_k3(torch, K1, dev, dtype, batch):
                 bound_ms=b_ms, bound_by=b_by)
 
 
+K2_BATCHES = (8, 32)  # generation's batch, the training microbatch
+
+
 def phase_k2(torch, K2, dev, dtype):
-    """K2 against its plain version at (8, 1024, 4, 32), with SDPA in the
-    same type timed as the library yardstick."""
+    """K2 against its plain version at (b, 1024, 4, 32) for both batches
+    on ``K2.check_inputs``, with SDPA in the same type timed as the library
+    yardstick: kernel and SDPA in turns over 3 repeats, each as device time
+    (:func:`graph_ms`) and as back-to-back launches (:func:`time_ms`,
+    ``event_ms``), medians reported. Returns the batch-8 numbers, the
+    training shape's beside them."""
     import torch.nn.functional as F
 
     name = str(dtype).split(".")[-1]
     atol = K_ATOL[("k2", name)]
-    rng = np.random.default_rng(1)
-    b, n, h, d = 8, 1024, 4, 32
-    qkv = torch.tensor(rng.normal(size=(b, n, 3, h, d)), dtype=dtype,
-                       device=dev)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    n, h, d = 1024, 4, 32
     scale = d**-0.5
-    out = K2.multihead_attention(q, k, v, scale=scale)
-    ref = K2.multihead_attention_plain(q, k, v, scale=scale)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    if not np.isfinite(err) or err > atol:
-        raise AssertionError(f"K2 {name}: max abs err {err} > {atol}")
-    ms = time_ms(lambda: K2.multihead_attention(q, k, v, scale=scale), 50)
-    plain_ms = time_ms(
-        lambda: K2.multihead_attention_plain(q, k, v, scale=scale), 10)
-    qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))
-    lib = F.scaled_dot_product_attention(qf, kf, vf, scale=scale)
-    lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max().item()
-    library_ms = time_ms(
-        lambda: F.scaled_dot_product_attention(qf, kf, vf, scale=scale), 50)
-    b_ms, b_by = bound(K2.work(b, n, h, d, q.element_size()), PEAK[name])
-    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=library_ms)
-    emit(f"k2_{name}", shape=[b, n, h, d], atol=atol,
-         library_max_abs_err=lib_err, **res)
-    return res
+    rows = []
+    for b in K2_BATCHES:
+        # a peaked softmax, so every k tile and the rescale move the output
+        q, k, v = K2.check_inputs(b, n, h, d, dtype, dev)
+        out = K2.multihead_attention(q, k, v, scale=scale)
+        ref = K2.multihead_attention_plain(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not np.isfinite(err) or err > atol:
+            raise AssertionError(f"K2 {name} at ({b}, {n}, {h}, {d}): max "
+                                 f"abs err {err} > {atol}")
+        qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qf, kf, vf, scale=scale)
+        lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max()
+        def kern():
+            return K2.multihead_attention(q, k, v, scale=scale)
+
+        def library():
+            return F.scaled_dot_product_attention(qf, kf, vf, scale=scale)
+
+        kern_ms, lib_ms, kern_ev, lib_ev = [], [], [], []
+        for _ in range(3):
+            kern_ms.append(graph_ms(torch, kern, 20))
+            lib_ms.append(graph_ms(torch, library, 20))
+            kern_ev.append(time_ms(kern, 50))
+            lib_ev.append(time_ms(library, 50))
+        plain_ms = time_ms(
+            lambda: K2.multihead_attention_plain(q, k, v, scale=scale), 10)
+        wk = K2.work(b, n, h, d, q.element_size())
+        b_ms, b_by = bound(wk, PEAK[name])
+        ms, library_ms = float(np.median(kern_ms)), float(np.median(lib_ms))
+        rows.append(dict(shape=[b, n, h, d], max_abs_err=err,
+                         library_max_abs_err=lib_err.item(), ms=ms,
+                         ms_repeats=kern_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, library_ms_repeats=lib_ms,
+                         event_ms=float(np.median(kern_ev)),
+                         library_event_ms=float(np.median(lib_ev)),
+                         vs_library=ms / library_ms, bound_ms=b_ms,
+                         bound_by=b_by, tflops=wk["flops"] / ms / 1e9,
+                         share_of_bound=b_ms / ms))
+        del q, k, v, out, ref, lib
+    emit(f"k2_{name}", atol=atol, shapes=rows)
+    keys = ("ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_event_ms", "vs_library")
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                **{k: rows[0][k] for k in keys},
+                training_shape={k: rows[1][k] for k in ("shape",) + keys})
 
 
 K4_N = [65536, 16384, 4096, 1024]  # the U-Net's n at 256^2, batch 8
@@ -1020,22 +1092,33 @@ def main(argv=None) -> int:
                     launches_train_grid=train_res["grid_launches"][i])
 
     csrc = "pointreggpt_tpu_torch/ops/csrc/"
-    KV_HEADER, CONV_HEADER = csrc + "linear_attention_kv.cuh", \
-        csrc + "conv3_tc.cuh"
+    KV_HEADER, TC_HEADER, CONV_HEADER = (
+        csrc + "linear_attention_kv.cuh", csrc + "linear_attention_tc.cuh",
+        csrc + "conv3_tc.cuh")
     kernels = [
         dict(name="fused_linear_attention", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention.cu",
-             headers=[KV_HEADER],
+             headers=[TC_HEADER, KV_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:202",
              **launches(0, "k1_launches"), library_ms=None,
              work="the 8 calls of one dim-64 U-Net forward, bf16, batch 8, "
-                  "256^2 (times and bounds summed over the 8 shapes)",
+                  "256^2 (times and bounds summed over the 8 shapes; ms is "
+                  "device time, a CUDA graph of 10 calls, event_ms "
+                  "back-to-back launches); bf16 "
+                  "on the tensor cores (linear_attention_tc.cuh), fp32 "
+                  "(under fp32) on the CUDA cores",
              fp32=k1_f32, **k1),
         dict(name="multihead_attention", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/attention.cu",
              replaces="pointreggpt_tpu/ops/attention.py:64",
              **launches(2, "k2_launches"),
-             work="one call at (8, 1024, 4, 32) bf16", fp32=k2_f32, **k2),
+             work="one call at (8, 1024, 4, 32) bf16 on K2.check_inputs "
+                  "(training_shape: (32, 1024, 4, 32)); ms and library_ms "
+                  "(F.scaled_dot_product_attention) are device times "
+                  "(CUDA graph of 20 calls), medians of 3 interleaved "
+                  "repeats; event_ms times back-to-back launches; bf16 on "
+                  "the tensor cores, fp32 (under fp32) on the CUDA cores",
+             fp32=k2_f32, **k2),
         dict(name="fused_linear_attention_bwd", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_bwd.cu",
              headers=[KV_HEADER],

@@ -2,7 +2,8 @@
 
 ``multihead_attention`` is a ``torch.autograd.Function``. Its forward runs
 the hand-written CUDA flash kernel (``csrc/attention.cu``, which replaces
-``pointreggpt_tpu/ops/attention.py::_attention_pallas``) for a CUDA tensor
+``pointreggpt_tpu/ops/attention.py::_attention_pallas``; bf16 on the
+tensor cores) for a CUDA tensor
 and ``multihead_attention_plain`` for a CPU tensor. No fallback: a CUDA
 tensor the kernel does not take raises.
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -88,10 +90,16 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
         raise ValueError("multihead_attention: q, k, v need shared strides "
                          f"with contiguous heads, got {q.stride()} "
                          f"{k.stride()} {v.stride()}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (strides[0] % 8 or strides[1] % 8 or
+                 any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("multihead_attention: the bf16 kernel stages "
+                         "16-byte chunks and needs 16-byte aligned rows, got "
+                         f"strides {strides}")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     rc = _lib().prgpt_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, h, d,
-        strides[0], strides[1], float(scale), int(q.dtype == torch.bfloat16),
+        strides[0], strides[1], float(scale), int(bf16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "multihead_attention")
     multihead_attention.launches += 1
@@ -102,7 +110,12 @@ multihead_attention.launches = 0
 
 
 def _lib():
-    lib = _build.load("attention")
+    return bind(_build.load("attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of a library built from ``csrc/attention.cu``
+    (once per library)."""
     if not getattr(lib, "_prgpt_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.prgpt_attention.argtypes = [p, p, p, p, i, i, i, i, ll, ll,
@@ -117,3 +130,25 @@ def work(b: int, n: int, h: int, d: int, itemsize: int) -> dict:
     and p v) of one K2 call."""
     return {"bytes": 4 * b * n * h * d * itemsize,
             "flops": 2 * 2 * b * h * n * n * d}
+
+
+def check_inputs(b: int, n: int, h: int, d: int, dtype: torch.dtype, device,
+                 seed: int = 0) -> tuple:
+    """``(q, k, v)`` that hold K2 against :func:`multihead_attention_plain`
+    by max |got - ref|: strided views of one packed (b, n, 3, h, d)
+    projection, as the U-Net's bottleneck passes them.
+
+    - q and k have a spread of 2, so the scaled scores q k^T / sqrt(d) have
+      a spread of about 4 and each row's softmax is peaked: a few keys carry
+      it, so every k tile, the online rescale and the row sum move the
+      output (with unit normals the softmax is nearly flat and the output
+      nearly v's mean, which hides a lost rescale).
+    - v has a spread of 1/4, so the output stays inside (-2, 2), where one
+      bf16 step is at most 2^-7, inside the 1e-2 bound.
+    """
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(b, n, 3, h, d))
+    qkv[:, :, :2] *= 2.0
+    qkv[:, :, 2] *= 0.25
+    qkv = torch.tensor(qkv, dtype=dtype, device=device)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]

@@ -23,8 +23,7 @@
 //
 // Design: the TPU kernel walks n sequentially with (m, s, C) carried in
 // VMEM. Here blocks run in parallel and carry nothing, so one wrapper call
-// is three launches (A and B are shared with K3 through
-// linear_attention_kv.cuh):
+// is three launches:
 //   A  kv_partials   grid (splits, b): each block streams its row range,
 //                    projects k and v in its own body, keeps a running
 //                    per-lane max and sum and the four 32x32 head blocks of
@@ -32,21 +31,30 @@
 //                    are never computed), and writes (m, s, C) partials.
 //   B  merge_context grid (b): merges the partials with max-rescaling and
 //                    writes C^ (head blocks only), rounded to T.
-//   C  emit_out      grid (row tiles, b): q projection, per-head softmax,
-//                    q C^, out projection + bias, LayerNorm, store T.
-// Intermediates (qkv, core, pre-norm output) never leave shared memory;
-// only x is read twice, as on the TPU. Weights are read through L1/L2 (at
-// c = 512 W_qkv is 384 KB in bf16, beyond shared memory), never staged
-// whole. Products run as fp32 FMAs on the CUDA cores: correct and simple,
-// far from the tensor-core rate (wgmma + TMA is later work).
+//   C  emit_out      q projection, per-head softmax, q C^, out projection
+//                    + bias, LayerNorm, store T.
+// Intermediates (qkv, core, pre-norm output) never leave shared memory or
+// registers; only x is read twice, as on the TPU.
+//
+// bf16 (the DiffusionUNet): the bodies of linear_attention_tc.cuh: A and C
+// on the tensor cores (64-row tiles, cp.async staging, weights resident in
+// shared memory where they fit, ldmatrix + mma.sync.m16n8k16 for the three
+// projections, the two context products and the out projection; C on a
+// persistent grid), B with one thread per entry of C^. fp32 (the MaskUNet):
+// the CUDA-core bodies of linear_attention_kv.cuh (16-row tiles, fp32
+// FMAs, weights read through L1/L2; TF32 would not hold the fp32
+// tolerance), A and B shared with K3.
 //
 // Rounding follows the plain PyTorch version (ops/linear_attention.py):
 // qkv, exp(k - m), C^, the softmaxed q, the core and the projected output
 // (+ bias) are rounded to T where that version materializes them in T.
 
 #include "linear_attention_kv.cuh"
+#include "linear_attention_tc.cuh"
 
 #include <math.h>
+
+#include <mutex>
 
 namespace {
 
@@ -185,12 +193,127 @@ cudaError_t launch(const void* x, const void* wqkv, const void* wout,
   return cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(tc::NTHREADS, 2)
+kv_partials_tc(const __nv_bfloat16* __restrict__ x,
+               const __nv_bfloat16* __restrict__ wqkv,
+               float* __restrict__ part, int n, int c, int rows_per_split,
+               int splits, int resident, int stage_bytes) {
+  tc::kv_partials_tc_body(x, wqkv, part, n, c, rows_per_split, splits,
+                          resident, stage_bytes);
+}
+
+__global__ void __launch_bounds__(tc::NTHREADS)
+merge_context_tc(const float* __restrict__ part, float* __restrict__ chat,
+                 int splits, float scale) {
+  tc::merge_context_tc_body(part, chat, splits, scale);
+}
+
+__global__ void __launch_bounds__(tc::NTHREADS)
+emit_out_tc(const __nv_bfloat16* __restrict__ x,
+            const __nv_bfloat16* __restrict__ wqkv,
+            const __nv_bfloat16* __restrict__ wout,
+            const float* __restrict__ bout, const float* __restrict__ g,
+            const float* __restrict__ chat, __nv_bfloat16* __restrict__ out,
+            int b, int n, int c, float eps, int resident, int stage_bytes) {
+  tc::emit_out_tc_body(x, wqkv, wout, bout, g, chat, out, b, n, c, eps,
+                       resident, stage_bytes);
+}
+
+// bf16: kernels A and C on the tensor cores. cp.async moves 16-byte
+// chunks, so c must be a multiple of 8 and every tensor 16-byte aligned.
+cudaError_t launch_tc(const void* x, const void* wqkv, const void* wout,
+                      const float* bout, const float* g, void* out,
+                      float* part, float* chat, int b, int n, int c,
+                      int splits, int rows_per_split, float eps,
+                      cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  if (c % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wqkv) |
+       reinterpret_cast<uintptr_t>(wout) | reinterpret_cast<uintptr_t>(g) |
+       reinterpret_cast<uintptr_t>(out)) % 16 != 0)
+    return cudaErrorInvalidValue;
+  // the card's limits, the kernels' shared-memory caps and kernel C's
+  // occupancy, looked up once per device and size: the wrapper runs 2,016
+  // times per sample step, and each lookup costs microseconds of host time
+  struct Cache {
+    int max_smem = 0, sms = 0;
+    size_t cap_a = 0, cap_c = 0, occ_smem = 0;
+    int per_sm = 0;
+  };
+  static Cache caches[64];
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> guard(lock);
+  Cache& k = caches[dev];
+  if (k.sms == 0) {
+    err = cudaDeviceGetAttribute(&k.max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&k.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t cap = static_cast<size_t>(k.max_smem);
+
+  const int res_a = tc::kv_smem(c, true) <= cap;
+  const size_t smem_a = tc::kv_smem(c, res_a);
+  const int res_c = tc::emit_smem(c, true) <= cap;
+  const size_t smem_c = tc::emit_smem(c, res_c);
+  if (smem_a > cap || smem_c > cap) return cudaErrorInvalidValue;
+  if (smem_a > k.cap_a) {
+    err = prgpt::allow_smem(kv_partials_tc, smem_a);
+    if (err != cudaSuccess) return err;
+    k.cap_a = smem_a;
+  }
+  if (smem_c > k.cap_c) {
+    err = prgpt::allow_smem(emit_out_tc, smem_c);
+    if (err != cudaSuccess) return err;
+    k.cap_c = smem_c;
+  }
+  if (smem_c != k.occ_smem) {
+    // persistent grid of kernel C: as many blocks as fit on the card
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &k.per_sm, emit_out_tc, tc::NTHREADS, smem_c);
+    if (err != cudaSuccess) return err;
+    k.occ_smem = smem_c;
+  }
+
+  kv_partials_tc<<<dim3(splits, b), tc::NTHREADS, smem_a, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), part, n,
+      c, rows_per_split, splits, res_a,
+      res_a ? tc::X_BYTES : tc::X_BYTES + tc::WKV_BYTES);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const float scale = rsqrtf(static_cast<float>(DH)) / static_cast<float>(n);
+  merge_context_tc<<<dim3(CBLK / tc::NTHREADS, b), tc::NTHREADS, 0, stream>>>(
+      part, chat, splits, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // as few blocks as take every tile in equal runs of consecutive tiles
+  const int tiles = b * ((n + tc::TM - 1) / tc::TM);
+  const int slots = k.sms * (k.per_sm > 0 ? k.per_sm : 1);
+  const int per = (tiles + slots - 1) / slots;
+  const int grid = (tiles + per - 1) / per;
+  emit_out_tc<<<grid, tc::NTHREADS, smem_c, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const bf16*>(wout), bout, g, chat, static_cast<bf16*>(out),
+      b, n, c, eps, res_c,
+      res_c ? tc::X_BYTES : tc::X_BYTES + tc::WQ_BYTES);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Rows per tile: the wrapper sizes its splits in whole tiles.
-int prgpt_linear_attention_rows_per_tile() { return ROWS; }
+// Rows per tile of kernel A: the wrapper sizes its splits in whole tiles.
+int prgpt_linear_attention_rows_per_tile(int is_bf16) {
+  return is_bf16 ? tc::TM : ROWS;
+}
 
 // Scratch floats the wrapper must allocate for (b, splits).
 long long prgpt_linear_attention_scratch(int b, int splits) {
@@ -207,8 +330,8 @@ int prgpt_linear_attention(const void* x, const void* wqkv, const void* wout,
   float* chat = scratch + static_cast<size_t>(b) * splits * PSTRIDE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, wqkv, wout, bout, g, out, part, chat, b,
-                                 n, c, splits, rows_per_split, eps, s);
+    return launch_tc(x, wqkv, wout, bout, g, out, part, chat, b, n, c,
+                     splits, rows_per_split, eps, s);
   return launch<float>(x, wqkv, wout, bout, g, out, part, chat, b, n, c,
                        splits, rows_per_split, eps, s);
 }

@@ -4,8 +4,8 @@ and the core alone on packed qkv, each with its plain PyTorch version.
 ``fused_linear_attention`` is a ``torch.autograd.Function`` (the port of
 the JAX ``custom_vjp``). Its forward runs the hand-written CUDA kernel K1
 (``csrc/linear_attention.cu``, which replaces
-``pointreggpt_tpu/ops/linear_attention.py::_pallas_fused``) for a CUDA
-tensor and ``fused_linear_attention_plain`` for a CPU tensor. It saves only
+``pointreggpt_tpu/ops/linear_attention.py::_pallas_fused``; bf16 on the
+tensor cores, ``csrc/linear_attention_tc.cuh``) for a CUDA tensor and ``fused_linear_attention_plain`` for a CPU tensor. It saves only
 ``(x, w_qkv, w_out, b_out, g_out)``, the JAX residuals. Its backward runs
 K3 (``csrc/linear_attention_bwd.cu``, which replaces ``_pallas_fused_bwd``)
 through ``fused_linear_attention_bwd`` for a CUDA tensor and
@@ -172,9 +172,15 @@ def _forward(x, w_qkv, w_out, b_out, g_out, heads, dim_head, eps):
         "fused_linear_attention", x, w_qkv, w_out, b_out, g_out, heads,
         dim_head, 2048)
     b, n, c = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
+    if bf16 and (c % 8 or any(t.data_ptr() % 16 for t in
+                              (x, w_qkv, w_out, g_out))):
+        raise ValueError("fused_linear_attention: the bf16 kernel stages "
+                         "16-byte chunks and needs c % 8 == 0 and 16-byte "
+                         f"aligned tensors, got c={c}")
     lib = _lib()
     splits, rows_per_split = _splits(
-        b, n, lib.prgpt_linear_attention_rows_per_tile())
+        b, n, lib.prgpt_linear_attention_rows_per_tile(bf16))
     # scratch and the weight copies may be freed on return while the
     # launches still run: the caching allocator hands their memory out
     # again only in the order of this stream
@@ -184,7 +190,7 @@ def _forward(x, w_qkv, w_out, b_out, g_out, heads, dim_head, eps):
     rc = lib.prgpt_linear_attention(
         x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
         g_out.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, c,
-        splits, rows_per_split, float(eps), int(x.dtype == torch.bfloat16),
+        splits, rows_per_split, float(eps), bf16,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "fused_linear_attention")
     fused_linear_attention.launches += 1
@@ -370,7 +376,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.prgpt_linear_attention.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                                i, i, f, i, p]
         lib.prgpt_linear_attention.restype = i
-        lib.prgpt_linear_attention_rows_per_tile.argtypes = []
+        lib.prgpt_linear_attention_rows_per_tile.argtypes = [i]
         lib.prgpt_linear_attention_rows_per_tile.restype = i
         lib.prgpt_linear_attention_scratch.argtypes = [i, i]
         lib.prgpt_linear_attention_scratch.restype = ctypes.c_longlong

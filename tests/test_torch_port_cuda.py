@@ -76,6 +76,7 @@ _SOFTMAX_ACROSS_HEADS = """\
     for (int h = 0; h < NH; ++h)
       qv[h * DH + lane] = rnd<T>(expf(qv[h * DH + lane] - m) / s);
   }"""
+# fp32: the CUDA-core bodies (linear_attention.cu, linear_attention_kv.cuh)
 K1_FAULTS = {
     "context_zeroed": ("rnd<T>(acc * scale * inv_s[d])", "rnd<T>(0.f * acc)"),
     "kv_split_dropped": ("for (int i = 0; i < splits; ++i)",
@@ -90,22 +91,55 @@ K1_FAULTS = {
 }
 
 
+# bf16: the tensor-core bodies (linear_attention_tc.cuh): a kv split's
+# partial dropped (merged as empty), C's rescale by alpha dropped, C^
+# zeroed where it is staged, q's softmax taken over the warp's two heads,
+# the bias dropped, and x's chunks written unswizzled while ldmatrix reads
+# them swizzled
+K1_TC_FAULTS = {
+    "kv_split_dropped": ("po[tid] = m_s[tid];",
+                         "po[tid] = split == 0 ? -INFINITY : m_s[tid];"),
+    "kv_rescale_dropped": ("cacc[j][e] *= e < 2 ? a0 : a1;",
+                           "cacc[j][e] *= 1.f;"),
+    "context_zeroed": ("__float2bfloat16_rn(chat[",
+                       "__float2bfloat16_rn(0.f * chat["),
+    "q_softmax_across_heads": ("const int nb0 = 4 * hh, nb1 = nb0 + 4;",
+                               "const int nb0 = 0, nb1 = 8;"),
+    "bias_dropped": ("make_float2(rnd16(bout[col]), rnd16(bout[col + 1]))",
+                     "make_float2(0.f, 0.f)"),
+    "swizzle_mismatch": ("cp16(dst + swz(r, j, KCH * 2),",
+                         "cp16(dst + r * KCH * 2 + (j << 4),"),
+}
+# (dtype, fault): the faults of each dtype's kernel bodies
+K1_DTYPE_FAULTS = {torch.float32: K1_FAULTS, torch.bfloat16: K1_TC_FAULTS}
+
+
+def sources(source):
+    """Name -> text of ``source``.cu and every shared header."""
+    return {p.name: p.read_text()
+            for p in [_build.CSRC / f"{source}.cu",
+                      *sorted(_build.CSRC.glob("*.cuh"))]}
+
+
+def fault_file(files, old):
+    """The one file of ``files`` that holds a fault's text."""
+    hits = [f for f, text in files.items() if old in text]
+    assert len(hits) == 1, (old, hits)
+    return hits[0]
+
+
 def build_mutants(root, source, faults, bind):
     """One library per planted fault, built in parallel: each fault's
     (text, replacement) is applied to whichever of ``source``.cu and the
     shared headers holds the text, in a directory of its own."""
-    files = {p.name: p.read_text()
-             for p in [_build.CSRC / f"{source}.cu",
-                       *sorted(_build.CSRC.glob("*.cuh"))]}
+    files = sources(source)
     procs = {}
     for name, (old, new) in faults.items():
-        hits = [f for f, text in files.items() if old in text]
-        assert len(hits) == 1, (name, hits)
+        hit = fault_file(files, old)
         d = root / name
         d.mkdir()
         for f, text in files.items():
-            (d / f).write_text(text.replace(old, new) if f == hits[0]
-                               else text)
+            (d / f).write_text(text.replace(old, new) if f == hit else text)
         procs[name] = subprocess.Popen(
             [_build.nvcc_path(), *_build.FLAGS, "-o", str(d / "lib.so"),
              str(d / f"{source}.cu")], stdout=subprocess.PIPE,
@@ -119,35 +153,100 @@ def build_mutants(root, source, faults, bind):
 
 @pytest.fixture(scope="module")
 def k1_mutants(cuda, tmp_path_factory):
-    return build_mutants(tmp_path_factory.mktemp("k1_mutants"),
-                         "linear_attention", K1_FAULTS, K1.bind)
+    root = tmp_path_factory.mktemp("k1_mutants")
+    mutants = {}
+    for dtype, faults in K1_DTYPE_FAULTS.items():
+        d = root / str(dtype).split(".")[-1]
+        d.mkdir()
+        mutants[dtype] = build_mutants(d, "linear_attention", faults, K1.bind)
+    return mutants
 
 
-@pytest.mark.parametrize("dtype,atol,eps", K1_TOL)
-@pytest.mark.parametrize("fault", sorted(K1_FAULTS))
+@pytest.mark.parametrize("dtype,atol,eps,fault", [
+    (dtype, atol, eps, fault) for dtype, atol, eps in K1_TOL
+    for fault in sorted(K1_DTYPE_FAULTS[dtype])])
 def test_linear_attention_check_sees_planted_fault(cuda, k1_mutants,
                                                    monkeypatch, fault, dtype,
                                                    atol, eps):
-    monkeypatch.setattr(K1, "_lib", lambda: k1_mutants[fault])
+    monkeypatch.setattr(K1, "_lib", lambda: k1_mutants[dtype][fault])
     errs = {(n, c): _k1_err(cuda, dtype, eps, n, c)
             for n, c in sorted(set(K1_SHAPES))}
     print(fault, dtype, errs)
     assert max(errs.values()) > atol, errs
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 1e-2),
-                                        (torch.float32, 1e-5)])
-@pytest.mark.parametrize("n", [1024, 100])
-def test_attention_kernel_matches_plain(cuda, dtype, atol, n):
-    rng = np.random.default_rng(1)
-    qkv = torch.tensor(rng.normal(size=(8, n, 3, 4, 32)), dtype=dtype,
-                       device=cuda)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+K2_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def _k2_err(device, dtype, b, n, kind="check", cache=None):
+    key = (dtype, b, n, kind)
+    if cache is not None and key in cache:
+        (q, k, v), ref = cache[key]
+    else:
+        if kind == "check":  # a peaked softmax (see K2.check_inputs)
+            q, k, v = K2.check_inputs(b, n, 4, 32, dtype, device)
+        else:
+            rng = np.random.default_rng(1)
+            qkv = torch.tensor(rng.normal(size=(b, n, 3, 4, 32)),
+                               dtype=dtype, device=device)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        ref = K2.multihead_attention_plain(q, k, v, scale=32**-0.5)
+        if cache is not None:
+            cache[key] = (q, k, v), ref
     out = K2.multihead_attention(q, k, v, scale=32**-0.5)
     torch.cuda.synchronize()
-    ref = K2.multihead_attention_plain(q, k, v, scale=32**-0.5)
-    err = (out.float() - ref.float()).abs().max().item()
-    assert err <= atol, err
+    assert out.dtype == dtype and out.shape == ref.shape
+    return (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", sorted(K2_TOL, key=str))
+@pytest.mark.parametrize("b,n,kind", [(8, 1024, "normal"), (8, 100, "normal"),
+                                      (8, 1024, "check"), (32, 1024, "check"),
+                                      (8, 100, "check"), (3, 1, "check"),
+                                      (2, 65, "check")])
+def test_attention_kernel_matches_plain(cuda, dtype, b, n, kind):
+    before = K2.multihead_attention.launches
+    err = _k2_err(cuda, dtype, b, n, kind)
+    assert K2.multihead_attention.launches == before + 1
+    assert err <= K2_TOL[dtype], err
+
+
+# Faults planted in a copy of csrc/attention.cu, all in the bf16
+# tensor-core kernel; its check must fail on each at the production
+# shapes.
+K2_FAULTS = {
+    "online_rescale_dropped": ("al[r] = exp2f(m[r] - mx[r]);",
+                               "al[r] = 1.f;"),
+    "last_k_tile_skipped": ("for (int t = 0; t < tiles; ++t) {",
+                            "for (int t = 0; t < tiles - 1; ++t) {"),
+    "row_sum_not_divided": ("inv[r] = 1.f / l[r];", "inv[r] = 1.f;"),
+    "scale_applied_twice": (
+        "const float sl2 = scale * 1.4426950408889634f;",
+        "const float sl2 = scale * scale * 1.4426950408889634f;"),
+    "swizzle_mismatch": ("cp16(dst + swz64(r, j),",
+                         "cp16(dst + r * ROW_B + (j << 4),"),
+}
+
+
+@pytest.fixture(scope="module")
+def k2_mutants(cuda, tmp_path_factory):
+    return build_mutants(tmp_path_factory.mktemp("k2_mutants"), "attention",
+                         K2_FAULTS, K2.bind)
+
+
+@pytest.fixture(scope="module")
+def k2_refs():
+    return {}
+
+
+@pytest.mark.parametrize("fault", sorted(K2_FAULTS))
+def test_attention_check_sees_planted_fault(cuda, k2_mutants, k2_refs,
+                                            monkeypatch, fault):
+    monkeypatch.setattr(K2, "_lib", lambda: k2_mutants[fault])
+    errs = {b: _k2_err(cuda, torch.bfloat16, b, 1024, cache=k2_refs)
+            for b in (8, 32)}
+    print(fault, errs)
+    assert _check_fails(errs, K2_TOL[torch.bfloat16]), errs
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -160,6 +259,18 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 16, 4, 16), device=cuda)
     with pytest.raises(ValueError):
         K2.multihead_attention(q, q, q, scale=0.25)  # dim_head 16
+    # the bf16 tensor-core kernels stage 16-byte chunks: K1 needs c % 8 == 0,
+    # K2 16-byte aligned rows
+    x = torch.zeros((1, 16, 12), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        K1.fused_linear_attention(x, torch.zeros((12, 384), device=cuda),
+                                  torch.zeros((128, 12), device=cuda),
+                                  torch.zeros(12, device=cuda),
+                                  torch.ones(12, device=cuda))
+    q = torch.zeros(1 + 16 * 4 * 32, dtype=torch.bfloat16,
+                    device=cuda)[1:].view(1, 16, 4, 32)
+    with pytest.raises(ValueError):
+        K2.multihead_attention(q, q, q, scale=0.25)
 
 
 # K3 against its plain version: max |got - ref| / max |ref| per output, on

@@ -7,6 +7,8 @@ reference: the XLA path (and its vjp) and, for K1 and K3, the Pallas
 kernels in interpret mode.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,9 +186,11 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     assert not _build._libs  # nothing was built or loaded
 
 
+# rows per tile of the kv phase: 16 in the fp32 kernel, 64 in the bf16
+# tensor-core kernel
+@pytest.mark.parametrize("rows", [16, 64])
 @pytest.mark.parametrize("b,n", [(8, 65536), (8, 1024), (2, 100), (1, 16)])
-def test_kv_splits_cover_every_row_once(b, n):
-    rows = 16
+def test_kv_splits_cover_every_row_once(b, n, rows):
     splits, per = K1._splits(b, n, rows)
     assert per % rows == 0 and splits >= 1
     assert (splits - 1) * per < n <= splits * per
@@ -259,8 +263,10 @@ def _k1_with_fault(args, eps, fault=None, dropped_rows=0):
 # The card check (chip_smoke.py, tests/test_torch_port_cuda.py) holds K1
 # against its plain version on K1.check_inputs within these bounds; on
 # those inputs each fault must move the output past the bound. The kv
-# split dropped is the kernel's first, as laid out for a batch of 8.
+# split dropped is the kernel's first, as laid out for a batch of 8 in
+# tiles of the dtype's kernel (64 rows bf16, 16 fp32).
 K1_CHECK_TOL = {torch.bfloat16: (3e-2, 1e-3), torch.float32: (1e-3, 1e-5)}
+K1_TILE_ROWS = {torch.bfloat16: 64, torch.float32: 16}
 
 
 @pytest.mark.parametrize("dtype", sorted(K1_CHECK_TOL, key=str))
@@ -273,10 +279,111 @@ def test_k1_check_inputs_expose_faults(fault, n, c, dtype):
     args = K1.check_inputs(8, n, c, dtype, "cpu")
     ref = K1.fused_linear_attention_plain(*args, eps=eps).float()
     assert ref.abs().max() < 2.0  # an O(1) output, where the bound holds
-    _, rows = K1._splits(8, n, 16)
+    _, rows = K1._splits(8, n, K1_TILE_ROWS[dtype])
     err = (_k1_with_fault(args, eps, fault, rows).float() - ref).abs().max()
     if fault is None:
         assert err <= atol, err
     else:
         assert err > 3 * atol, err
 
+
+
+def _k2_tensor_core(q, k, v, scale, fault=None, tile=64):
+    """K2's bf16 kernel as it computes, emulated in torch on the CPU: per
+    64-key tile S = q k^T from bf16 inputs with fp32 sums, scaled after the
+    product by scale * log2 e; an online softmax with exp2; P rounded to
+    bf16 before P V, the row sum from unrounded P; O / l rounded to bf16.
+    ``fault`` plants one of the card tests' faults."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    sl2 = scale * 1.4426950408889634
+    if fault == "scale_applied_twice":
+        sl2 *= scale
+    n = q.shape[1]
+    m = torch.full(qf.shape[:-1], -torch.inf)
+    l, o = torch.zeros(qf.shape[:-1]), torch.zeros(qf.shape)
+    last = n - tile if fault == "last_k_tile_skipped" else n
+    for t0 in range(0, last, tile):
+        s = qf @ kf[:, :, t0:t0 + tile].transpose(-1, -2) * sl2
+        mx = torch.maximum(m, s.amax(-1))
+        al = torch.exp2(m - mx)
+        if fault == "online_rescale_dropped":
+            al = torch.ones_like(al)
+        p = torch.exp2(s - mx[..., None])
+        l = l * al + p.sum(-1)
+        o = o * al[..., None] + p.bfloat16().float() @ vf[:, :, t0:t0 + tile]
+        m = mx
+    if fault != "row_sum_not_divided":
+        o = o / l[..., None]
+    return o.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _k2_inputs(kind, shape):
+    if kind == "check":
+        return K2.check_inputs(*shape, torch.bfloat16, "cpu")
+    rng = np.random.default_rng(1)  # the card test's unit normals
+    qkv = torch.tensor(rng.normal(size=(shape[0], shape[1], 3, *shape[2:])),
+                       dtype=torch.bfloat16)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+K2_BF16_ATOL = 1e-2  # the card check's bf16 bound
+
+
+@pytest.mark.parametrize("kind", ["check", "normal"])
+@pytest.mark.parametrize("shape", [(8, 1024, HEADS, D), (2, 100, HEADS, D)])
+def test_k2_tensor_core_numerics_match_xla(kind, shape):
+    # the tensor-core design's roundings (bf16 P, bf16 output, scale after
+    # the product, exp2) against the JAX reference in fp32 on the same bf16
+    # inputs: the design fits the bf16 bound before any card run
+    q, k, v = _k2_inputs(kind, shape)
+    ref = JA._attention_xla(*(jnp.asarray(t.float().numpy())
+                              for t in (q, k, v)), D**-0.5)
+    got = _k2_tensor_core(q, k, v, D**-0.5)
+    err = np.abs(got.float().numpy() - np.asarray(ref)).max()
+    assert err <= K2_BF16_ATOL, err
+    plain = K2.multihead_attention_plain(q, k, v, scale=D**-0.5)
+    assert (got.float() - plain.float()).abs().max() <= K2_BF16_ATOL
+
+
+@pytest.mark.parametrize("fault", ["online_rescale_dropped",
+                                   "last_k_tile_skipped",
+                                   "row_sum_not_divided",
+                                   "scale_applied_twice"])
+def test_k2_check_inputs_expose_faults(fault):
+    # each fault of the card's K2 fault table that can be written in torch
+    # moves the output on K2.check_inputs far past the bound
+    q, k, v = K2.check_inputs(8, 1024, HEADS, D, torch.bfloat16, "cpu")
+    ref = K2.multihead_attention_plain(q, k, v, scale=D**-0.5).float()
+    assert ref.abs().max() < 1.0  # one bf16 step there is at most 2^-8
+    err = (_k2_tensor_core(q, k, v, D**-0.5, fault).float() - ref).abs()
+    assert err.max() > 3 * K2_BF16_ATOL, err.max()
+
+
+def _includes(name, files):
+    """``name`` and every header it includes, transitively."""
+    seen, todo = set(), [name]
+    while todo:
+        f = todo.pop()
+        if f in seen or f not in files:
+            continue
+        seen.add(f)
+        todo += re.findall(r'#include "([^"]+)"', files[f])
+    return seen
+
+
+@pytest.mark.parametrize("table,source", [
+    ("K1_FAULTS", "linear_attention"), ("K1_TC_FAULTS", "linear_attention"),
+    ("K2_FAULTS", "attention"), ("K3_FAULTS", "linear_attention_bwd"),
+    ("K4_FAULTS", "linear_attention_core"), ("K5_FAULTS", "conv3x3"),
+    ("K6_FAULTS", "conv3_igemm")])
+def test_planted_fault_texts_each_sit_in_one_source(table, source):
+    # the card's mutant builds patch the one file of the kernel's source and
+    # the shared headers that holds each fault's text; that file must be
+    # one the kernel's source compiles
+    import test_torch_port_cuda as cuda_tests
+
+    files = cuda_tests.sources(source)
+    used = _includes(f"{source}.cu", files)
+    for name, (old, new) in getattr(cuda_tests, table).items():
+        assert old != new, name
+        assert cuda_tests.fault_file(files, old) in used, name
