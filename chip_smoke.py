@@ -22,8 +22,11 @@ Phases, each printing one JSON line:
    K2's ``ms`` (and SDPA's) are device time, calls captured in a CUDA graph
    (``graph_ms``); ``event_ms`` times back-to-back launches, host included;
 5. ``k3_*``: K3 (K1's backward) against its plain version (the autograd
-   of K1's plain version) at the eight shapes, bf16 at microbatch 32 and
-   fp32 at batch 8: max |got - ref| / max |ref| per output, times, bounds;
+   of K1's plain version) at the eight shapes and at (1024, 2048), up_0 of
+   a dim-256 U-Net (reported apart), bf16 at microbatch 32 (the
+   tensor-core body) and fp32 at batch 8: max |got - ref| / max |ref| per
+   output, times, bounds, and one call's device time by launch
+   (torch.profiler);
 6. ``k4_*``: K4 (the LinearAttention core on packed qkv) driven through
    ``linear_attention_core`` at (8, n, 384) for the U-Net's four n, held
    against its plain version by max |got - ref| / max |ref| (3e-2 bf16,
@@ -47,7 +50,10 @@ Phases, each printing one JSON line:
    256^2, batch 8): its time and device time by kernel category; and one
    fp32 MaskUNet forward;
 10. ``grad_parity``: the loss gradients of a dim-64 fp32 DiffusionUNet at
-   64^2 on the card against the CPU, per parameter;
+   64^2 on the card against the CPU, per parameter; ``wide_net``: the same
+   for a dim-256 net (LinearAttention up to c = 2048, where K1 and K3 must
+   launch with no plain route), K1 against its plain version at (8, 1024,
+   2048) in both types, and one bf16 forward + backward of that net;
 11. ``train_step``: one production optimizer step (microbatch 32 x
    accumulation 2, 256^2, bf16): seconds, img/s, peak memory, launches
    (16 K1, 16 K3, 2 K2), and the device time of one microbatch forward +
@@ -66,8 +72,9 @@ Phases, each printing one JSON line:
 
 The last three lines are the kernel table (one JSON object: K1-K3's
 launch counts from the two main paths, K4's from its op's drive, K5's and
-K6's from their tools' entry points), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+K6's from their tools' entry points; K1's and K3's ``plain_routes``, the
+calls routed to the plain version by shape, must be 0 on both paths), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -238,14 +245,22 @@ def k3_errors(torch, K1, args, eps) -> dict:
     return rel, abs_
 
 
+K3_WIDE = (1024, 2048)  # up_0 of a dim-256 U-Net at 256^2
+
+
 def phase_k3(torch, K1, dev, dtype, batch):
-    """K3 against its plain version at the eight shapes of one forward, in
-    ``dtype`` at ``batch`` (bf16: the training microbatch of 32)."""
+    """K3 against its plain version at the eight shapes of one forward and
+    at ``K3_WIDE``, in ``dtype`` at ``batch`` (bf16: the training
+    microbatch of 32); each shape's device time by launch from one
+    profiled call."""
+    from pointreggpt_tpu_torch.tools.profile_k3 import by_kernel
+    from torch.profiler import ProfilerActivity, profile
+
     name = str(dtype).split(".")[-1]
     atol, eps = K3_ATOL[name], (1e-3 if name == "bfloat16" else 1e-5)
     size, peak = torch.tensor([], dtype=dtype).element_size(), PEAK[name]
     rows, cache = [], {}
-    for n, c in K1_SHAPES:
+    for n, c in K1_SHAPES + [K3_WIDE]:
         if (n, c) not in cache:
             args = K1.check_inputs_bwd(batch, n, c, dtype, dev)
             errs, abs_errs = k3_errors(torch, K1, args, eps)
@@ -259,23 +274,44 @@ def phase_k3(torch, K1, dev, dtype, batch):
             plain_ms = time_ms(
                 lambda: K1.fused_linear_attention_bwd_plain(*args, eps=eps),
                 2, 1)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                K1.fused_linear_attention_bwd(*args, eps=eps)
+                torch.cuda.synchronize()
+            launches = by_kernel(torch, prof)
             wk = K1.work_bwd(batch, n, c, size)
             b_ms, b_by = bound(wk, peak)
             cache[(n, c)] = dict(n=n, c=c, rel_err=errs, abs_err=abs_errs,
                                  max_rel_err=max(errs.values()),
                                  max_abs_err=max(abs_errs.values()), ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, **wk)
+                                 bound_by=b_by,
+                                 device_ms=sum(v["ms"]
+                                               for v in launches.values()),
+                                 by_launch={k[:60]: v
+                                            for k, v in launches.items()},
+                                 **wk)
             del args
             torch.cuda.empty_cache()
         rows.append(cache[(n, c)])
-    emit(f"k3_{name}", batch=batch, shapes=rows, atol=atol)
+    wide, rows = rows[-1], rows[:-1]
+    emit(f"k3_{name}", batch=batch, shapes=rows, wide=wide, atol=atol)
     b_ms, b_by = summed_bound(rows, peak)
-    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
-                max_rel_err=max(r["max_rel_err"] for r in rows),
+    by_launch = {}
+    for r in rows:
+        for k, v in r["by_launch"].items():
+            t = by_launch.setdefault(k, {"ms": 0.0, "launches": 0})
+            t["ms"] += v["ms"]
+            t["launches"] += v["launches"]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows + [wide]),
+                max_rel_err=max(r["max_rel_err"] for r in rows + [wide]),
                 ms=sum(r["ms"] for r in rows),
+                device_ms=sum(r["device_ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, by_launch=by_launch,
+                wide={k: wide[k] for k in ("n", "c", "max_rel_err", "ms",
+                                           "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by")})
 
 
 K2_BATCHES = (8, 32)  # generation's batch, the training microbatch
@@ -695,6 +731,30 @@ def write_checkpoints(torch, root: Path, seed: int):
                root / "depth_correction_results" / "model-best.pt")
 
 
+def reset_counts(K1, K2) -> None:
+    """Launch counters of K1, K3 and K2, and K1's and K3's plain routes,
+    to 0 just before an entry point runs."""
+    for op in (K1.fused_linear_attention, K1.fused_linear_attention_bwd):
+        op.launches = op.plain_routes = 0
+    K2.multihead_attention.launches = 0
+
+
+def counts(K1, K2) -> tuple:
+    """(K1, K3, K2 launches, {"k1": K1's plain routes, "k3": K3's})."""
+    return (K1.fused_linear_attention.launches,
+            K1.fused_linear_attention_bwd.launches,
+            K2.multihead_attention.launches,
+            {"k1": K1.fused_linear_attention.plain_routes,
+             "k3": K1.fused_linear_attention_bwd.plain_routes})
+
+
+def check_no_routes(where: str, routes: dict) -> None:
+    """The production paths give K1 and K3 only shapes they take."""
+    if any(routes.values()):
+        raise AssertionError(f"{where}: calls routed to the plain version "
+                             f"by shape {routes}, want none")
+
+
 def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
     from pointreggpt_tpu_torch.cli import generate_dataset
     from pointreggpt_tpu_torch.core import plyio
@@ -721,9 +781,7 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
         cwd = os.getcwd()
         os.chdir(root)
         gen_mod.Generator.step = timed_step
-        K1.fused_linear_attention.launches = 0
-        K1.fused_linear_attention_bwd.launches = 0
-        K2.multihead_attention.launches = 0
+        reset_counts(K1, K2)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -740,14 +798,13 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
         finally:
             gen_mod.Generator.step = orig_step
             os.chdir(cwd)
-        k1_n = K1.fused_linear_attention.launches
-        k3_n = K1.fused_linear_attention_bwd.launches
-        k2_n = K2.multihead_attention.launches
+        k1_n, k3_n, k2_n, routes = counts(K1, K2)
         want = (2016 * num_samples, 0, 252 * num_samples)
         if (k1_n, k3_n, k2_n) != want:
             raise AssertionError(
                 f"kernel launches on the main path: K1, K3, K2 = "
                 f"{(k1_n, k3_n, k2_n)}, want {want}")
+        check_no_routes("main_path", routes)
 
         out = root / "generated_dataset" / "data"
         for s in range(batch):
@@ -779,7 +836,7 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
                step_device_s=steps, sec_per_sample_step=sec_per_step,
                pairs_per_min=batch * 60.0 / sec_per_step,
                k1_launches=k1_n, k3_launches=k3_n, k2_launches=k2_n,
-               k1_per_step=k1_n / num_samples,
+               plain_routes=routes, k1_per_step=k1_n / num_samples,
                k3_per_step=k3_n / num_samples,
                k2_per_step=k2_n / num_samples)
     emit("main_path", card=card_line(), **res)
@@ -812,19 +869,114 @@ def phase_grad_parity(torch, dev):
     diffusion.p_losses(net, x0, t, pc, noise=noise).backward()
     diffusion.p_losses(gpu_net, x0.to(dev), t.to(dev), pc.to(dev),
                        noise=noise.to(dev)).backward()
-    worst, worst_name = 0.0, ""
-    for (name, p), q in zip(net.named_parameters(), gpu_net.parameters()):
-        ref = p.grad.abs().max().item()
-        err = (q.grad.cpu() - p.grad).abs().max().item() / max(ref, 1e-30)
-        if not np.isfinite(err):
-            raise AssertionError(f"grad_parity: {name} not finite")
-        if err > worst:
-            worst, worst_name = err, name
+    worst, worst_name = grad_errors(torch, net, gpu_net)
     if worst > GRAD_RTOL:
         raise AssertionError(f"grad_parity: {worst_name} card vs CPU "
                              f"{worst} > {GRAD_RTOL}")
     emit("grad_parity", max_rel_err=worst, worst=worst_name,
          rtol=GRAD_RTOL)
+
+
+def grad_errors(torch, net, gpu_net) -> tuple:
+    """Largest per-parameter max |card - CPU| / max |CPU| of the loss
+    gradients, and its parameter's name."""
+    worst, worst_name = 0.0, ""
+    for (name, p), q in zip(net.named_parameters(), gpu_net.parameters()):
+        ref = p.grad.abs().max().item()
+        err = (q.grad.cpu() - p.grad).abs().max().item() / max(ref, 1e-30)
+        if not np.isfinite(err):
+            raise AssertionError(f"gradient of {name} not finite")
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
+WIDE_DIM = 256  # a DiffusionUNet whose up_0 LinearAttention has c = 2048
+
+
+def phase_wide_net(torch, K1, K2, dev):
+    """A dim-256 DiffusionUNet, LinearAttention at c = 256 .. 2048: K1
+    against its plain version at (8, 1024, 2048) in both types; the fp32
+    ``p_losses`` gradients at 64^2, batch 2, card against CPU (2e-3), with
+    all 8 K1 and 8 K3 calls launched and none routed to the plain version;
+    one bf16 forward + backward of the same net on the card (finite
+    gradients, launched, none routed)."""
+    import copy
+
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.models import DiffusionUNet
+    from pointreggpt_tpu_torch.models.blocks import LinearAttention
+
+    k1_err = {}
+    for dtype, eps in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
+        name = str(dtype).split(".")[-1]
+        args = K1.check_inputs(8, *K3_WIDE, dtype, dev)
+        err = (K1.fused_linear_attention(*args, eps=eps).float() -
+               K1.fused_linear_attention_plain(*args, eps=eps).float()
+               ).abs().max().item()
+        if not err <= K_ATOL[("k1", name)]:
+            raise AssertionError(f"K1 {name} at (8, {K3_WIDE}): {err}")
+        k1_err[name] = err
+        del args
+
+    cl = torch.channels_last
+    torch.manual_seed(0)
+    net = DiffusionUNet(dim=WIDE_DIM).to(memory_format=cl)
+    widths = sorted({m.to_qkv.in_channels for m in net.modules()
+                     if isinstance(m, LinearAttention)})
+    if max(widths) != 2048:
+        raise AssertionError(f"dim-{WIDE_DIM} LinearAttention widths "
+                             f"{widths}")
+    rng = np.random.default_rng(4)
+    x0 = torch.tensor(rng.uniform(-1, 1, (2, 64, 64, 1)), dtype=torch.float32)
+    noise = torch.tensor(rng.normal(size=(2, 64, 64, 1)), dtype=torch.float32)
+    t = torch.tensor([40, 730])
+    pc = torch.tensor(rng.uniform(100, 600, (2, 4)), dtype=torch.float32)
+    let_cores_count(torch, net, x0.permute(0, 3, 1, 2), t.float(), pc)
+    diffusion = C.build_diffusion(C.DiffusionConfig(image_size=64))
+    gpu_net = copy.deepcopy(net).to(dev, memory_format=cl)
+    diffusion.p_losses(net, x0, t, pc, noise=noise).backward()
+    reset_counts(K1, K2)
+    gpu = (x0.to(dev), t.to(dev), pc.to(dev))
+    diffusion.p_losses(gpu_net, *gpu, noise=noise.to(dev)).backward()
+    torch.cuda.synchronize()
+    k1_n, k3_n, _, routes = counts(K1, K2)
+    if (k1_n, k3_n) != (8, 8):
+        raise AssertionError(f"wide_net fp32 K1, K3 launches {(k1_n, k3_n)}"
+                             ", want (8, 8)")
+    check_no_routes("wide_net fp32", routes)
+    worst, worst_name = grad_errors(torch, net, gpu_net)
+    if worst > GRAD_RTOL:
+        raise AssertionError(f"wide_net: {worst_name} card vs CPU {worst} "
+                             f"> {GRAD_RTOL}")
+    del net
+
+    # bf16 compute, as the Trainer runs it: K1 bf16 at c = 2048 keeps its
+    # tile of y in out's rows, K3 bf16 streams its weights
+    bnet = DiffusionUNet(dim=WIDE_DIM, dtype=torch.bfloat16).to(
+        dev, memory_format=cl)
+    bnet.load_state_dict(gpu_net.state_dict())
+    del gpu_net
+    reset_counts(K1, K2)
+    loss = diffusion.p_losses(bnet, *gpu, noise=noise.to(dev))
+    loss.backward()
+    torch.cuda.synchronize()
+    bk1, bk3, _, broutes = counts(K1, K2)
+    if (bk1, bk3) != (8, 8):
+        raise AssertionError(f"wide_net bf16 K1, K3 launches {(bk1, bk3)}, "
+                             "want (8, 8)")
+    check_no_routes("wide_net bf16", broutes)
+    bad = [n for n, p in bnet.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    if bad or not np.isfinite(loss.item()):
+        raise AssertionError(f"wide_net bf16: loss {loss.item()}, "
+                             f"gradients not finite {bad[:4]}")
+    emit("wide_net", dim=WIDE_DIM, widths=widths, k1_wide_max_abs_err=k1_err,
+         max_rel_err=worst, worst=worst_name, rtol=GRAD_RTOL,
+         launches_fp32=[k1_n, k3_n], launches_bf16=[bk1, bk3],
+         plain_routes=routes, bf16_loss=loss.item())
+    del bnet
+    torch.cuda.empty_cache()
 
 
 def write_training_tree(root: Path, n_frames: int, seed: int):
@@ -879,21 +1031,18 @@ def phase_train_step(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
         trainer.train_step(img, intr, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K1.fused_linear_attention.launches = 0
-    K1.fused_linear_attention_bwd.launches = 0
-    K2.multihead_attention.launches = 0
+    reset_counts(K1, K2)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     loss = trainer.train_step(img, intr, gen)
     e1.record()
     torch.cuda.synchronize()
-    counts = (K1.fused_linear_attention.launches,
-              K1.fused_linear_attention_bwd.launches,
-              K2.multihead_attention.launches)
-    if counts != (16, 16, 2):
-        raise AssertionError(f"train_step launches K1, K3, K2 = {counts}, "
+    *launched, routes = counts(K1, K2)
+    if tuple(launched) != (16, 16, 2):
+        raise AssertionError(f"train_step launches K1, K3, K2 = {launched}, "
                              "want (16, 16, 2)")
+    check_no_routes("train_step", routes)
     sec = e0.elapsed_time(e1) / 1e3
     peak = torch.cuda.max_memory_allocated()
     times = [sec]
@@ -915,8 +1064,8 @@ def phase_train_step(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
                img_per_s=cfg.train_batch_size *
                cfg.gradient_accumulate_every / sec,
                peak_mem_gb=peak / 1e9, loss=loss.item(),
-               k1_per_step=counts[0], k3_per_step=counts[1],
-               k2_per_step=counts[2])
+               k1_per_step=launched[0], k3_per_step=launched[1],
+               k2_per_step=launched[2], plain_routes=routes)
     emit("train_step", card=card_line(), microbatch=cfg.train_batch_size,
          accum=cfg.gradient_accumulate_every, **res,
          microbatch_fwd_bwd=device_time(torch, prof))
@@ -943,10 +1092,8 @@ def phase_train_path(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
     Trainer = trainer_mod.Trainer
     orig_step, orig_save = Trainer.train_step, Trainer._save_and_sample
 
-    def counts():
-        return (K1.fused_linear_attention.launches,
-                K1.fused_linear_attention_bwd.launches,
-                K2.multihead_attention.launches)
+    def launched():
+        return counts(K1, K2)[:3]
 
     def recorded(self, *a, **kw):
         out = orig_step(self, *a, **kw)
@@ -956,17 +1103,15 @@ def phase_train_path(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
     def marked(self, *a, **kw):
         # the milestone's launches (the EMA grid) are counted apart from
         # the optimizer steps'
-        marks.append(counts())
+        marks.append(launched())
         orig_save(self, *a, **kw)
-        marks.append(counts())
+        marks.append(launched())
 
     results = tmp / "train_results"
     Trainer.train_step, Trainer._save_and_sample = recorded, marked
     try:
         torch.cuda.synchronize()
-        K1.fused_linear_attention.launches = 0
-        K1.fused_linear_attention_bwd.launches = 0
-        K2.multihead_attention.launches = 0
+        reset_counts(K1, K2)
         t0 = time.perf_counter()
         train_successive_ddnm_diffusion.main([
             "--data", folder, "--gt_log", gt_log,
@@ -976,7 +1121,7 @@ def phase_train_path(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
             "--save_and_sample_every", str(steps)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        total = counts()
+        *total, routes = counts(K1, K2)
     finally:
         Trainer.train_step, Trainer._save_and_sample = orig_step, orig_save
     if len(marks) != 2:
@@ -991,6 +1136,7 @@ def phase_train_path(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
         raise AssertionError(
             f"train_path launches K1, K3, K2: steps {step_n} (want "
             f"{want_step}), grid {grid_n} (want {want_grid})")
+    check_no_routes("train_path", routes)
     losses = [v.item() for v in losses]
     if len(losses) != steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"train_path losses {losses}")
@@ -1019,7 +1165,7 @@ def phase_train_path(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
             raise AssertionError(f"Generator.load: {k} differs")
     res = dict(wall_s=wall, steps=steps, losses=losses,
                k1_launches=total[0], k3_launches=total[1],
-               k2_launches=total[2],
+               k2_launches=total[2], plain_routes=routes,
                per_optimizer_step=[v / steps for v in step_n],
                grid_launches=list(grid_n))
     emit("train_path", card=card_line(), **res)
@@ -1070,6 +1216,7 @@ def main(argv=None) -> int:
     phase_net_parity(torch, dev)
     phase_forward_profile(torch, dev)
     phase_grad_parity(torch, dev)
+    phase_wide_net(torch, K1, K2, dev)
     with tempfile.TemporaryDirectory(prefix="prgpt_train_") as tmp:
         tmp = Path(tmp)
         folder, gt_log = write_training_tree(tmp, 64, args.seed)
@@ -1092,15 +1239,21 @@ def main(argv=None) -> int:
                     launches_train_grid=train_res["grid_launches"][i])
 
     csrc = "pointreggpt_tpu_torch/ops/csrc/"
-    KV_HEADER, TC_HEADER, CONV_HEADER = (
+    KV_HEADER, TC_HEADER, BWD_TC_HEADER, CONV_HEADER = (
         csrc + "linear_attention_kv.cuh", csrc + "linear_attention_tc.cuh",
-        csrc + "conv3_tc.cuh")
+        csrc + "linear_attention_bwd_tc.cuh", csrc + "conv3_tc.cuh")
+
+    # calls routed to the plain version by shape on both main paths (each
+    # phase checked them 0)
+    def routes(key):
+        return dict(plain_routes=main_res["plain_routes"][key] +
+                    train_res["plain_routes"][key])
     kernels = [
         dict(name="fused_linear_attention", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention.cu",
              headers=[TC_HEADER, KV_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:202",
-             **launches(0, "k1_launches"), library_ms=None,
+             **launches(0, "k1_launches"), **routes("k1"), library_ms=None,
              work="the 8 calls of one dim-64 U-Net forward, bf16, batch 8, "
                   "256^2 (times and bounds summed over the 8 shapes; ms is "
                   "device time, a CUDA graph of 10 calls, event_ms "
@@ -1121,13 +1274,18 @@ def main(argv=None) -> int:
              fp32=k2_f32, **k2),
         dict(name="fused_linear_attention_bwd", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_bwd.cu",
-             headers=[KV_HEADER],
+             headers=[BWD_TC_HEADER, TC_HEADER, KV_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:316",
-             **launches(1, "k3_launches"), library_ms=None,
+             **launches(1, "k3_launches"), **routes("k3"), library_ms=None,
              work="the 8 calls of one dim-64 U-Net backward, bf16, "
                   "microbatch 32, 256^2 (times and bounds summed over the "
-                  "8 shapes); max_abs_err is the largest absolute error of "
-                  "the six outputs, max_rel_err the one the check bounds",
+                  "8 shapes; ms by CUDA events, device_ms and by_launch "
+                  "from one profiled call per shape); wide: (32, 1024, "
+                  "2048), apart; max_abs_err is the largest absolute error "
+                  "of the six outputs, max_rel_err the one the check "
+                  "bounds; bf16 on the tensor cores "
+                  "(linear_attention_bwd_tc.cuh), fp32 (under fp32, batch "
+                  "8) on the CUDA cores",
              fp32=k3_f32, **k3),
         dict(name="linear_attention_core", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_core.cu",

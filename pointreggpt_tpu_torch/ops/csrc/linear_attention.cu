@@ -205,7 +205,7 @@ kv_partials_tc(const __nv_bfloat16* __restrict__ x,
 __global__ void __launch_bounds__(tc::NTHREADS)
 merge_context_tc(const float* __restrict__ part, float* __restrict__ chat,
                  int splits, float scale) {
-  tc::merge_context_tc_body(part, chat, splits, scale);
+  tc::merge_context_tc_body(part, chat, nullptr, splits, scale);
 }
 
 __global__ void __launch_bounds__(tc::NTHREADS)
@@ -214,9 +214,10 @@ emit_out_tc(const __nv_bfloat16* __restrict__ x,
             const __nv_bfloat16* __restrict__ wout,
             const float* __restrict__ bout, const float* __restrict__ g,
             const float* __restrict__ chat, __nv_bfloat16* __restrict__ out,
-            int b, int n, int c, float eps, int resident, int stage_bytes) {
+            int b, int n, int c, float eps, int resident, int stage_bytes,
+            int yglob) {
   tc::emit_out_tc_body(x, wqkv, wout, bout, g, chat, out, b, n, c, eps,
-                       resident, stage_bytes);
+                       resident, stage_bytes, yglob);
 }
 
 // bf16: kernels A and C on the tensor cores. cp.async moves 16-byte
@@ -260,7 +261,10 @@ cudaError_t launch_tc(const void* x, const void* wqkv, const void* wout,
   const int res_a = tc::kv_smem(c, true) <= cap;
   const size_t smem_a = tc::kv_smem(c, res_a);
   const int res_c = tc::emit_smem(c, true) <= cap;
-  const size_t smem_c = tc::emit_smem(c, res_c);
+  // above c of about 1,200 a tile of y no longer fits beside the ring: it
+  // goes through out's rows (in L2) instead
+  const int yglob = !res_c && tc::emit_smem(c, false) > cap;
+  const size_t smem_c = tc::emit_smem(c, res_c, yglob);
   if (smem_a > cap || smem_c > cap) return cudaErrorInvalidValue;
   if (smem_a > k.cap_a) {
     err = prgpt::allow_smem(kv_partials_tc, smem_a);
@@ -302,7 +306,7 @@ cudaError_t launch_tc(const void* x, const void* wqkv, const void* wout,
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(wout), bout, g, chat, static_cast<bf16*>(out),
       b, n, c, eps, res_c,
-      res_c ? tc::X_BYTES : tc::X_BYTES + tc::WQ_BYTES);
+      res_c ? tc::X_BYTES : tc::X_BYTES + tc::WQ_BYTES, yglob);
   return cudaGetLastError();
 }
 

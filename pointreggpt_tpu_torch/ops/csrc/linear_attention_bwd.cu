@@ -8,7 +8,8 @@
 //   dx_q  = the part of dx through the q projection            (b, n, c) T
 //   dx_kv = the part of dx through the k and v projections     (b, n, c) T
 //   dW_qkv (c, 384), dW_out (128, c), db_out (c), dg (c)        fp32
-// heads = 4, dim_head = 32 are compile-time constants.
+// heads = 4, dim_head = 32 are compile-time constants; 1 <= c <= 2048, the
+// TPU kernel's own limit (and c % 8 == 0 in bf16).
 //
 // Bound on this card, at (32, 65536, 64) bf16: the function needs 515
 // GFLOP of products (per row 2 * (1536 c + 24,576): the q, k, v and out
@@ -24,12 +25,10 @@
 // and keeps every weight-gradient accumulator in VMEM across the whole
 // grid. Hopper blocks carry nothing between them, so one call is these
 // launches, each a pure function of its inputs:
-//   1 bwd_kv_partials   (splits, b)  the forward's k/v statistics again
-//   2 bwd_merge_context (b)          C^ for the q path, and the merged m, s
-//                                    and unscaled C the fold needs
-//                                    (1 and 2 share their code with K1
-//                                    through linear_attention_kv.cuh)
-//   3 q_path_bwd        (splits, b)  per 16-row tile: recompute q, its
+//   1 k/v statistics    (splits, b)  the forward's per-split (m, s, C)
+//   2 merge             C^ for the q path, and the merged m, s and
+//                                    unscaled C the fold needs
+//   3 q path            (splits, b)  per row tile: recompute q, its
 //                        per-head softmax, the core and the pre-norm output;
 //                        LayerNorm backward -> dpre; dcore = dpre W_out^T;
 //                        dqs = dcore C^T; softmax backward -> dq; dx_q =
@@ -38,18 +37,27 @@
 //                        dg and db_out kept in registers across its tiles.
 //   4 fold_context      (b)          dC^ = round_T(sum of the partials);
 //                        dC = dC^ scale / s; ds = -sum_e dC^ C scale / s^2
-//   5 kv_path_bwd       (tiles, b)   recompute k, v and ek = exp(k - m);
+//   5 kv path           recompute k, v and ek = exp(k - m);
 //                        dk = ek (round_T(v dC^T) + ds), dv = round_T(ek) dC,
 //                        dx_kv = dk W_k^T + dv W_v^T; writes dk, dv (in T)
-//   6 wgrad_partials x2  split-over-rows products dW_qkv = x^T [dq|dk|dv]
-//                        and dW_out = core^T dpre, 64x64 output tiles
+//   6 weight gradients x2  split-over-rows products dW_qkv = x^T [dq|dk|dv]
+//                        and dW_out = core^T dpre
 //   7 reduce_partials x4 sum the partials of dW_qkv, dW_out, dg, db_out
 // The gradient through the running max m cancels (C / s does not move when
 // m shifts), so m is a constant here, as in the TPU kernel. Every
 // reduction across blocks sums its partials in a fixed order, with no
-// atomics: two runs agree bit for bit. Products are fp32 FMAs on the CUDA
-// cores; tensor cores, TMA and keeping core / dpre / dqkv on chip are later
-// work (they cost 2 (128 + c + 384) bytes per row of traffic here).
+// atomics: two runs agree bit for bit.
+//
+// bf16 (the DiffusionUNet's training path): 1 and 2 are K1's kernels A
+// and B (linear_attention_tc.cuh); 3, 5 and 6 the tensor-core bodies of
+// linear_attention_bwd_tc.cuh, mma.sync with 64-row tiles and weights
+// resident or streamed in 64-channel chunks (see that header). fp32 (no model path trains in fp32 today): the
+// CUDA-core bodies below, fp32 FMAs with one shared-memory load each
+// (TF32 would not hold K3's 1e-4 fp32 tolerance); the q path takes 16-row
+// tiles up to c = 1024 and 8-row tiles above, so that x and dy fit in
+// shared memory at c = 2048. core, dpre and dq|dk|dv round-trip through
+// device memory to feed the weight gradients in both: 2 (128 + c + 384)
+// bytes per row.
 //
 // Rounding follows the plain PyTorch version (the autograd of K1's plain
 // version, ops/linear_attention.py::fused_linear_attention_bwd_plain): the
@@ -59,9 +67,12 @@
 // gradients stay fp32 (the plain version rounds them to T: at most one T
 // step apart).
 
+#include "linear_attention_bwd_tc.cuh"
 #include "linear_attention_kv.cuh"
 
 #include <math.h>
+
+#include <mutex>
 
 namespace {
 
@@ -72,7 +83,8 @@ using prgpt::warp_max;
 using prgpt::warp_sum;
 using namespace prgpt::la;
 
-constexpr int MAX_C = 1024;           // widest c the q path's tiles fit
+constexpr int MAX_C = 2048;           // widest c, as the TPU kernel's
+constexpr int WIDE_C = 1024;          // above: 8-row fp32 q-path tiles
 constexpr int CPT = MAX_C / THREADS;  // dg / db columns per thread
 constexpr int WT = 64;                // weight-gradient output tile
 constexpr int WK = 32;                // rows per weight-gradient stage
@@ -94,7 +106,7 @@ bwd_merge_context(const float* __restrict__ part, float* __restrict__ chat,
   merge_context_body<T>(part, chat, stats, splits, scale);
 }
 
-template <typename T>
+template <typename T, int R>
 __global__ void __launch_bounds__(THREADS)
 q_path_bwd(const T* __restrict__ x, const T* __restrict__ dy,
            const T* __restrict__ wqkv, const T* __restrict__ wout,
@@ -104,13 +116,13 @@ q_path_bwd(const T* __restrict__ x, const T* __restrict__ dy,
            T* __restrict__ dqkv, float* __restrict__ qpart, int n, int c,
            int rows_per_split, int splits, float eps) {
   extern __shared__ float smem[];
-  float* A = smem;                 // ROWS * c: x, then pre, then dpre
-  float* B = A + ROWS * c;         // ROWS * c: dy
-  float* qsm = B + ROWS * c;       // ROWS * HID: softmaxed q, fp32
-  float* cb = qsm + ROWS * HID;    // ROWS * HID: core, then dcore
-  float* db = cb + ROWS * HID;     // ROWS * HID: dqs, then dq
-  float* ch = db + ROWS * HID;     // CBLK: C^
-  float* rs = ch + CBLK;           // ROWS * 4: mean, 1/sigma, the two means
+  float* A = smem;               // R * c: x, then pre, then dpre
+  float* B = A + R * c;          // R * c: dy
+  float* qsm = B + R * c;        // R * HID: softmaxed q, fp32
+  float* cb = qsm + R * HID;     // R * HID: core, then dcore
+  float* db = cb + R * HID;      // R * HID: dqs, then dq
+  float* ch = db + R * HID;      // CBLK: C^
+  float* rs = ch + CBLK;         // R * 4: mean, 1/sigma, the two means
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -134,8 +146,8 @@ q_path_bwd(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
   for (int k = 0; k < CPT; ++k) dg_acc[k] = db_acc[k] = 0.f;
 
-  for (int r0 = r_begin; r0 < r_end; r0 += ROWS) {
-    const int rows = min(ROWS, r_end - r0);
+  for (int r0 = r_begin; r0 < r_end; r0 += R) {
+    const int rows = min(R, r_end - r0);
     const size_t row0 = base + r0;
     __syncthreads();
     for (int i = tid; i < rows * c; i += THREADS) {
@@ -148,17 +160,17 @@ q_path_bwd(const T* __restrict__ x, const T* __restrict__ dy,
     {
       const int col = tid & (HID - 1);
       const int rh = tid >> 7;
-      float a[ROWS / 2];
+      float a[R / 2];
 #pragma unroll
-      for (int k = 0; k < ROWS / 2; ++k) a[k] = 0.f;
+      for (int k = 0; k < R / 2; ++k) a[k] = 0.f;
       for (int ci = 0; ci < c; ++ci) {
         const float w = to_f(wqkv[static_cast<size_t>(ci) * QKV + col]);
 #pragma unroll
-        for (int k = 0; k < ROWS / 2; ++k)
+        for (int k = 0; k < R / 2; ++k)
           a[k] = fmaf(A[(rh + 2 * k) * c + ci], w, a[k]);
       }
 #pragma unroll
-      for (int k = 0; k < ROWS / 2; ++k)
+      for (int k = 0; k < R / 2; ++k)
         if (rh + 2 * k < rows) qsm[(rh + 2 * k) * HID + col] = rnd<T>(a[k]);
     }
     __syncthreads();
@@ -190,17 +202,17 @@ q_path_bwd(const T* __restrict__ x, const T* __restrict__ dy,
 
     // pre = round_T(round_T(core W_out) + round_T(b_out)), into A
     for (int j = tid; j < c; j += THREADS) {
-      float a[ROWS];
+      float a[R];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
+      for (int r = 0; r < R; ++r) a[r] = 0.f;
       for (int e = 0; e < HID; ++e) {
         const float w = to_f(wout[static_cast<size_t>(e) * c + j]);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) a[r] = fmaf(cb[r * HID + e], w, a[r]);
+        for (int r = 0; r < R; ++r) a[r] = fmaf(cb[r * HID + e], w, a[r]);
       }
       const float bj = rnd<T>(bout[j]);
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r)
+      for (int r = 0; r < R; ++r)
         if (r < rows) A[r * c + j] = rnd<T>(rnd<T>(a[r]) + bj);
     }
     __syncthreads();
@@ -262,18 +274,18 @@ q_path_bwd(const T* __restrict__ x, const T* __restrict__ dy,
     {
       const int e = tid & (HID - 1);
       const int rh = tid >> 7;
-      float a[ROWS / 2];
+      float a[R / 2];
 #pragma unroll
-      for (int k = 0; k < ROWS / 2; ++k) a[k] = 0.f;
+      for (int k = 0; k < R / 2; ++k) a[k] = 0.f;
       const T* wrow = wout + static_cast<size_t>(e) * c;
       for (int j = 0; j < c; ++j) {
         const float w = to_f(wrow[j]);
 #pragma unroll
-        for (int k = 0; k < ROWS / 2; ++k)
+        for (int k = 0; k < R / 2; ++k)
           a[k] = fmaf(A[(rh + 2 * k) * c + j], w, a[k]);
       }
 #pragma unroll
-      for (int k = 0; k < ROWS / 2; ++k)
+      for (int k = 0; k < R / 2; ++k)
         if (rh + 2 * k < rows) cb[(rh + 2 * k) * HID + e] = rnd<T>(a[k]);
     }
     __syncthreads();
@@ -314,17 +326,17 @@ q_path_bwd(const T* __restrict__ x, const T* __restrict__ dy,
 
     // dx_q = dq W_q^T: column j, every row of the tile
     for (int j = tid; j < c; j += THREADS) {
-      float a[ROWS];
+      float a[R];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
+      for (int r = 0; r < R; ++r) a[r] = 0.f;
       const T* wrow = wqkv + static_cast<size_t>(j) * QKV;
       for (int e = 0; e < HID; ++e) {
         const float w = to_f(wrow[e]);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) a[r] = fmaf(db[r * HID + e], w, a[r]);
+        for (int r = 0; r < R; ++r) a[r] = fmaf(db[r * HID + e], w, a[r]);
       }
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r)
+      for (int r = 0; r < R; ++r)
         if (r < rows) dxq[(row0 + r) * c + j] = from_f<T>(a[r]);
     }
   }
@@ -550,11 +562,67 @@ reduce_partials(const float* __restrict__ part, long long stride, int count,
   }
 }
 
-// How one call divides its work: row splits of the two streaming passes,
-// row splits of the two weight-gradient products, and the fp32 and T
-// scratch they need (counts of elements).
+
+// bf16: the tensor-core kernels of linear_attention_bwd_tc.cuh under names
+// of their own, so that a profile tells K3's launches from K1's
+__global__ void __launch_bounds__(tc::NTHREADS, 2)
+bwd_kv_partials_tc(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ wqkv,
+                   float* __restrict__ part, int n, int c,
+                   int rows_per_split, int splits, int resident,
+                   int stage_bytes) {
+  tc::kv_partials_tc_body(x, wqkv, part, n, c, rows_per_split, splits,
+                          resident, stage_bytes);
+}
+
+__global__ void __launch_bounds__(tc::NTHREADS)
+bwd_merge_context_tc(const float* __restrict__ part, float* __restrict__ chat,
+                     float* __restrict__ stats, int splits, float scale) {
+  tc::merge_context_tc_body(part, chat, stats, splits, scale);
+}
+
+__global__ void __launch_bounds__(tc::NTHREADS, 2)
+q_path_bwd_tc(const __nv_bfloat16* __restrict__ x,
+              const __nv_bfloat16* __restrict__ dy,
+              const __nv_bfloat16* __restrict__ wqkv,
+              const __nv_bfloat16* __restrict__ wout,
+              const float* __restrict__ bout, const float* __restrict__ g,
+              const float* __restrict__ chat, __nv_bfloat16* __restrict__ dxq,
+              __nv_bfloat16* __restrict__ core_out,
+              __nv_bfloat16* __restrict__ dpre_out,
+              __nv_bfloat16* __restrict__ dqkv, float* __restrict__ qpart,
+              int n, int c, int rows_per_split, int splits, float eps,
+              int resident, int stage_bytes, int ysmem) {
+  tc::q_path_tc_body(x, dy, wqkv, wout, bout, g, chat, dxq, core_out,
+                     dpre_out, dqkv, qpart, n, c, rows_per_split, splits, eps,
+                     resident, stage_bytes, ysmem);
+}
+
+__global__ void __launch_bounds__(tc::NTHREADS, 2)
+kv_path_bwd_tc(const __nv_bfloat16* __restrict__ x,
+               const __nv_bfloat16* __restrict__ wqkv,
+               const float* __restrict__ stats,
+               const float* __restrict__ dctx,
+               __nv_bfloat16* __restrict__ dxkv,
+               __nv_bfloat16* __restrict__ dqkv, int n, int c,
+               int rows_per_split, int resident, int stage_bytes) {
+  tc::kv_path_tc_body(x, wqkv, stats, dctx, dxkv, dqkv, n, c,
+                      rows_per_split, resident, stage_bytes);
+}
+
+__global__ void __launch_bounds__(tc::NTHREADS, 2)
+wgrad_partials_tc(const __nv_bfloat16* __restrict__ a,
+                  const __nv_bfloat16* __restrict__ b,
+                  float* __restrict__ part, long long rows, int P, int Q,
+                  long long rows_per_split) {
+  tc::wgrad_tc_body(a, b, part, rows, P, Q, rows_per_split);
+}
+
+// How one call divides its work: row splits of the streaming passes (in
+// whole tiles of `tile` rows), row splits of the two weight-gradient
+// products, and the fp32 and T scratch they need (counts of elements).
 struct Plan {
-  int splits, rows_per_split;          // passes 1 and 3
+  int splits, rows_per_split;          // passes 1, 3 and 5
   int ws_qkv, ws_out;                  // weight-gradient row splits
   long long wrows_qkv, wrows_out;      // rows per weight-gradient split
   size_t part, chat, stats, qpart, dctx, wq, wo, f_total;  // fp32 offsets
@@ -574,15 +642,19 @@ inline void split_rows(long long rows, long long step, long long target,
   *per = steps_per * step;
 }
 
-inline Plan plan(int b, int n, int c) {
+inline Plan plan(int b, int n, int c, bool bf16) {
   Plan p;
   long long per;
-  split_rows(n, ROWS, cdiv(TARGET_BLOCKS, b), &p.splits, &per);
+  split_rows(n, bf16 ? tc::TM : ROWS, cdiv(TARGET_BLOCKS, b), &p.splits,
+             &per);
   p.rows_per_split = static_cast<int>(per);
   const long long rows = static_cast<long long>(b) * n;
-  split_rows(rows, WK, cdiv(TARGET_BLOCKS, cdiv(c, WT) * cdiv(QKV, WT)),
+  // output tiles of each weight-gradient product, and its rows per stage
+  const int tp = bf16 ? tc::WG_P : WT, tq = bf16 ? tc::WG_Q : WT;
+  const int step = bf16 ? tc::WG_K : WK;
+  split_rows(rows, step, cdiv(TARGET_BLOCKS, cdiv(c, tp) * cdiv(QKV, tq)),
              &p.ws_qkv, &p.wrows_qkv);
-  split_rows(rows, WK, cdiv(TARGET_BLOCKS, cdiv(HID, WT) * cdiv(c, WT)),
+  split_rows(rows, step, cdiv(TARGET_BLOCKS, cdiv(HID, tp) * cdiv(c, tq)),
              &p.ws_out, &p.wrows_out);
   size_t o = 0;
   p.part = o;  o += static_cast<size_t>(b) * p.splits * PSTRIDE;
@@ -610,61 +682,12 @@ inline cudaError_t reduce(const float* part, long long stride, int count,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* x_, const void* dy_, const void* wqkv_,
-                   const void* wout_, const float* bout, const float* g,
-                   void* dxq_, void* dxkv_, float* dwqkv, float* dwout,
-                   float* dbout, float* dg, float* fs, void* ts_, int b,
-                   int n, int c, float eps, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(x_);
-  const T* dy = static_cast<const T*>(dy_);
-  const T* wqkv = static_cast<const T*>(wqkv_);
-  const T* wout = static_cast<const T*>(wout_);
-  T* ts = static_cast<T*>(ts_);
-  const Plan p = plan(b, n, c);
-  const float scale = rsqrtf(static_cast<float>(DH)) / static_cast<float>(n);
-
-  const size_t smem_a = kv_partials_smem(c);
-  const size_t smem_q =
-      sizeof(float) * (2 * ROWS * c + 3 * ROWS * HID + CBLK + 4 * ROWS);
-  const size_t smem_kv =
-      sizeof(float) * (ROWS * c + 5 * ROWS * HID + CBLK + 2 * HID);
-  cudaError_t err = prgpt::allow_smem(bwd_kv_partials<T>, smem_a);
-  if (err != cudaSuccess) return err;
-  err = prgpt::allow_smem(q_path_bwd<T>, smem_q);
-  if (err != cudaSuccess) return err;
-  err = prgpt::allow_smem(kv_path_bwd<T>, smem_kv);
-  if (err != cudaSuccess) return err;
-
-  bwd_kv_partials<T><<<dim3(p.splits, b), THREADS, smem_a, stream>>>(
-      x, wqkv, fs + p.part, n, c, p.rows_per_split, p.splits);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_merge_context<T><<<b, THREADS, 0, stream>>>(
-      fs + p.part, fs + p.chat, fs + p.stats, p.splits, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  q_path_bwd<T><<<dim3(p.splits, b), THREADS, smem_q, stream>>>(
-      x, dy, wqkv, wout, bout, g, fs + p.chat, static_cast<T*>(dxq_),
-      ts + p.core, ts + p.dpre, ts + p.dqkv, fs + p.qpart, n, c,
-      p.rows_per_split, p.splits, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fold_context<T><<<b, THREADS, 0, stream>>>(
-      fs + p.qpart, fs + p.stats, fs + p.dctx, p.splits, c, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  kv_path_bwd<T><<<dim3(cdiv(n, ROWS), b), THREADS, smem_kv, stream>>>(
-      x, wqkv, fs + p.stats, fs + p.dctx, static_cast<T*>(dxkv_),
-      ts + p.dqkv, n, c);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const long long rows = static_cast<long long>(b) * n;
-  wgrad_partials<T><<<dim3(cdiv(c, WT), cdiv(QKV, WT), p.ws_qkv), THREADS,
-                      0, stream>>>(x, ts + p.dqkv, fs + p.wq, rows, c, QKV,
-                                   p.wrows_qkv);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  wgrad_partials<T><<<dim3(cdiv(HID, WT), cdiv(c, WT), p.ws_out), THREADS,
-                      0, stream>>>(ts + p.core, ts + p.dpre, fs + p.wo, rows,
-                                   HID, c, p.wrows_out);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
+// Launch 7, shared by both types: the weight-gradient partials, and dg and
+// db_out from the q path's per-block partials, each summed in order.
+inline cudaError_t reduce_all(const Plan& p, const float* fs, float* dwqkv,
+                              float* dwout, float* dbout, float* dg, int b,
+                              int c, cudaStream_t stream) {
+  cudaError_t err;
   const long long qstride = CBLK + 2 * c;
   if ((err = reduce(fs + p.wq, static_cast<long long>(c) * QKV, p.ws_qkv,
                     c * QKV, dwqkv, stream)) != cudaSuccess)
@@ -679,19 +702,175 @@ cudaError_t launch(const void* x_, const void* dy_, const void* wqkv_,
                 stream);
 }
 
+cudaError_t launch_f32(const float* x, const float* dy, const float* wqkv,
+                       const float* wout, const float* bout, const float* g,
+                       float* dxq, float* dxkv, float* dwqkv, float* dwout,
+                       float* dbout, float* dg, float* fs, float* ts, int b,
+                       int n, int c, float eps, cudaStream_t stream) {
+  using T = float;
+  const Plan p = plan(b, n, c, false);
+  const float scale = rsqrtf(static_cast<float>(DH)) / static_cast<float>(n);
+  const bool wide = c > WIDE_C;
+  const int R = wide ? ROWS / 2 : ROWS;
+
+  const size_t smem_a = kv_partials_smem(c);
+  const size_t smem_q =
+      sizeof(float) * (2 * R * c + 3 * R * HID + CBLK + 4 * R);
+  const size_t smem_kv =
+      sizeof(float) * (ROWS * c + 5 * ROWS * HID + CBLK + 2 * HID);
+  cudaError_t err = prgpt::allow_smem(bwd_kv_partials<T>, smem_a);
+  if (err != cudaSuccess) return err;
+  err = wide ? prgpt::allow_smem(q_path_bwd<T, ROWS / 2>, smem_q)
+             : prgpt::allow_smem(q_path_bwd<T, ROWS>, smem_q);
+  if (err != cudaSuccess) return err;
+  err = prgpt::allow_smem(kv_path_bwd<T>, smem_kv);
+  if (err != cudaSuccess) return err;
+
+  bwd_kv_partials<T><<<dim3(p.splits, b), THREADS, smem_a, stream>>>(
+      x, wqkv, fs + p.part, n, c, p.rows_per_split, p.splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_merge_context<T><<<b, THREADS, 0, stream>>>(
+      fs + p.part, fs + p.chat, fs + p.stats, p.splits, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (wide)
+    q_path_bwd<T, ROWS / 2><<<dim3(p.splits, b), THREADS, smem_q, stream>>>(
+        x, dy, wqkv, wout, bout, g, fs + p.chat, dxq, ts + p.core,
+        ts + p.dpre, ts + p.dqkv, fs + p.qpart, n, c, p.rows_per_split,
+        p.splits, eps);
+  else
+    q_path_bwd<T, ROWS><<<dim3(p.splits, b), THREADS, smem_q, stream>>>(
+        x, dy, wqkv, wout, bout, g, fs + p.chat, dxq, ts + p.core,
+        ts + p.dpre, ts + p.dqkv, fs + p.qpart, n, c, p.rows_per_split,
+        p.splits, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fold_context<T><<<b, THREADS, 0, stream>>>(
+      fs + p.qpart, fs + p.stats, fs + p.dctx, p.splits, c, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kv_path_bwd<T><<<dim3(cdiv(n, ROWS), b), THREADS, smem_kv, stream>>>(
+      x, wqkv, fs + p.stats, fs + p.dctx, dxkv, ts + p.dqkv, n, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const long long rows = static_cast<long long>(b) * n;
+  wgrad_partials<T><<<dim3(cdiv(c, WT), cdiv(QKV, WT), p.ws_qkv), THREADS,
+                      0, stream>>>(x, ts + p.dqkv, fs + p.wq, rows, c, QKV,
+                                   p.wrows_qkv);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wgrad_partials<T><<<dim3(cdiv(HID, WT), cdiv(c, WT), p.ws_out), THREADS,
+                      0, stream>>>(ts + p.core, ts + p.dpre, fs + p.wo, rows,
+                                   HID, c, p.wrows_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return reduce_all(p, fs, dwqkv, dwout, dbout, dg, b, c, stream);
+}
+
+// bf16 on the tensor cores. cp.async moves 16-byte chunks, so c must be a
+// multiple of 8 and every tensor 16-byte aligned (the wrapper checks).
+cudaError_t launch_tc(const void* x_, const void* dy_, const void* wqkv_,
+                      const void* wout_, const float* bout, const float* g,
+                      void* dxq_, void* dxkv_, float* dwqkv, float* dwout,
+                      float* dbout, float* dg, float* fs, void* ts_, int b,
+                      int n, int c, float eps, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  using T = bf16;
+  const bf16* x = static_cast<const bf16*>(x_);
+  const bf16* dy = static_cast<const bf16*>(dy_);
+  const bf16* wqkv = static_cast<const bf16*>(wqkv_);
+  const bf16* wout = static_cast<const bf16*>(wout_);
+  bf16* ts = static_cast<bf16*>(ts_);
+  if (c % 8 != 0) return cudaErrorInvalidValue;
+  const Plan p = plan(b, n, c, true);
+  const float scale = rsqrtf(static_cast<float>(DH)) / static_cast<float>(n);
+
+  // the card's shared-memory cap, and the caps granted so far, per device
+  struct Cache {
+    int max_smem = 0;
+    size_t cap_a = 0, cap_q = 0, cap_kv = 0, cap_w = 0;
+  };
+  static Cache caches[64];
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> guard(lock);
+  Cache& k = caches[dev];
+  if (k.max_smem == 0) {
+    err = cudaDeviceGetAttribute(&k.max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t cap = static_cast<size_t>(k.max_smem);
+  const int res_a = tc::kv_smem(c, true) <= cap;
+  // the q path's row buffer in shared memory where it fits (c <= 1024),
+  // and with it the weights where they fit too (c <= 256)
+  const int res_q = tc::q_path_smem(c, true, true) <= cap;
+  const int ysm = res_q || tc::q_path_smem(c, false, true) <= cap;
+  const int res_kv = tc::kv_path_smem(c, true) <= cap;
+  const size_t smem_a = tc::kv_smem(c, res_a);
+  const size_t smem_q = tc::q_path_smem(c, res_q, ysm);
+  const size_t smem_kv = tc::kv_path_smem(c, res_kv);
+  if (smem_a > cap || smem_q > cap || smem_kv > cap || tc::WG_SMEM > cap)
+    return cudaErrorInvalidValue;
+  auto grant = [&](auto kernel, size_t bytes, size_t& have) {
+    if (bytes <= have) return cudaSuccess;
+    const cudaError_t e = prgpt::allow_smem(kernel, bytes);
+    if (e == cudaSuccess) have = bytes;
+    return e;
+  };
+  if ((err = grant(bwd_kv_partials_tc, smem_a, k.cap_a)) != cudaSuccess ||
+      (err = grant(q_path_bwd_tc, smem_q, k.cap_q)) != cudaSuccess ||
+      (err = grant(kv_path_bwd_tc, smem_kv, k.cap_kv)) != cudaSuccess ||
+      (err = grant(wgrad_partials_tc, tc::WG_SMEM, k.cap_w)) != cudaSuccess)
+    return err;
+
+  bwd_kv_partials_tc<<<dim3(p.splits, b), tc::NTHREADS, smem_a, stream>>>(
+      x, wqkv, fs + p.part, n, c, p.rows_per_split, p.splits, res_a,
+      res_a ? tc::X_BYTES : tc::X_BYTES + tc::WKV_BYTES);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_merge_context_tc<<<dim3(CBLK / tc::NTHREADS, b), tc::NTHREADS, 0,
+                         stream>>>(fs + p.part, fs + p.chat, fs + p.stats,
+                                   p.splits, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  q_path_bwd_tc<<<dim3(p.splits, b), tc::NTHREADS, smem_q, stream>>>(
+      x, dy, wqkv, wout, bout, g, fs + p.chat, static_cast<bf16*>(dxq_),
+      ts + p.core, ts + p.dpre, ts + p.dqkv, fs + p.qpart, n, c,
+      p.rows_per_split, p.splits, eps, res_q,
+      res_q ? tc::X_BYTES : tc::X_BYTES + tc::WQ_BYTES, ysm);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fold_context<T><<<b, THREADS, 0, stream>>>(
+      fs + p.qpart, fs + p.stats, fs + p.dctx, p.splits, c, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kv_path_bwd_tc<<<dim3(p.splits, b), tc::NTHREADS, smem_kv, stream>>>(
+      x, wqkv, fs + p.stats, fs + p.dctx, static_cast<bf16*>(dxkv_),
+      ts + p.dqkv, n, c, p.rows_per_split, res_kv,
+      res_kv ? tc::X_BYTES : tc::X_BYTES + tc::WKV_BYTES);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const long long rows = static_cast<long long>(b) * n;
+  wgrad_partials_tc<<<dim3(cdiv(c, tc::WG_P), cdiv(QKV, tc::WG_Q),
+                           p.ws_qkv),
+                      tc::NTHREADS, tc::WG_SMEM, stream>>>(
+      x, ts + p.dqkv, fs + p.wq, rows, c, QKV, p.wrows_qkv);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wgrad_partials_tc<<<dim3(cdiv(HID, tc::WG_P), cdiv(c, tc::WG_Q),
+                           p.ws_out),
+                      tc::NTHREADS, tc::WG_SMEM, stream>>>(
+      ts + p.core, ts + p.dpre, fs + p.wo, rows, HID, c, p.wrows_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return reduce_all(p, fs, dwqkv, dwout, dbout, dg, b, c, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Widest c the kernel takes.
-int prgpt_linear_attention_bwd_max_c() { return MAX_C; }
-
 // fp32 and T scratch elements the wrapper must allocate for (b, n, c).
-long long prgpt_linear_attention_bwd_fscratch(int b, int n, int c) {
-  return static_cast<long long>(plan(b, n, c).f_total);
+long long prgpt_linear_attention_bwd_fscratch(int b, int n, int c,
+                                              int is_bf16) {
+  return static_cast<long long>(plan(b, n, c, is_bf16).f_total);
 }
-long long prgpt_linear_attention_bwd_tscratch(int b, int n, int c) {
-  return static_cast<long long>(plan(b, n, c).t_total);
+long long prgpt_linear_attention_bwd_tscratch(int b, int n, int c,
+                                              int is_bf16) {
+  return static_cast<long long>(plan(b, n, c, is_bf16).t_total);
 }
 
 int prgpt_linear_attention_bwd(const void* x, const void* dy,
@@ -702,12 +881,15 @@ int prgpt_linear_attention_bwd(const void* x, const void* dy,
                                void* tscratch, int b, int n, int c, float eps,
                                int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c < 1 || c > MAX_C) return cudaErrorInvalidValue;
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, dy, wqkv, wout, bout, g, dxq, dxkv, dwqkv,
-                                 dwout, dbout, dg, fscratch, tscratch, b, n,
-                                 c, eps, s);
-  return launch<float>(x, dy, wqkv, wout, bout, g, dxq, dxkv, dwqkv, dwout,
-                       dbout, dg, fscratch, tscratch, b, n, c, eps, s);
+    return launch_tc(x, dy, wqkv, wout, bout, g, dxq, dxkv, dwqkv, dwout,
+                     dbout, dg, fscratch, tscratch, b, n, c, eps, s);
+  return launch_f32(
+      static_cast<const float*>(x), static_cast<const float*>(dy),
+      static_cast<const float*>(wqkv), static_cast<const float*>(wout), bout,
+      g, static_cast<float*>(dxq), static_cast<float*>(dxkv), dwqkv, dwout,
+      dbout, dg, fscratch, static_cast<float*>(tscratch), b, n, c, eps, s);
 }
 
 }  // extern "C"

@@ -4,9 +4,9 @@
 // partials as the CUDA-core body, in the same scratch layout; B merges
 // them as merge_context_body (linear_attention_kv.cuh) does, with one
 // thread per entry of C^ instead of one block per batch row (that body's
-// split loop was a quarter of the bf16 forward's time at 64 splits). The
-// fp32 path, K3 and K4 keep the CUDA-core bodies of
-// linear_attention_kv.cuh.
+// split loop was a quarter of the bf16 forward's time at 64 splits). K3's
+// bf16 backward runs A and B too (linear_attention_bwd.cu); the fp32
+// paths and K4 keep the CUDA-core bodies of linear_attention_kv.cuh.
 //
 // - Tiles. TM (64) rows, 8 warps. x is staged by cp.async in chunks of
 //   KCH (64) channels, 128-byte rows; channels past c are zero-filled (c
@@ -374,7 +374,7 @@ __device__ __forceinline__ void emit_out_tc_body(
     const bf16* __restrict__ wout, const float* __restrict__ bout,
     const float* __restrict__ gam, const float* __restrict__ chat,
     bf16* __restrict__ out, int b, int n, int c, float eps, int resident,
-    int stage_bytes) {
+    int stage_bytes, int yglob) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const int nch = (c + KCH - 1) / KCH;
   const int yrb = nch * KCH * 2;  // bytes of a y row
@@ -383,7 +383,7 @@ __device__ __forceinline__ void emit_out_tc_body(
   unsigned char* ring = tc_smem + (resident ? nch * (WQ_BYTES + WO_BYTES) : 0);
   unsigned char* ch_s = ring + 2 * stage_bytes;  // C^ as DH x (head, e)
   unsigned char* core_s = ch_s + DH * HID_ROW;   // TM x HID
-  unsigned char* y_s = core_s + TM * HID_ROW;    // TM x nch KCH
+  unsigned char* y_s = core_s + TM * HID_ROW;    // TM x nch KCH, or none
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -426,8 +426,8 @@ __device__ __forceinline__ void emit_out_tc_body(
   prefetch(0);
 
   // y = core W_out for output channels 64 kc .., rounded, + bias, rounded,
-  // into y_s
-  auto out_chunk = [&](int kc, uint32_t wsm) {
+  // into y_s, or (yglob: the tile of y does not fit) into out's rows
+  auto out_chunk = [&](int kc, uint32_t wsm, int bi, int r0) {
     float y[2][2][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -457,11 +457,16 @@ __device__ __forceinline__ void emit_out_tc_body(
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<uint32_t*>(
-              y_s + el(wm * 32 + mi * 16 + g + 8 * h, col, yrb)) =
-              pack_bf16x2(rnd16(y[mi][j][2 * h]) + bj.x,
-                          rnd16(y[mi][j][2 * h + 1]) + bj.y);
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + mi * 16 + g + 8 * h;
+          const uint32_t v = pack_bf16x2(rnd16(y[mi][j][2 * h]) + bj.x,
+                                         rnd16(y[mi][j][2 * h + 1]) + bj.y);
+          if (!yglob)
+            *reinterpret_cast<uint32_t*>(y_s + el(r, col, yrb)) = v;
+          else if (r0 + r < n)
+            *reinterpret_cast<uint32_t*>(
+                out + (static_cast<size_t>(bi) * n + r0 + r) * c + col) = v;
+        }
     }
   };
 
@@ -470,6 +475,12 @@ __device__ __forceinline__ void emit_out_tc_body(
   // channels (16 bytes) per lane and step
   auto layer_norm = [&](int bi, int r0) {
     const int c8 = c >> 3;
+    auto yld = [&](int r, int j) {  // 8 channels of row r of y
+      return yglob ? __ldcg(reinterpret_cast<const uint4*>(
+                         out + (static_cast<size_t>(bi) * n + r0 + r) * c +
+                         8 * j))
+                   : *reinterpret_cast<const uint4*>(y_s + swz(r, j, yrb));
+    };
     const int lpr = c8 > 16 ? 32 : c8 > 8 ? 16 : 8;
     const int rpw = 32 / lpr;  // rows of a warp at once
     auto group_sum = [&](float v) {
@@ -480,10 +491,13 @@ __device__ __forceinline__ void emit_out_tc_body(
     // every lane runs every step (the shuffles need the whole warp):
     // TM is a multiple of 8 rpw
     for (int r = warp * rpw + lane / lpr; r < TM; r += 8 * rpw) {
+      // yglob holds only the rows of out; it needs c > 256, where a row
+      // is a whole warp's
+      if (yglob && r0 + r >= n) continue;
       const int sl = lane % lpr;
       float s = 0.f;
       for (int j = sl; j < c8; j += lpr) {
-        const uint4 u = *reinterpret_cast<const uint4*>(y_s + swz(r, j, yrb));
+        const uint4 u = yld(r, j);
         const bf16* v = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
         for (int e = 0; e < 8; ++e) s += __bfloat162float(v[e]);
@@ -491,7 +505,7 @@ __device__ __forceinline__ void emit_out_tc_body(
       const float mean = group_sum(s) / c;
       float var = 0.f;
       for (int j = sl; j < c8; j += lpr) {
-        const uint4 u = *reinterpret_cast<const uint4*>(y_s + swz(r, j, yrb));
+        const uint4 u = yld(r, j);
         const bf16* v = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
@@ -503,7 +517,7 @@ __device__ __forceinline__ void emit_out_tc_body(
       if (r0 + r >= n) continue;
       bf16* orow = out + (static_cast<size_t>(bi) * n + r0 + r) * c;
       for (int j = sl; j < c8; j += lpr) {
-        const uint4 u = *reinterpret_cast<const uint4*>(y_s + swz(r, j, yrb));
+        const uint4 u = yld(r, j);
         const bf16* v = reinterpret_cast<const bf16*>(&u);
         const float4 g0 = *reinterpret_cast<const float4*>(gam + 8 * j);
         const float4 g1 = *reinterpret_cast<const float4*>(gam + 8 * j + 4);
@@ -533,7 +547,7 @@ __device__ __forceinline__ void emit_out_tc_body(
     const int k = i % P;
     unsigned char* st = ring + (i & 1) * stage_bytes;
     if (k >= nch) {  // a streamed W_out chunk
-      out_chunk(k - nch, smem_u32(st));
+      out_chunk(k - nch, smem_u32(st), bi, r0);
       if (k == P - 1) {
         __syncthreads();
         layer_norm(bi, r0);
@@ -653,7 +667,7 @@ __device__ __forceinline__ void emit_out_tc_body(
     __syncthreads();
     if (resident) {
       for (int kc = 0; kc < nch; ++kc)
-        out_chunk(kc, smem_u32(wo_res + kc * WO_BYTES));
+        out_chunk(kc, smem_u32(wo_res + kc * WO_BYTES), bi, r0);
       __syncthreads();
       layer_norm(bi, r0);
     }
@@ -664,10 +678,12 @@ __device__ __forceinline__ void emit_out_tc_body(
 // Kernel B over grid (CBLK / NTHREADS, b): the partials of batch row
 // blockIdx.y merged with max-rescaling into C^ (rounded to bf16), one
 // thread per entry of the four head blocks, as merge_context_body computes
-// it but spread over CBLK threads per batch row instead of one block.
+// it but spread over CBLK threads per batch row instead of one block; when
+// stats is not null (K3), also the merged m, s and unscaled C into
+// stats[bi * STATS + (0 | HID | 2 * HID)].
 __device__ __forceinline__ void merge_context_tc_body(
-    const float* __restrict__ part, float* __restrict__ chat, int splits,
-    float scale) {
+    const float* __restrict__ part, float* __restrict__ chat,
+    float* __restrict__ stats, int splits, float scale) {
   const int idx = blockIdx.x * NTHREADS + threadIdx.x;
   const int bi = blockIdx.y;
   const int d = (idx / (DH * DH)) * DH + (idx / DH) % DH;  // C^'s row lane
@@ -687,20 +703,28 @@ __device__ __forceinline__ void merge_context_tc_body(
   }
   chat[static_cast<size_t>(bi) * CBLK + idx] =
       rnd<bf16>(acc * scale * (1.f / fmaxf(s, 1e-30f)));
+  if (stats) {
+    float* st = stats + static_cast<size_t>(bi) * STATS;
+    st[2 * HID + idx] = acc;
+    if (idx % DH == 0) {
+      st[d] = m;
+      st[HID + d] = s;
+    }
+  }
 }
 
 // Dynamic shared memory of kernel A (weights resident or streamed) and
-// kernel C for c channels.
+// kernel C for c channels (yglob: its tile of y kept in out's rows).
 inline size_t kv_smem(int c, bool resident) {
   const int nch = (c + KCH - 1) / KCH;
   return resident ? static_cast<size_t>(nch) * WKV_BYTES + 2 * X_BYTES + A_FIXED
                   : 2 * (X_BYTES + WKV_BYTES) + A_FIXED;
 }
 
-inline size_t emit_smem(int c, bool resident) {
+inline size_t emit_smem(int c, bool resident, bool yglob = false) {
   const int nch = (c + KCH - 1) / KCH;
   const size_t fixed = DH * HID_ROW + TM * HID_ROW +
-                       static_cast<size_t>(TM) * nch * KCH * 2;
+                       (yglob ? 0 : static_cast<size_t>(TM) * nch * KCH * 2);
   return resident ? static_cast<size_t>(nch) * (WQ_BYTES + WO_BYTES) +
                         2 * X_BYTES + fixed
                   : 2 * (X_BYTES + WQ_BYTES) + fixed;

@@ -9,8 +9,16 @@ tensor cores, ``csrc/linear_attention_tc.cuh``) for a CUDA tensor and ``fused_li
 ``(x, w_qkv, w_out, b_out, g_out)``, the JAX residuals. Its backward runs
 K3 (``csrc/linear_attention_bwd.cu``, which replaces ``_pallas_fused_bwd``)
 through ``fused_linear_attention_bwd`` for a CUDA tensor and
-``fused_linear_attention_bwd_plain`` for a CPU tensor. There is no
-fallback: a CUDA tensor a kernel does not take raises.
+``fused_linear_attention_bwd_plain`` for a CPU tensor; its bf16 path runs
+on the tensor cores (``csrc/linear_attention_bwd_tc.cuh``).
+
+Shapes past a kernel's limit are routed, as the JAX dispatch
+(``_dispatch_fused``, ``_fused_bwd``) sends them to XLA: :func:`_k1_takes`
+and :func:`_k3_takes` decide from the dtype and c alone, and a CUDA tensor
+they refuse runs the plain version on the card and adds one to the op's
+``plain_routes`` (never to its ``launches``). That is a routing rule, not
+a fallback: nothing catches a build or launch error, and an unsupported
+device or dtype, or a misaligned bf16 tensor, raises.
 
 Block body: qkv projection -> softmax-q (over d per head) / softmax-k (over
 n) linear attention core -> out projection + bias -> channel LayerNorm
@@ -40,6 +48,22 @@ HEADS = 4
 DIM_HEAD = 32
 HIDDEN = HEADS * DIM_HEAD
 _TARGET_BLOCKS = 2 * 2 * 132  # keep ~2x the SMs busy in the kv phase
+MAX_C = 2048  # the widest c K1 and K3 take, the TPU kernels' own limit
+
+
+def _k1_takes(dtype: torch.dtype, c: int) -> bool:
+    """Whether K1 takes a (b, n, c) CUDA tensor of ``dtype`` (bf16 or
+    fp32): c <= 2048, and c % 8 == 0 in bf16 (its tensor-core body stages
+    16-byte chunks). Else the plain version runs, as the JAX
+    ``_dispatch_fused`` runs ``_xla_fused``."""
+    return 1 <= c <= MAX_C and (dtype != torch.bfloat16 or c % 8 == 0)
+
+
+def _k3_takes(dtype: torch.dtype, c: int) -> bool:
+    """Whether K3 takes a (b, n, c) CUDA tensor of ``dtype``: the limits of
+    :func:`_k1_takes` (the JAX ``_fused_bwd`` takes Pallas up to c = 2048
+    and XLA's vjp beyond)."""
+    return _k1_takes(dtype, c)
 
 
 def linear_attention_core_plain(qkv: torch.Tensor, heads: int = HEADS,
@@ -130,11 +154,9 @@ def _splits(b: int, n: int, rows: int):
     return -(-tiles // tiles_per_split), tiles_per_split * rows
 
 
-def _kernel_args(what, x, w_qkv, w_out, b_out, g_out, heads, dim_head,
-                 max_c):
-    """Check what K1 and K3 take and return the weights as the kernels
-    read them: W_qkv and W_out in x.dtype, b_out and g in fp32, each
-    contiguous on x's device."""
+def _check_device(what, x, heads, dim_head):
+    """Raise on what K1, K3 and their routing do not take: a device other
+    than the card, another head layout, another dtype."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if (heads, dim_head) != (HEADS, DIM_HEAD):
@@ -142,11 +164,15 @@ def _kernel_args(what, x, w_qkv, w_out, b_out, g_out, heads, dim_head,
                          f"{heads} x {dim_head}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what}: dtype {x.dtype}")
+
+
+def _kernel_args(what, x, w_qkv, w_out, b_out, g_out):
+    """Check what K1 and K3 take and return the weights as the kernels
+    read them: W_qkv and W_out in x.dtype, b_out and g in fp32, each
+    contiguous on x's device."""
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{what}: x must be a contiguous (b, n, c) tensor")
     c = x.shape[2]
-    if not 1 <= c <= max_c:
-        raise ValueError(f"{what}: c={c} outside [1, {max_c}]")
     w_qkv = w_qkv.to(x.dtype).contiguous()
     w_out = w_out.to(x.dtype).contiguous()
     b_out = b_out.float().contiguous()
@@ -168,16 +194,18 @@ def _forward(x, w_qkv, w_out, b_out, g_out, heads, dim_head, eps):
     if x.device.type == "cpu":
         return fused_linear_attention_plain(x, w_qkv, w_out, b_out, g_out,
                                             heads, dim_head, eps)
+    _check_device("fused_linear_attention", x, heads, dim_head)
+    if not _k1_takes(x.dtype, x.shape[-1]):
+        fused_linear_attention.plain_routes += 1
+        return fused_linear_attention_plain(x, w_qkv, w_out, b_out, g_out,
+                                            heads, dim_head, eps)
     w_qkv, w_out, b_out, g_out = _kernel_args(
-        "fused_linear_attention", x, w_qkv, w_out, b_out, g_out, heads,
-        dim_head, 2048)
+        "fused_linear_attention", x, w_qkv, w_out, b_out, g_out)
     b, n, c = x.shape
     bf16 = int(x.dtype == torch.bfloat16)
-    if bf16 and (c % 8 or any(t.data_ptr() % 16 for t in
-                              (x, w_qkv, w_out, g_out))):
+    if bf16 and any(t.data_ptr() % 16 for t in (x, w_qkv, w_out, g_out)):
         raise ValueError("fused_linear_attention: the bf16 kernel stages "
-                         "16-byte chunks and needs c % 8 == 0 and 16-byte "
-                         f"aligned tensors, got c={c}")
+                         "16-byte chunks and needs 16-byte aligned tensors")
     lib = _lib()
     splits, rows_per_split = _splits(
         b, n, lib.prgpt_linear_attention_rows_per_tile(bf16))
@@ -203,17 +231,22 @@ def fused_linear_attention_bwd(x, dy, w_qkv, w_out, b_out, g_out,
     """K3: the backward of the block at ``dy`` (same shape and dtype as x).
 
     A CPU tensor takes :func:`fused_linear_attention_bwd_plain`; a CUDA
-    tensor launches the kernel or raises. Returns ``(dx_q, dx_kv, dw_qkv,
-    dw_out, db_out, dg)``: the dx parts (b, n, c) in x.dtype, the weight
-    gradients in fp32.
+    tensor launches the kernel, runs the plain version where
+    :func:`_k3_takes` routes it there, or raises. Returns ``(dx_q, dx_kv,
+    dw_qkv, dw_out, db_out, dg)``: the dx parts (b, n, c) in x.dtype, the
+    weight gradients in fp32 (the plain version's in the weights' dtypes).
     """
     if x.device.type == "cpu":
         return fused_linear_attention_bwd_plain(x, dy, w_qkv, w_out, b_out,
                                                 g_out, heads, dim_head, eps)
+    _check_device("fused_linear_attention_bwd", x, heads, dim_head)
+    if not _k3_takes(x.dtype, x.shape[-1]):
+        fused_linear_attention_bwd.plain_routes += 1
+        return fused_linear_attention_bwd_plain(x, dy, w_qkv, w_out, b_out,
+                                                g_out, heads, dim_head, eps)
     lib = _bwd_lib()
     w_qkv, w_out, b_out, g_out = _kernel_args(
-        "fused_linear_attention_bwd", x, w_qkv, w_out, b_out, g_out, heads,
-        dim_head, lib.prgpt_linear_attention_bwd_max_c())
+        "fused_linear_attention_bwd", x, w_qkv, w_out, b_out, g_out)
     if dy.shape != x.shape or dy.dtype != x.dtype or \
             dy.device != x.device or not dy.is_contiguous():
         raise ValueError("fused_linear_attention_bwd: dy must be a "
@@ -221,14 +254,21 @@ def fused_linear_attention_bwd(x, dy, w_qkv, w_out, b_out, g_out,
                          f"{x.device}, got {tuple(dy.shape)} {dy.dtype} "
                          f"on {dy.device}")
     b, n, c = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
     f32 = dict(dtype=torch.float32, device=x.device)
     # the scratch is freed on return while the launches still run: the
     # caching allocator hands it out again only in the order of this stream
-    fscratch = torch.empty(lib.prgpt_linear_attention_bwd_fscratch(b, n, c),
-                           **f32)
-    tscratch = torch.empty(lib.prgpt_linear_attention_bwd_tscratch(b, n, c),
-                           dtype=x.dtype, device=x.device)
+    fscratch = torch.empty(
+        lib.prgpt_linear_attention_bwd_fscratch(b, n, c, bf16), **f32)
+    tscratch = torch.empty(
+        lib.prgpt_linear_attention_bwd_tscratch(b, n, c, bf16),
+        dtype=x.dtype, device=x.device)
     dx_q, dx_kv = torch.empty_like(x), torch.empty_like(x)
+    if bf16 and any(t.data_ptr() % 16 for t in (x, dy, w_qkv, w_out,
+                                                dx_q, dx_kv, tscratch)):
+        raise ValueError("fused_linear_attention_bwd: the bf16 kernel "
+                         "stages 16-byte chunks and needs 16-byte aligned "
+                         "tensors")
     dw_qkv = torch.empty((c, 3 * HIDDEN), **f32)
     dw_out = torch.empty((HIDDEN, c), **f32)
     db_out, dg = torch.empty(c, **f32), torch.empty(c, **f32)
@@ -237,8 +277,7 @@ def fused_linear_attention_bwd(x, dy, w_qkv, w_out, b_out, g_out,
         b_out.data_ptr(), g_out.data_ptr(), dx_q.data_ptr(),
         dx_kv.data_ptr(), dw_qkv.data_ptr(), dw_out.data_ptr(),
         db_out.data_ptr(), dg.data_ptr(), fscratch.data_ptr(),
-        tscratch.data_ptr(), b, n, c, float(eps),
-        int(x.dtype == torch.bfloat16),
+        tscratch.data_ptr(), b, n, c, float(eps), bf16,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "fused_linear_attention_bwd")
     fused_linear_attention_bwd.launches += 1
@@ -246,6 +285,7 @@ def fused_linear_attention_bwd(x, dy, w_qkv, w_out, b_out, g_out,
 
 
 fused_linear_attention_bwd.launches = 0
+fused_linear_attention_bwd.plain_routes = 0
 
 
 class FusedLinearAttentionFn(torch.autograd.Function):
@@ -279,6 +319,7 @@ def fused_linear_attention(x, w_qkv, w_out, b_out, g_out,
 
 
 fused_linear_attention.launches = 0
+fused_linear_attention.plain_routes = 0
 
 
 def _core_forward(qkv: torch.Tensor, heads: int, dim_head: int
@@ -392,11 +433,9 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.prgpt_linear_attention_bwd.argtypes = [p] * 14 + [i, i, i, f, i,
                                                               p]
         lib.prgpt_linear_attention_bwd.restype = i
-        lib.prgpt_linear_attention_bwd_max_c.argtypes = []
-        lib.prgpt_linear_attention_bwd_max_c.restype = i
         for fn in (lib.prgpt_linear_attention_bwd_fscratch,
                    lib.prgpt_linear_attention_bwd_tscratch):
-            fn.argtypes = [i, i, i]
+            fn.argtypes = [i, i, i, i]
             fn.restype = ctypes.c_longlong
         lib._prgpt_typed = True
     return lib

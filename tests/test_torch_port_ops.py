@@ -102,7 +102,9 @@ def _k3_inputs(c, n, b, seed=4):
     return x, dy, w_qkv, w_out, b_out, g_out
 
 
-@pytest.mark.parametrize("c,n,b", [(64, 256, 2), (128, 512, 1)])
+# (2048, 128, 1): the widest c K3 and the Pallas backward take
+@pytest.mark.parametrize("c,n,b", [(64, 256, 2), (128, 512, 1),
+                                   (2048, 128, 1)])
 def test_k3_plain_matches_pallas_bwd_interpret(c, n, b):
     args = _k3_inputs(c, n, b)
     ref = JLA._pallas_fused_bwd(*map(jnp.asarray, args), HEADS, D, 1e-5,
@@ -374,6 +376,7 @@ def _includes(name, files):
 @pytest.mark.parametrize("table,source", [
     ("K1_FAULTS", "linear_attention"), ("K1_TC_FAULTS", "linear_attention"),
     ("K2_FAULTS", "attention"), ("K3_FAULTS", "linear_attention_bwd"),
+    ("K3_TC_FAULTS", "linear_attention_bwd"),
     ("K4_FAULTS", "linear_attention_core"), ("K5_FAULTS", "conv3x3"),
     ("K6_FAULTS", "conv3_igemm")])
 def test_planted_fault_texts_each_sit_in_one_source(table, source):
