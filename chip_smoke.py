@@ -11,8 +11,10 @@ Phases, each printing one JSON line:
    (one nvcc per source, all at once);
 3. ``k1_*``: K1 (fused LinearAttention) against its plain version at the
    eight (8, n, c) shapes of a dim-64 U-Net forward at 256^2, in bf16 (the
-   DiffusionUNet, tensor cores) and fp32 (the MaskUNet, CUDA cores), with
-   times, bounds, TFLOP/s, shares of the bound and errors;
+   DiffusionUNet, tensor cores) and fp32 (the MaskUNet, three TF32 passes
+   on the tensor cores), with times, bounds (fp32 also at the CUDA cores'
+   rate), TFLOP/s, shares of the bound, errors and one call's device time
+   by launch;
 4. ``k2_*``: K2 (bottleneck attention) against its plain version on
    ``K2.check_inputs`` at (8, 1024, 4, 32) (generation) and (32, 1024, 4,
    32) (the training microbatch) in both types, beside
@@ -48,7 +50,7 @@ Phases, each printing one JSON line:
    same net on the CPU (fp32, plain path);
 9. ``forward_profile``: one production DiffusionUNet forward (bf16,
    256^2, batch 8): its time and device time by kernel category; and one
-   fp32 MaskUNet forward;
+   fp32 MaskUNet forward, its time and device time by kernel category;
 10. ``grad_parity``: the loss gradients of a dim-64 fp32 DiffusionUNet at
    64^2 on the card against the CPU, per parameter; ``wide_net``: the same
    for a dim-256 net (LinearAttention up to c = 2048, where K1 and K3 must
@@ -93,9 +95,12 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 MEM_BW = 3.35e12           # H100 SXM HBM3 bytes/s
-# peak rates for the inputs' type: dense bf16 tensor cores, fp32 outside
-# the tensor cores (the fp32 MaskUNet's math)
-PEAK = {"bfloat16": 989e12, "float32": 67e12}
+# peak rates for the inputs' type: dense bf16 tensor cores; fp32-accurate
+# products as three TF32 passes on the tensor cores (494.7 TFLOP/s dense
+# TF32, a third of it), the fp32 kernels' math; and, beside the fp32
+# bounds, the CUDA cores' fp32 rate
+PEAK = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
+CUDA_CORE_FP32 = 67e12
 K1_SHAPES = [(65536, 64), (16384, 64), (4096, 128), (1024, 256),
              (1024, 512), (4096, 256), (16384, 128), (65536, 64)]
 # K1's output is an O(1) LayerNorm (inside (-2, 2) on its check inputs):
@@ -172,13 +177,28 @@ def bound(work: dict, peak: float) -> tuple:
 
 def summed_bound(works, peak: float) -> tuple:
     """:func:`bound` of the summed work of several calls."""
-    return bound({k: sum(w[k] for w in works) for k in ("bytes", "flops")},
-                 peak)
+    return bound(summed(works), peak)
+
+
+def summed(works) -> dict:
+    return {k: sum(w[k] for w in works) for k in ("bytes", "flops")}
+
+
+def cuda_core_bound(work: dict, name: str) -> dict:
+    """For fp32 work, its bound at the CUDA cores' fp32 rate, beside the
+    three-pass TF32 one: ``{"cuda_core_bound_ms": ms}``; {} for bf16."""
+    if name != "float32":
+        return {}
+    return {"cuda_core_bound_ms": bound(work, CUDA_CORE_FP32)[0]}
 
 
 def phase_k1(torch, K1, dev, dtype):
     """K1 against its plain version at the eight shapes of one forward,
-    in ``dtype`` (bf16 for the DiffusionUNet, fp32 for the MaskUNet)."""
+    in ``dtype`` (bf16 for the DiffusionUNet, fp32 for the MaskUNet); each
+    shape's device time by launch from one profiled call."""
+    from pointreggpt_tpu_torch.tools.profile_k3 import by_kernel
+    from torch.profiler import ProfilerActivity, profile
+
     name = str(dtype).split(".")[-1]
     atol, eps = K_ATOL[("k1", name)], (1e-3 if name == "bfloat16" else 1e-5)
     size, peak = torch.tensor([], dtype=dtype).element_size(), PEAK[name]
@@ -202,26 +222,39 @@ def phase_k1(torch, K1, dev, dtype):
                 lambda: K1.fused_linear_attention(*args, eps=eps), 20)
             plain_ms = time_ms(
                 lambda: K1.fused_linear_attention_plain(*args, eps=eps), 3, 1)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                K1.fused_linear_attention(*args, eps=eps)
+                torch.cuda.synchronize()
+            launches = by_kernel(torch, prof)
             wk = K1.work(8, n, c, size)
             b_ms, b_by = bound(wk, peak)
             cache[(n, c)] = dict(n=n, c=c, max_abs_err=err, ms=ms,
                                  event_ms=event_ms, plain_ms=plain_ms,
                                  bound_ms=b_ms,
-                                 bound_by=b_by,
+                                 bound_by=b_by, **cuda_core_bound(wk, name),
                                  tflops=wk["flops"] / ms / 1e9,
-                                 share_of_bound=b_ms / ms, **wk)
+                                 share_of_bound=b_ms / ms,
+                                 by_launch={k[:40]: v["ms"]
+                                            for k, v in launches.items()},
+                                 **wk)
             del args, out, ref
             torch.cuda.empty_cache()
         rows.append(cache[(n, c)])
     emit(f"k1_{name}", shapes=rows, atol=atol)
     b_ms, b_by = summed_bound(rows, peak)
     ms = sum(r["ms"] for r in rows)
+    by_launch = {}
+    for r in rows:
+        for k, v in r["by_launch"].items():
+            by_launch[k] = by_launch.get(k, 0.0) + v
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=ms,
                 event_ms=sum(r["event_ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
                 bound_ms=b_ms, bound_by=b_by,
+                **cuda_core_bound(summed(rows), name),
                 tflops=sum(r["flops"] for r in rows) / ms / 1e9,
-                share_of_bound=b_ms / ms)
+                share_of_bound=b_ms / ms, by_launch=by_launch)
 
 
 K3_ATOL = {"bfloat16": 3e-2, "float32": 1e-4}
@@ -285,7 +318,7 @@ def phase_k3(torch, K1, dev, dtype, batch):
                                  max_rel_err=max(errs.values()),
                                  max_abs_err=max(abs_errs.values()), ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by,
+                                 bound_by=b_by, **cuda_core_bound(wk, name),
                                  device_ms=sum(v["ms"]
                                                for v in launches.values()),
                                  by_launch={k[:60]: v
@@ -308,7 +341,8 @@ def phase_k3(torch, K1, dev, dtype, batch):
                 ms=sum(r["ms"] for r in rows),
                 device_ms=sum(r["device_ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=b_ms, bound_by=b_by, by_launch=by_launch,
+                bound_ms=b_ms, bound_by=b_by,
+                **cuda_core_bound(summed(rows), name), by_launch=by_launch,
                 wide={k: wide[k] for k in ("n", "c", "max_rel_err", "ms",
                                            "device_ms", "plain_ms",
                                            "bound_ms", "bound_by")})
@@ -368,12 +402,14 @@ def phase_k2(torch, K2, dev, dtype):
                          event_ms=float(np.median(kern_ev)),
                          library_event_ms=float(np.median(lib_ev)),
                          vs_library=ms / library_ms, bound_ms=b_ms,
-                         bound_by=b_by, tflops=wk["flops"] / ms / 1e9,
+                         bound_by=b_by, **cuda_core_bound(wk, name),
+                         tflops=wk["flops"] / ms / 1e9,
                          share_of_bound=b_ms / ms))
         del q, k, v, out, ref, lib
     emit(f"k2_{name}", atol=atol, shapes=rows)
     keys = ("ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_event_ms", "vs_library")
+            "library_ms", "library_event_ms", "vs_library") + (
+                ("cuda_core_bound_ms",) if name == "float32" else ())
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
                 **{k: rows[0][k] for k in keys},
                 training_shape={k: rows[1][k] for k in ("shape",) + keys})
@@ -415,7 +451,7 @@ def phase_k4(torch, K1, dev, dtype):
         wk = K1.work_core(8, n, size)
         b_ms, b_by = bound(wk, PEAK[name])
         rows.append(dict(n=n, **e, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, **wk))
+                         bound_by=b_by, **cuda_core_bound(wk, name), **wk))
         del ref
     del inputs
     # a row count that is no multiple of the 16-row tile
@@ -445,7 +481,8 @@ def phase_k4(torch, K1, dev, dtype):
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=sum(r["ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by,
+                **cuda_core_bound(summed(rows), name))
 
 
 CONV_RTOL = 1e-2  # K5 and K6 against their plain versions, bf16
@@ -543,7 +580,8 @@ CONV_FP32_RTOL = 1e-5  # the direct kernel's fp32 sums in another order
 def conv_fp32_direct(torch, KC, dev) -> dict:
     """K5's fp32 path (the direct CUDA-core kernel) at one tool shape,
     apart from the bf16 path: error against ``conv3x3_plain``, time, bound
-    (fp32 outside the tensor cores) and fp32 cuDNN (TF32 off)."""
+    (three TF32 passes, and at the CUDA cores' rate) and fp32 cuDNN (TF32
+    off)."""
     from pointreggpt_tpu_torch.tools import errors
 
     x, w = KC.check_inputs_conv(*CONV_FP32_SHAPE, torch.float32, dev)
@@ -561,7 +599,8 @@ def conv_fp32_direct(torch, KC, dev) -> dict:
     return dict(shape=list(CONV_FP32_SHAPE), rel_err=e["rel_err"],
                 max_abs_err=e["max_abs_err"], rtol=CONV_FP32_RTOL, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by, vs_library=ms / library_ms,
+                bound_by=b_by, **cuda_core_bound(wk, "float32"),
+                vs_library=ms / library_ms,
                 tflops=wk["flops"] / ms / 1e9)
 
 
@@ -649,7 +688,8 @@ def device_time(torch, prof) -> dict:
 
 def phase_forward_profile(torch, dev):
     """Device time of one production DiffusionUNet forward (dim 64, bf16,
-    baked, 256^2, batch 8), by kernel category, from torch.profiler."""
+    baked, 256^2, batch 8) and of one fp32 MaskUNet forward (dim 64, the
+    keep-mask's), by kernel category, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from pointreggpt_tpu_torch import config as C
@@ -673,7 +713,12 @@ def phase_forward_profile(torch, dev):
         dev, memory_format=torch.channels_last)
     with torch.inference_mode():
         mask_ms = time_ms(lambda: mask(x), 3, warmup=1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as mask_prof:
+            mask(x)
+            torch.cuda.synchronize()
     emit("forward_profile", forward_ms=fwd_ms, mask_forward_fp32_ms=mask_ms,
+         mask_forward_fp32=device_time(torch, mask_prof),
          **device_time(torch, prof))
     del net, mask, x
     torch.cuda.empty_cache()
@@ -1239,9 +1284,10 @@ def main(argv=None) -> int:
                     launches_train_grid=train_res["grid_launches"][i])
 
     csrc = "pointreggpt_tpu_torch/ops/csrc/"
-    KV_HEADER, TC_HEADER, BWD_TC_HEADER, CONV_HEADER = (
+    KV_HEADER, TC_HEADER, BWD_TC_HEADER, CONV_HEADER, TF32_HEADER = (
         csrc + "linear_attention_kv.cuh", csrc + "linear_attention_tc.cuh",
-        csrc + "linear_attention_bwd_tc.cuh", csrc + "conv3_tc.cuh")
+        csrc + "linear_attention_bwd_tc.cuh", csrc + "conv3_tc.cuh",
+        csrc + "linear_attention_tf32.cuh")
 
     # calls routed to the plain version by shape on both main paths (each
     # phase checked them 0)
@@ -1251,7 +1297,7 @@ def main(argv=None) -> int:
     kernels = [
         dict(name="fused_linear_attention", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention.cu",
-             headers=[TC_HEADER, KV_HEADER],
+             headers=[TC_HEADER, TF32_HEADER, KV_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:202",
              **launches(0, "k1_launches"), **routes("k1"), library_ms=None,
              work="the 8 calls of one dim-64 U-Net forward, bf16, batch 8, "
@@ -1259,7 +1305,9 @@ def main(argv=None) -> int:
                   "device time, a CUDA graph of 10 calls, event_ms "
                   "back-to-back launches); bf16 "
                   "on the tensor cores (linear_attention_tc.cuh), fp32 "
-                  "(under fp32) on the CUDA cores",
+                  "(under fp32) kernels A and C in three TF32 passes on "
+                  "the tensor cores (linear_attention_tf32.cuh), bound_ms "
+                  "at 494.7 / 3 TFLOP/s, cuda_core_bound_ms at 67",
              fp32=k1_f32, **k1),
         dict(name="multihead_attention", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/attention.cu",
@@ -1270,11 +1318,14 @@ def main(argv=None) -> int:
                   "(F.scaled_dot_product_attention) are device times "
                   "(CUDA graph of 20 calls), medians of 3 interleaved "
                   "repeats; event_ms times back-to-back launches; bf16 on "
-                  "the tensor cores, fp32 (under fp32) on the CUDA cores",
+                  "the tensor cores (flash_fwd_tc), fp32 (under fp32) in "
+                  "three TF32 passes on the tensor cores "
+                  "(flash_fwd_tf32x3), bound_ms at 494.7 / 3 TFLOP/s, "
+                  "cuda_core_bound_ms at 67",
              fp32=k2_f32, **k2),
         dict(name="fused_linear_attention_bwd", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_bwd.cu",
-             headers=[BWD_TC_HEADER, TC_HEADER, KV_HEADER],
+             headers=[BWD_TC_HEADER, TC_HEADER, TF32_HEADER, KV_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:316",
              **launches(1, "k3_launches"), **routes("k3"), library_ms=None,
              work="the 8 calls of one dim-64 U-Net backward, bf16, "
@@ -1285,7 +1336,8 @@ def main(argv=None) -> int:
                   "of the six outputs, max_rel_err the one the check "
                   "bounds; bf16 on the tensor cores "
                   "(linear_attention_bwd_tc.cuh), fp32 (under fp32, batch "
-                  "8) on the CUDA cores",
+                  "8) K1's fp32 kernel A (three TF32 passes) and the "
+                  "CUDA-core path kernels",
              fp32=k3_f32, **k3),
         dict(name="linear_attention_core", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_core.cu",

@@ -2,10 +2,10 @@
 
 ``multihead_attention`` is a ``torch.autograd.Function``. Its forward runs
 the hand-written CUDA flash kernel (``csrc/attention.cu``, which replaces
-``pointreggpt_tpu/ops/attention.py::_attention_pallas``; bf16 on the
-tensor cores) for a CUDA tensor
-and ``multihead_attention_plain`` for a CPU tensor. No fallback: a CUDA
-tensor the kernel does not take raises.
+``pointreggpt_tpu/ops/attention.py::_attention_pallas``; on the tensor
+cores, fp32 in three TF32 passes) for a CUDA tensor and
+``multihead_attention_plain`` for a CPU tensor. No fallback: a CUDA tensor
+the kernel does not take raises.
 
 Its backward recomputes ``multihead_attention_plain`` under autograd and
 takes that function's gradient, on either device: the exact counterpart
@@ -39,7 +39,8 @@ def multihead_attention(q, k, v, *, scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v over (b, n, heads, dim_head) tensors (K2).
 
     q, k and v may be strided views of one packed projection, as long as
-    they share strides and each head's d values are contiguous. Returns a
+    they share strides, each head's d values are contiguous and, on the
+    card, every row starts 16-byte aligned. Returns a
     contiguous (b, n, h, d) tensor in q.dtype.
     """
     return MultiheadAttentionFn.apply(q, k, v, scale)
@@ -91,11 +92,12 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
                          f"with contiguous heads, got {q.stride()} "
                          f"{k.stride()} {v.stride()}")
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and (strides[0] % 8 or strides[1] % 8 or
-                 any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError("multihead_attention: the bf16 kernel stages "
-                         "16-byte chunks and needs 16-byte aligned rows, got "
-                         f"strides {strides}")
+    per16 = 16 // q.element_size()  # elements in a 16-byte chunk
+    if strides[0] % per16 or strides[1] % per16 or \
+            any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("multihead_attention: the kernels stage 16-byte "
+                         "chunks and need 16-byte aligned rows, got strides "
+                         f"{strides}")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     rc = _lib().prgpt_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, h, d,

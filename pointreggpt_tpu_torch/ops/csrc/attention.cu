@@ -32,104 +32,29 @@
 // and reused in registers as the A operand of O += P V, with V read by
 // ldmatrix.trans. O / l is written in bf16.
 //
-// fp32 (flash_fwd, the MaskUNet's path): one thread per q row holding its
-// scaled q, running max and sum and fp32 accumulator in registers, k/v
-// tiles in shared memory, fp32 FMAs on the CUDA cores (TF32 would not hold
-// the fp32 tolerance). The scale is applied to q before the product, as the
-// TPU kernel does.
+// fp32 (flash_fwd_tf32x3, the MaskUNet's path): the same structure on the
+// TF32 tensor cores in three passes (common.cuh: a b ~= a_lo b_hi + a_hi
+// b_lo + a_hi b_hi, about 22 bits of each product; one TF32 pass keeps 10
+// and misses the fp32 tolerance). q is scaled in fp32 before the product,
+// as the TPU kernel and the plain version do, and split once for the
+// whole walk. Rows are 128 bytes (32 floats); 16-byte chunk j of row r
+// sits at j ^ (r & 7). S = (q scale) k^T is four k8 steps of
+// mma.m16n8k8.tf32, k read by ldmatrix as pairs of b16 (a 32-bit
+// element is two b16 halves, so the non-transposed fragments come out
+// right). The accumulator of S holds keys 2t and 2t + 1 (t = lane & 3)
+// where the A operand of P V wants k indices t and t + 4, so each k8 step
+// of P V takes its 8 keys in the order 0, 2, 4, 6, 1, 3, 5, 7: A's index t
+// is key 2t and t + 4 is key 2t + 1, and V's rows are read in that order
+// (the swizzle keeps those reads on 32 different banks). P is split once
+// per k8 step and reused over the four d tiles. Bound at (8, 1024, 4, 32):
+// 3 x 4.3 GFLOP of TF32 products, 26 us at 494.7 TFLOP/s, against 17 MB
+// moved, 5 us: operation-bound.
 
 #include "common.cuh"
 
 #include <math.h>
 
 namespace {
-
-using prgpt::from_f;
-using prgpt::to_f;
-
-constexpr int TILE = 64;
-
-template <typename T, int D>
-__global__ void __launch_bounds__(TILE)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int n, int h,
-          long long sb, long long sn, float scale) {
-  __shared__ float ks[TILE][D];
-  __shared__ float vs[TILE][D];
-  const int tid = threadIdx.x;
-  const int bi = blockIdx.y / h;
-  const int hi = blockIdx.y % h;
-  const int row = blockIdx.x * TILE + tid;
-  const size_t base = static_cast<size_t>(bi) * sb + static_cast<size_t>(hi) * D;
-
-  float qr[D];
-  float acc[D];
-#pragma unroll
-  for (int dd = 0; dd < D; ++dd) {
-    qr[dd] = row < n ? to_f(q[base + static_cast<size_t>(row) * sn + dd]) *
-                           scale
-                     : 0.f;
-    acc[dd] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
-  for (int kt = 0; kt < n; kt += TILE) {
-    __syncthreads();
-    const int kr = kt + tid;
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) {
-      const size_t off = base + static_cast<size_t>(kr) * sn + dd;
-      ks[tid][dd] = kr < n ? to_f(k[off]) : 0.f;
-      vs[tid][dd] = kr < n ? to_f(v[off]) : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(TILE, n - kt);
-
-    float s[TILE];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < TILE; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int dd = 0; dd < D; ++dd) dot = fmaf(qr[dd], ks[j][dd], dot);
-      s[j] = j < kn ? dot : -INFINITY;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float al = expf(m - m_new);
-    l *= al;
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) acc[dd] *= al;
-#pragma unroll
-    for (int j = 0; j < TILE; ++j) {
-      const float p = expf(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int dd = 0; dd < D; ++dd) acc[dd] = fmaf(p, vs[j][dd], acc[dd]);
-    }
-    m = m_new;
-  }
-
-  if (row < n) {
-    T* o = out + ((static_cast<size_t>(bi) * n + row) * h + hi) * D;
-    const float inv = 1.f / l;
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) o[dd] = from_f<T>(acc[dd] * inv);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int b, int n, int h, long long sb, long long sn,
-                   float scale, cudaStream_t stream) {
-  dim3 grid((n + TILE - 1) / TILE, b * h);
-  flash_fwd<T, D><<<grid, TILE, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), n, h, sb, sn, scale);
-  return cudaGetLastError();
-}
-
 
 // ---- bf16: tensor cores ----
 
@@ -319,6 +244,213 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ---- fp32: TF32 tensor cores, three passes ----
+
+using prgpt::mma_3xtf32;
+using prgpt::split_frag;
+
+constexpr int F_ROW = 128;            // bytes of one staged row (32 floats)
+constexpr int F_TILE = KT * F_ROW;
+
+// Byte offset of 16-byte chunk j (0..7) of staged fp32 row r: chunk j of
+// row r sits at j ^ (r & 7), so the 8 rows of an ldmatrix, and the rows
+// 2t, 2t + 1 of the permuted V reads, hit different bank groups.
+__device__ __forceinline__ uint32_t swz128(int r, int j) {
+  return r * F_ROW + ((j ^ (r & 7)) << 4);
+}
+
+__global__ void __launch_bounds__(32 * TC_WARPS)
+flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int n,
+                 int h, long long sb, long long sn, float scale) {
+  // q rows, then two ring stages of [k tile | v tile]
+  __shared__ __align__(128) unsigned char smem[TC_ROWS * F_ROW + 4 * F_TILE];
+  const uint32_t qs = prgpt::smem_u32(smem);
+  const uint32_t ring = qs + TC_ROWS * F_ROW;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bi = blockIdx.y / h;
+  const int hi = blockIdx.y % h;
+  const int q0 = blockIdx.x * TC_ROWS;
+  const size_t base = static_cast<size_t>(bi) * sb + static_cast<size_t>(hi) * 32;
+
+  // rows r0 .. r0 + nrows of src into dst, zeros past n
+  auto stage = [&](uint32_t dst, const float* src, int r0, int nrows) {
+    for (int i = tid; i < nrows * 8; i += 32 * TC_WARPS) {
+      const int r = i >> 3, j = i & 7;
+      const bool in = r0 + r < n;
+      cp16(dst + swz128(r, j),
+           in ? src + base + static_cast<size_t>(r0 + r) * sn + j * 4 : src,
+           in);
+    }
+  };
+  const int tiles = (n + KT - 1) / KT;
+  stage(qs, q, q0, TC_ROWS);
+  stage(ring, k, 0, KT);
+  stage(ring + F_TILE, v, 0, KT);
+  cp_commit();
+
+  // this warp's 16 q rows x 32 d, scaled, split: four k8 A fragments
+  uint32_t qh[4][4], ql[4][4];
+  float o[4][4];  // 16 rows x 32 d: four n8 fragments
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // rows g and g + 8: running max (times log2 e) and this lane's share of
+  // the running sum
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < tiles; ++kt) {
+    cp_wait<0>();
+    // tile kt is in shared memory for every thread, and every warp is done
+    // with tile kt - 1, whose stage the prefetch below refills
+    __syncthreads();
+    if (kt + 1 < tiles) {
+      const uint32_t st = ring + ((kt + 1) & 1) * 2 * F_TILE;
+      stage(st, k, (kt + 1) * KT, KT);
+      stage(st + F_TILE, v, (kt + 1) * KT, KT);
+    }
+    cp_commit();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        ldm_x4(qh[kk], qs + swz128(warp * 16 + (lane & 7) +
+                                       ((lane >> 3) & 1) * 8,
+                                   2 * kk + (lane >> 4)));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          qh[kk][e] = __float_as_uint(__uint_as_float(qh[kk][e]) * scale);
+        split_frag(qh[kk], ql[kk]);
+      }
+    }
+    const uint32_t ks = ring + (kt & 1) * 2 * F_TILE;
+    const unsigned char* vs = smem + (ks - qs) + F_TILE;
+
+    // S = (q scale) k^T: 16 rows x 64 keys, eight n8 fragments; element e
+    // of s[jb] is row g + 8 (e >> 1), key 8 jb + 2 t4 + (e & 1)
+    float s[8][4];
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jb][e] = 0.f;
+      uint32_t b[2][4];  // keys 8 jb .., d 16 h .. 16 h + 15
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        ldm_x4(b[hh], ks + swz128(jb * 8 + (lane & 7), 4 * hh + (lane >> 3)));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bh[2] = {b[kk >> 1][2 * (kk & 1)],
+                          b[kk >> 1][2 * (kk & 1) + 1]};
+        uint32_t bl[2];
+        split_frag(bh, bl);
+        mma_3xtf32(s[jb], qh[kk], ql[kk], bh, bl);
+      }
+    }
+
+    // online softmax on the fragments, in log2 units
+    const int kn = n - kt * KT;  // valid keys in this tile
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = jb * 8 + 2 * t4 + (e & 1);
+        s[jb][e] = key < kn ? s[jb][e] * 1.4426950408889634f : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[jb][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[jb][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        s[jb][e] = p;
+      }
+
+    // O = alpha O + P V, P V summed apart (each mma truncates the sum it
+    // accumulates); k8 step jb takes keys 8 jb + (0, 2, 4, 6, 1, 3, 5, 7)
+    float pv[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[j][e] = 0.f;
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      uint32_t ah[4] = {__float_as_uint(s[jb][0]), __float_as_uint(s[jb][2]),
+                        __float_as_uint(s[jb][1]), __float_as_uint(s[jb][3])};
+      uint32_t al[4];
+      split_frag(ah, al);
+      // A's k index t is key 2t of the block and t + 4 is key 2t + 1
+      const int k0 = jb * 8 + 2 * t4, k1 = k0 + 1;
+#pragma unroll
+      for (int nd = 0; nd < 4; ++nd) {
+        const int col = nd * 8 + g;
+        uint32_t bh[2] = {
+            *reinterpret_cast<const uint32_t*>(vs + swz128(k0, col >> 2) +
+                                               (col & 3) * 4),
+            *reinterpret_cast<const uint32_t*>(vs + swz128(k1, col >> 2) +
+                                               (col & 3) * 4)};
+        uint32_t bl[2];
+        split_frag(bh, bl);
+        mma_3xtf32(pv[nd], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], pv[j][e]);
+  }
+
+  float rl[2];  // 1 / the row sums
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    rl[r] = 1.f / l[r];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= n) continue;
+    float* orow = out + ((static_cast<size_t>(bi) * n + row) * h + hi) * 32 +
+                  2 * t4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float2*>(orow + j * 8) =
+          make_float2(o[j][2 * r] * rl[r], o[j][2 * r + 1] * rl[r]);
+  }
+}
+
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v,
+                          void* out, int b, int n, int h, long long sb,
+                          long long sn, float scale, cudaStream_t stream) {
+  // cp.async copies 16-byte chunks: every row must start 16-byte aligned
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+              16 != 0 ||
+      sb % 4 != 0 || sn % 4 != 0)
+    return cudaErrorInvalidValue;
+  dim3 grid((n + TC_ROWS - 1) / TC_ROWS, b * h);
+  flash_fwd_tf32x3<<<grid, 32 * TC_WARPS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), n, h, sb, sn,
+      scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int prgpt_attention(const void* q, const void* k, const void* v,
@@ -327,9 +459,9 @@ extern "C" int prgpt_attention(const void* q, const void* k, const void* v,
                                int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 32) {
-    return is_bf16 ? launch_tc(q, k, v, out, b, n, h, sb, sn, scale, s)
-                   : launch<float, 32>(q, k, v, out, b, n, h, sb, sn, scale,
-                                       s);
+    return is_bf16
+               ? launch_tc(q, k, v, out, b, n, h, sb, sn, scale, s)
+               : launch_tf32x3(q, k, v, out, b, n, h, sb, sn, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -47,8 +47,10 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Tensor-core and async-copy primitives of the sm_90a kernels (K2 and K1
-// bf16, K5 bf16, K6): cp.async staging, ldmatrix, mma.sync.m16n8k16.
+// Tensor-core and async-copy primitives of the sm_90a kernels (K1 and K2
+// in both types, K3's and K5's bf16 paths, K6): cp.async staging,
+// ldmatrix, mma.sync.m16n8k16 (bf16) and, below, the TF32 split and
+// mma.sync.m16n8k8 of the fp32 bodies.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -101,6 +103,67 @@ __device__ __forceinline__ void mma16816(float (&c)[4],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// fp32-accurate products on the TF32 tensor cores (the fp32 bodies of K1
+// and K2): x = hi + lo, hi = tf32(x) and lo = tf32(x - hi) (x - hi is
+// exact in fp32), so hi + lo holds x within 2^-22 relative, and
+// a b ~= a_lo b_hi + a_hi b_lo + a_hi b_hi keeps about 22 bits of each
+// product (the dropped a_lo b_lo is 2^-22 of it): the "3xTF32" of
+// CUTLASS's OpMultiplyAddFastF32.
+
+// 4 bytes global -> shared; zero-filled where !full (no bytes are read)
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
+                                    bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+// x rounded to TF32 (10 stored mantissa bits; nearest, ties away from 0)
+// as cvt.rna.tf32.f32 rounds it, bit for bit for every finite x, on the
+// integer pipe: half a unit of the 13 dropped bits added to the magnitude,
+// then those bits cleared. Conversions issue at a quarter of the rate, and
+// with cvt.rna the splits made K1's fp32 forward measurably slower.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// A fragment (4 values) or B fragment (2 values) split in place: v holds
+// the fp32 bits and becomes hi, lo gets the rest
+template <int N>
+__device__ __forceinline__ void split_frag(uint32_t (&v)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(v[i]), v[i], lo[i]);
+}
+
+// c += a (16x8, row) @ b (8x8, col), tf32 in, fp32 accumulators
+__device__ __forceinline__ void mma1688_tf32(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in three passes: the two small products first, a_hi b_hi last
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma1688_tf32(c, a_lo, b_hi[0], b_hi[1]);
+  mma1688_tf32(c, a_hi, b_lo[0], b_lo[1]);
+  mma1688_tf32(c, a_hi, b_hi[0], b_hi[1]);
 }
 
 // Raise the dynamic shared-memory cap when a launch needs more than 48 KB.

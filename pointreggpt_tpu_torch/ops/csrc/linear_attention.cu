@@ -29,10 +29,12 @@
 //                    per-lane max and sum and the four 32x32 head blocks of
 //                    C (the off-diagonal blocks are masked anyway, so they
 //                    are never computed), and writes (m, s, C) partials.
-//   B  merge_context grid (b): merges the partials with max-rescaling and
-//                    writes C^ (head blocks only), rounded to T.
-//   C  emit_out      q projection, per-head softmax, q C^, out projection
-//                    + bias, LayerNorm, store T.
+//   B  merge_context grid (16, b): merges the partials with max-rescaling
+//                    and writes C^ (head blocks only), rounded to T, one
+//                    thread per entry.
+//   C  emit_out      persistent grid: q projection, per-head softmax, q C^,
+//                    out projection + bias, LayerNorm, store T.
+// Each has a bf16 body (suffix _tc) and an fp32 one (_tf32).
 // Intermediates (qkv, core, pre-norm output) never leave shared memory or
 // registers; only x is read twice, as on the TPU.
 //
@@ -41,9 +43,14 @@
 // shared memory where they fit, ldmatrix + mma.sync.m16n8k16 for the three
 // projections, the two context products and the out projection; C on a
 // persistent grid), B with one thread per entry of C^. fp32 (the MaskUNet):
-// the CUDA-core bodies of linear_attention_kv.cuh (16-row tiles, fp32
-// FMAs, weights read through L1/L2; TF32 would not hold the fp32
-// tolerance), A and B shared with K3.
+// A and C are linear_attention_tf32.cuh's bodies, the same design on the
+// TF32 tensor cores with every product in three passes (a_lo b_hi + a_hi
+// b_lo + a_hi b_hi, about 22 bits of each product; one TF32 pass, 10 bits,
+// would not hold the fp32 tolerance), 32-channel chunks and fp32 byte
+// counts; B with one thread per entry of C^, as in bf16. K3's fp32
+// backward launches the same A and B. Bound of the fp32 forward at batch
+// 8, summed over a U-Net forward's eight shapes: 3 x 136.7 GFLOP of TF32
+// products, 0.83 ms at 494.7 TFLOP/s, against 0.89 GB moved, 0.27 ms.
 //
 // Rounding follows the plain PyTorch version (ops/linear_attention.py):
 // qkv, exp(k - m), C^, the softmaxed q, the core and the projected output
@@ -51,6 +58,7 @@
 
 #include "linear_attention_kv.cuh"
 #include "linear_attention_tc.cuh"
+#include "linear_attention_tf32.cuh"
 
 #include <math.h>
 
@@ -58,139 +66,67 @@
 
 namespace {
 
-using prgpt::from_f;
-using prgpt::rnd;
-using prgpt::to_f;
 using namespace prgpt::la;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-kv_partials(const T* __restrict__ x, const T* __restrict__ wqkv,
-            float* __restrict__ part, int n, int c, int rows_per_split,
-            int splits) {
-  kv_partials_body<T>(ProjectKV<T>{x, wqkv, c}, part, n, c,
-                      rows_per_split, splits);
+// The card's limits, the kernels' shared-memory caps and kernel C's
+// occupancy, per device and body (0: bf16, 1: fp32), looked up once per
+// device and size: the wrapper runs 2,016 times per sample step, and each
+// lookup costs microseconds of host time. Guarded by limits_lock.
+struct Limits {
+  int max_smem = 0, sms = 0;
+  size_t cap_a = 0, cap_c = 0, occ_smem = 0;
+  int per_sm = 0;
+};
+std::mutex limits_lock;
+
+cudaError_t card_limits(int body, Limits** out) {
+  static Limits limits[2][64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  Limits& k = limits[body][dev];
+  if (k.sms == 0) {
+    err = cudaDeviceGetAttribute(&k.max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&k.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *out = &k;
+  return cudaSuccess;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-merge_context(const float* __restrict__ part, float* __restrict__ chat,
-              int splits, float scale) {
-  merge_context_body<T>(part, chat, nullptr, splits, scale);
+// Raise kernels A's and C's shared-memory caps to smem_a and smem_c where
+// they are lower, and look up C's blocks per SM for smem_c.
+template <typename KA, typename KC>
+cudaError_t grant(Limits& k, KA ka, size_t smem_a, KC kc, size_t smem_c,
+                  int threads) {
+  cudaError_t err;
+  if (smem_a > k.cap_a) {
+    if ((err = prgpt::allow_smem(ka, smem_a)) != cudaSuccess) return err;
+    k.cap_a = smem_a;
+  }
+  if (smem_c > k.cap_c) {
+    if ((err = prgpt::allow_smem(kc, smem_c)) != cudaSuccess) return err;
+    k.cap_c = smem_c;
+  }
+  if (smem_c != k.occ_smem) {
+    // persistent grid of kernel C: as many blocks as fit on the card
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k.per_sm, kc,
+                                                        threads, smem_c);
+    if (err != cudaSuccess) return err;
+    k.occ_smem = smem_c;
+  }
+  return cudaSuccess;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-emit_out(const T* __restrict__ x, const T* __restrict__ wqkv,
-         const T* __restrict__ wout, const float* __restrict__ bout,
-         const float* __restrict__ g, const float* __restrict__ chat,
-         T* __restrict__ out, int n, int c, float eps) {
-  extern __shared__ float smem[];
-  float* xs = smem;                 // ROWS * c; reused for the projection
-  float* qs = xs + ROWS * c;        // ROWS * HID
-  float* core = qs + ROWS * HID;    // ROWS * HID
-  float* ch = core + ROWS * HID;    // CBLK
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int bi = blockIdx.y;
-  const int r0 = blockIdx.x * ROWS;
-  const int rows = min(ROWS, n - r0);
-  const size_t row0 = static_cast<size_t>(bi) * n + r0;
-
-  for (int i = tid; i < CBLK; i += THREADS)
-    ch[i] = chat[static_cast<size_t>(bi) * CBLK + i];
-  for (int i = tid; i < rows * c; i += THREADS)
-    xs[i] = to_f(x[row0 * c + i]);
-  __syncthreads();
-
-  // q = x W_q: column tid % 128, rows tid / 128 + 2k
-  {
-    const int col = tid & (HID - 1);
-    const int rh = tid >> 7;
-    float a[ROWS / 2];
-#pragma unroll
-    for (int k = 0; k < ROWS / 2; ++k) a[k] = 0.f;
-    for (int ci = 0; ci < c; ++ci) {
-      const float w = to_f(wqkv[static_cast<size_t>(ci) * QKV + col]);
-#pragma unroll
-      for (int k = 0; k < ROWS / 2; ++k)
-        a[k] = fmaf(xs[(rh + 2 * k) * c + ci], w, a[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < ROWS / 2; ++k)
-      if (rh + 2 * k < rows) qs[(rh + 2 * k) * HID + col] = rnd<T>(a[k]);
-  }
-  __syncthreads();
-
-  // per-head softmax of q, then core = q C^ (head blocks only)
-  q_context_body<T>(qs, ch, core, rows);
-
-  // y = core W_out + b_out, into xs
-  for (int j = tid; j < c; j += THREADS) {
-    float a[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
-    for (int e = 0; e < HID; ++e) {
-      const float w = to_f(wout[static_cast<size_t>(e) * c + j]);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) a[r] = fmaf(core[r * HID + e], w, a[r]);
-    }
-    const float bj = rnd<T>(bout[j]);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      if (r < rows) xs[r * c + j] = rnd<T>(rnd<T>(a[r]) + bj);
-  }
-  __syncthreads();
-
-  // LayerNorm over c: one warp per row
-  for (int r = warp; r < rows; r += THREADS / 32) {
-    const float* yr = xs + r * c;
-    float s = 0.f;
-    for (int j = lane; j < c; j += 32) s += yr[j];
-    const float mean = prgpt::warp_sum(s) / c;
-    float v = 0.f;
-    for (int j = lane; j < c; j += 32) {
-      const float d = yr[j] - mean;
-      v = fmaf(d, d, v);
-    }
-    const float inv = rsqrtf(prgpt::warp_sum(v) / c + eps);
-    T* orow = out + (row0 + r) * c;
-    for (int j = lane; j < c; j += 32)
-      orow[j] = from_f<T>((yr[j] - mean) * inv * g[j]);
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const void* wqkv, const void* wout,
-                   const float* bout, const float* g, void* out,
-                   float* part, float* chat, int b, int n, int c,
-                   int splits, int rows_per_split, float eps,
-                   cudaStream_t stream) {
-  const size_t smem_a = kv_partials_smem(c);
-  const size_t smem_c = sizeof(float) * (ROWS * c + 2 * ROWS * HID + CBLK);
-  cudaError_t err = prgpt::allow_smem(kv_partials<T>, smem_a);
-  if (err != cudaSuccess) return err;
-  err = prgpt::allow_smem(emit_out<T>, smem_c);
-  if (err != cudaSuccess) return err;
-
-  kv_partials<T><<<dim3(splits, b), THREADS, smem_a, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wqkv), part, n, c,
-      rows_per_split, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const float scale = rsqrtf(static_cast<float>(DH)) / static_cast<float>(n);
-  merge_context<T><<<b, THREADS, 0, stream>>>(part, chat, splits, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  emit_out<T><<<dim3((n + ROWS - 1) / ROWS, b), THREADS, smem_c, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wqkv),
-      static_cast<const T*>(wout), bout, g, chat, static_cast<T*>(out), n, c,
-      eps);
-  return cudaGetLastError();
+// Kernel C's persistent grid: as few blocks as take every one of `tiles`
+// tiles in equal runs of consecutive tiles.
+int persistent_grid(const Limits& k, int tiles) {
+  const int slots = k.sms * (k.per_sm > 0 ? k.per_sm : 1);
+  const int per = (tiles + slots - 1) / slots;
+  return (tiles + per - 1) / per;
 }
 
 __global__ void __launch_bounds__(tc::NTHREADS, 2)
@@ -233,30 +169,11 @@ cudaError_t launch_tc(const void* x, const void* wqkv, const void* wout,
        reinterpret_cast<uintptr_t>(wout) | reinterpret_cast<uintptr_t>(g) |
        reinterpret_cast<uintptr_t>(out)) % 16 != 0)
     return cudaErrorInvalidValue;
-  // the card's limits, the kernels' shared-memory caps and kernel C's
-  // occupancy, looked up once per device and size: the wrapper runs 2,016
-  // times per sample step, and each lookup costs microseconds of host time
-  struct Cache {
-    int max_smem = 0, sms = 0;
-    size_t cap_a = 0, cap_c = 0, occ_smem = 0;
-    int per_sm = 0;
-  };
-  static Cache caches[64];
-  static std::mutex lock;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> guard(limits_lock);
+  Limits* k = nullptr;
+  cudaError_t err = card_limits(0, &k);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> guard(lock);
-  Cache& k = caches[dev];
-  if (k.sms == 0) {
-    err = cudaDeviceGetAttribute(&k.max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&k.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  const size_t cap = static_cast<size_t>(k.max_smem);
+  const size_t cap = static_cast<size_t>(k->max_smem);
 
   const int res_a = tc::kv_smem(c, true) <= cap;
   const size_t smem_a = tc::kv_smem(c, res_a);
@@ -266,23 +183,8 @@ cudaError_t launch_tc(const void* x, const void* wqkv, const void* wout,
   const int yglob = !res_c && tc::emit_smem(c, false) > cap;
   const size_t smem_c = tc::emit_smem(c, res_c, yglob);
   if (smem_a > cap || smem_c > cap) return cudaErrorInvalidValue;
-  if (smem_a > k.cap_a) {
-    err = prgpt::allow_smem(kv_partials_tc, smem_a);
-    if (err != cudaSuccess) return err;
-    k.cap_a = smem_a;
-  }
-  if (smem_c > k.cap_c) {
-    err = prgpt::allow_smem(emit_out_tc, smem_c);
-    if (err != cudaSuccess) return err;
-    k.cap_c = smem_c;
-  }
-  if (smem_c != k.occ_smem) {
-    // persistent grid of kernel C: as many blocks as fit on the card
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &k.per_sm, emit_out_tc, tc::NTHREADS, smem_c);
-    if (err != cudaSuccess) return err;
-    k.occ_smem = smem_c;
-  }
+  err = grant(*k, kv_partials_tc, smem_a, emit_out_tc, smem_c, tc::NTHREADS);
+  if (err != cudaSuccess) return err;
 
   kv_partials_tc<<<dim3(splits, b), tc::NTHREADS, smem_a, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv), part, n,
@@ -297,16 +199,87 @@ cudaError_t launch_tc(const void* x, const void* wqkv, const void* wout,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  // as few blocks as take every tile in equal runs of consecutive tiles
-  const int tiles = b * ((n + tc::TM - 1) / tc::TM);
-  const int slots = k.sms * (k.per_sm > 0 ? k.per_sm : 1);
-  const int per = (tiles + slots - 1) / slots;
-  const int grid = (tiles + per - 1) / per;
-  emit_out_tc<<<grid, tc::NTHREADS, smem_c, stream>>>(
+  emit_out_tc<<<persistent_grid(*k, b * ((n + tc::TM - 1) / tc::TM)),
+                tc::NTHREADS, smem_c, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
       static_cast<const bf16*>(wout), bout, g, chat, static_cast<bf16*>(out),
       b, n, c, eps, res_c,
       res_c ? tc::X_BYTES : tc::X_BYTES + tc::WQ_BYTES, yglob);
+  return cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(tf32x3::NTHREADS, 1)
+kv_partials_tf32(const float* __restrict__ x, const float* __restrict__ wqkv,
+                 float* __restrict__ part, int n, int c, int rows_per_split,
+                 int splits, int resident, int stage_bytes, int vec) {
+  tf32x3::kv_partials_tf32_body(x, wqkv, part, n, c, rows_per_split, splits,
+                                resident, stage_bytes, vec);
+}
+
+__global__ void __launch_bounds__(tf32x3::NTHREADS, 1)
+emit_out_tf32(const float* __restrict__ x, const float* __restrict__ wqkv,
+              const float* __restrict__ wout, const float* __restrict__ bout,
+              const float* __restrict__ g, const float* __restrict__ chat,
+              float* __restrict__ out, int b, int n, int c, float eps,
+              int resident, int stage_bytes, int yglob, int vec) {
+  tf32x3::emit_out_tf32_body(x, wqkv, wout, bout, g, chat, out, b, n, c, eps,
+                             resident, stage_bytes, yglob, vec);
+}
+
+__global__ void __launch_bounds__(tf32x3::NTHREADS)
+merge_context_tf32(const float* __restrict__ part, float* __restrict__ chat,
+                   int splits, float scale) {
+  tf32x3::merge_context_tf32_body(part, chat, nullptr, splits, scale);
+}
+
+// fp32: kernels A and C on the TF32 tensor cores in three passes, B with
+// one thread per entry of C^. 16-byte copies where c % 4 == 0 and every tensor is
+// 16-byte aligned, 4-byte copies otherwise.
+cudaError_t launch_tf32x3(const float* x, const float* wqkv,
+                          const float* wout, const float* bout,
+                          const float* g, float* out, float* part,
+                          float* chat, int b, int n, int c, int splits,
+                          int rows_per_split, float eps, cudaStream_t stream) {
+  namespace t3 = tf32x3;
+  const int vec =
+      c % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wqkv) |
+       reinterpret_cast<uintptr_t>(wout) | reinterpret_cast<uintptr_t>(g) |
+       reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  std::lock_guard<std::mutex> guard(limits_lock);
+  Limits* k = nullptr;
+  cudaError_t err = card_limits(1, &k);
+  if (err != cudaSuccess) return err;
+  const size_t cap = static_cast<size_t>(k->max_smem);
+
+  const int res_a = t3::kv_smem(c, true) <= cap;
+  const size_t smem_a = t3::kv_smem(c, res_a);
+  const int res_c = t3::emit_smem(c, true) <= cap;
+  // above c = 512 a tile of y no longer fits beside the ring: it goes
+  // through out's rows (in L2) instead
+  const int yglob = !res_c && t3::emit_smem(c, false) > cap;
+  const size_t smem_c = t3::emit_smem(c, res_c, yglob);
+  if (smem_a > cap || smem_c > cap) return cudaErrorInvalidValue;
+  err = grant(*k, kv_partials_tf32, smem_a, emit_out_tf32, smem_c,
+              t3::NTHREADS);
+  if (err != cudaSuccess) return err;
+
+  kv_partials_tf32<<<dim3(splits, b), t3::NTHREADS, smem_a, stream>>>(
+      x, wqkv, part, n, c, rows_per_split, splits, res_a,
+      res_a ? t3::X_BYTES : t3::X_BYTES + t3::WKV_BYTES, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const float scale = rsqrtf(static_cast<float>(DH)) / static_cast<float>(n);
+  merge_context_tf32<<<dim3(CBLK / t3::NTHREADS, b), t3::NTHREADS, 0,
+                       stream>>>(part, chat, splits, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  emit_out_tf32<<<persistent_grid(*k, b * ((n + t3::TM - 1) / t3::TM)),
+                  t3::NTHREADS, smem_c, stream>>>(
+      x, wqkv, wout, bout, g, chat, out, b, n, c, eps, res_c,
+      res_c ? t3::X_BYTES : t3::X_BYTES + t3::WQ_BYTES, yglob, vec);
   return cudaGetLastError();
 }
 
@@ -316,7 +289,7 @@ extern "C" {
 
 // Rows per tile of kernel A: the wrapper sizes its splits in whole tiles.
 int prgpt_linear_attention_rows_per_tile(int is_bf16) {
-  return is_bf16 ? tc::TM : ROWS;
+  return is_bf16 ? tc::TM : tf32x3::TM;
 }
 
 // Scratch floats the wrapper must allocate for (b, splits).
@@ -336,8 +309,10 @@ int prgpt_linear_attention(const void* x, const void* wqkv, const void* wout,
   if (is_bf16)
     return launch_tc(x, wqkv, wout, bout, g, out, part, chat, b, n, c,
                      splits, rows_per_split, eps, s);
-  return launch<float>(x, wqkv, wout, bout, g, out, part, chat, b, n, c,
-                       splits, rows_per_split, eps, s);
+  return launch_tf32x3(
+      static_cast<const float*>(x), static_cast<const float*>(wqkv),
+      static_cast<const float*>(wout), bout, g, static_cast<float*>(out), part,
+      chat, b, n, c, splits, rows_per_split, eps, s);
 }
 
 }  // extern "C"

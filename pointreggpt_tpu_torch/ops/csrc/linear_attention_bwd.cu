@@ -51,11 +51,14 @@
 // bf16 (the DiffusionUNet's training path): 1 and 2 are K1's kernels A
 // and B (linear_attention_tc.cuh); 3, 5 and 6 the tensor-core bodies of
 // linear_attention_bwd_tc.cuh, mma.sync with 64-row tiles and weights
-// resident or streamed in 64-channel chunks (see that header). fp32 (no model path trains in fp32 today): the
-// CUDA-core bodies below, fp32 FMAs with one shared-memory load each
-// (TF32 would not hold K3's 1e-4 fp32 tolerance); the q path takes 16-row
-// tiles up to c = 1024 and 8-row tiles above, so that x and dy fit in
-// shared memory at c = 2048. core, dpre and dq|dk|dv round-trip through
+// resident or streamed in 64-channel chunks (see that header). fp32 (no
+// model path trains in fp32 today): 1 and 2 are K1's fp32 kernels A and B
+// (linear_attention_tf32.cuh: A in three TF32 passes), launched with K1's
+// splits, so that the statistics are the forward's bit for bit; 3-6 the
+// CUDA-core bodies below, fp32 FMAs with one shared-memory load each (not
+// yet on the three-pass TF32 split kernel A uses); the q path takes
+// 16-row tiles up to c = 1024 and 8-row tiles above, so that x and dy fit
+// in shared memory at c = 2048. core, dpre and dq|dk|dv round-trip through
 // device memory to feed the weight gradients in both: 2 (128 + c + 384)
 // bytes per row.
 //
@@ -69,6 +72,7 @@
 
 #include "linear_attention_bwd_tc.cuh"
 #include "linear_attention_kv.cuh"
+#include "linear_attention_tf32.cuh"
 
 #include <math.h>
 
@@ -90,20 +94,20 @@ constexpr int WT = 64;                // weight-gradient output tile
 constexpr int WK = 32;                // rows per weight-gradient stage
 constexpr int TARGET_BLOCKS = 2 * 2 * 132;  // ~2x the SMs, two waves
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-bwd_kv_partials(const T* __restrict__ x, const T* __restrict__ wqkv,
-                float* __restrict__ part, int n, int c, int rows_per_split,
-                int splits) {
-  kv_partials_body<T>(ProjectKV<T>{x, wqkv, c}, part, n, c,
-                      rows_per_split, splits);
+__global__ void __launch_bounds__(tf32x3::NTHREADS, 1)
+bwd_kv_partials_tf32(const float* __restrict__ x,
+                     const float* __restrict__ wqkv, float* __restrict__ part,
+                     int n, int c, int rows_per_split, int splits,
+                     int resident, int stage_bytes, int vec) {
+  tf32x3::kv_partials_tf32_body(x, wqkv, part, n, c, rows_per_split, splits,
+                                resident, stage_bytes, vec);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-bwd_merge_context(const float* __restrict__ part, float* __restrict__ chat,
-                  float* __restrict__ stats, int splits, float scale) {
-  merge_context_body<T>(part, chat, stats, splits, scale);
+__global__ void __launch_bounds__(tf32x3::NTHREADS)
+bwd_merge_context_tf32(const float* __restrict__ part,
+                       float* __restrict__ chat, float* __restrict__ stats,
+                       int splits, float scale) {
+  tf32x3::merge_context_tf32_body(part, chat, stats, splits, scale);
 }
 
 template <typename T, int R>
@@ -622,7 +626,8 @@ wgrad_partials_tc(const __nv_bfloat16* __restrict__ a,
 // whole tiles of `tile` rows), row splits of the two weight-gradient
 // products, and the fp32 and T scratch they need (counts of elements).
 struct Plan {
-  int splits, rows_per_split;          // passes 1, 3 and 5
+  int kv_splits, kv_rows;              // passes 1 and 2, as K1 splits them
+  int splits, rows_per_split;          // passes 3 and 5
   int ws_qkv, ws_out;                  // weight-gradient row splits
   long long wrows_qkv, wrows_out;      // rows per weight-gradient split
   size_t part, chat, stats, qpart, dctx, wq, wo, f_total;  // fp32 offsets
@@ -645,6 +650,9 @@ inline void split_rows(long long rows, long long step, long long target,
 inline Plan plan(int b, int n, int c, bool bf16) {
   Plan p;
   long long per;
+  split_rows(n, bf16 ? tc::TM : tf32x3::TM, cdiv(TARGET_BLOCKS, b),
+             &p.kv_splits, &per);
+  p.kv_rows = static_cast<int>(per);
   split_rows(n, bf16 ? tc::TM : ROWS, cdiv(TARGET_BLOCKS, b), &p.splits,
              &per);
   p.rows_per_split = static_cast<int>(per);
@@ -657,7 +665,7 @@ inline Plan plan(int b, int n, int c, bool bf16) {
   split_rows(rows, step, cdiv(TARGET_BLOCKS, cdiv(HID, tp) * cdiv(c, tq)),
              &p.ws_out, &p.wrows_out);
   size_t o = 0;
-  p.part = o;  o += static_cast<size_t>(b) * p.splits * PSTRIDE;
+  p.part = o;  o += static_cast<size_t>(b) * p.kv_splits * PSTRIDE;
   p.chat = o;  o += static_cast<size_t>(b) * CBLK;
   p.stats = o; o += static_cast<size_t>(b) * STATS;
   p.qpart = o; o += static_cast<size_t>(b) * p.splits * (CBLK + 2 * c);
@@ -702,23 +710,65 @@ inline cudaError_t reduce_all(const Plan& p, const float* fs, float* dwqkv,
                 stream);
 }
 
+// the card's shared-memory cap, and the caps granted so far, per device
+// and type (0: bf16, 1: fp32); guarded by limits_lock
+struct Cache {
+  int max_smem = 0;
+  size_t cap_a = 0, cap_q = 0, cap_kv = 0, cap_w = 0;
+};
+std::mutex limits_lock;
+
+cudaError_t card_cache(int type, Cache** out) {
+  static Cache caches[2][64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  Cache& k = caches[type][dev];
+  if (k.max_smem == 0) {
+    err = cudaDeviceGetAttribute(&k.max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *out = &k;
+  return cudaSuccess;
+}
+
+// Raise a kernel's shared-memory cap to bytes where `have` is lower.
+template <typename K>
+cudaError_t grant(K kernel, size_t bytes, size_t& have) {
+  if (bytes <= have) return cudaSuccess;
+  const cudaError_t e = prgpt::allow_smem(kernel, bytes);
+  if (e == cudaSuccess) have = bytes;
+  return e;
+}
+
 cudaError_t launch_f32(const float* x, const float* dy, const float* wqkv,
                        const float* wout, const float* bout, const float* g,
                        float* dxq, float* dxkv, float* dwqkv, float* dwout,
                        float* dbout, float* dg, float* fs, float* ts, int b,
                        int n, int c, float eps, cudaStream_t stream) {
   using T = float;
+  namespace t3 = tf32x3;
   const Plan p = plan(b, n, c, false);
   const float scale = rsqrtf(static_cast<float>(DH)) / static_cast<float>(n);
   const bool wide = c > WIDE_C;
   const int R = wide ? ROWS / 2 : ROWS;
 
-  const size_t smem_a = kv_partials_smem(c);
+  std::lock_guard<std::mutex> guard(limits_lock);
+  Cache* k = nullptr;
+  cudaError_t err = card_cache(1, &k);
+  if (err != cudaSuccess) return err;
+  // kernel A exactly as K1 launches it (linear_attention.cu)
+  const int res_a = t3::kv_smem(c, true) <= static_cast<size_t>(k->max_smem);
+  const size_t smem_a = t3::kv_smem(c, res_a);
+  const int vec = c % 4 == 0 && (reinterpret_cast<uintptr_t>(x) |
+                                 reinterpret_cast<uintptr_t>(wqkv)) % 16 == 0;
   const size_t smem_q =
       sizeof(float) * (2 * R * c + 3 * R * HID + CBLK + 4 * R);
   const size_t smem_kv =
       sizeof(float) * (ROWS * c + 5 * ROWS * HID + CBLK + 2 * HID);
-  cudaError_t err = prgpt::allow_smem(bwd_kv_partials<T>, smem_a);
+  err = grant(bwd_kv_partials_tf32, smem_a, k->cap_a);
   if (err != cudaSuccess) return err;
   err = wide ? prgpt::allow_smem(q_path_bwd<T, ROWS / 2>, smem_q)
              : prgpt::allow_smem(q_path_bwd<T, ROWS>, smem_q);
@@ -726,11 +776,14 @@ cudaError_t launch_f32(const float* x, const float* dy, const float* wqkv,
   err = prgpt::allow_smem(kv_path_bwd<T>, smem_kv);
   if (err != cudaSuccess) return err;
 
-  bwd_kv_partials<T><<<dim3(p.splits, b), THREADS, smem_a, stream>>>(
-      x, wqkv, fs + p.part, n, c, p.rows_per_split, p.splits);
+  bwd_kv_partials_tf32<<<dim3(p.kv_splits, b), t3::NTHREADS, smem_a,
+                         stream>>>(
+      x, wqkv, fs + p.part, n, c, p.kv_rows, p.kv_splits, res_a,
+      res_a ? t3::X_BYTES : t3::X_BYTES + t3::WKV_BYTES, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_merge_context<T><<<b, THREADS, 0, stream>>>(
-      fs + p.part, fs + p.chat, fs + p.stats, p.splits, scale);
+  bwd_merge_context_tf32<<<dim3(CBLK / t3::NTHREADS, b), t3::NTHREADS, 0,
+                           stream>>>(fs + p.part, fs + p.chat, fs + p.stats,
+                                     p.kv_splits, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (wide)
     q_path_bwd<T, ROWS / 2><<<dim3(p.splits, b), THREADS, smem_q, stream>>>(
@@ -780,24 +833,11 @@ cudaError_t launch_tc(const void* x_, const void* dy_, const void* wqkv_,
   const Plan p = plan(b, n, c, true);
   const float scale = rsqrtf(static_cast<float>(DH)) / static_cast<float>(n);
 
-  // the card's shared-memory cap, and the caps granted so far, per device
-  struct Cache {
-    int max_smem = 0;
-    size_t cap_a = 0, cap_q = 0, cap_kv = 0, cap_w = 0;
-  };
-  static Cache caches[64];
-  static std::mutex lock;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> guard(limits_lock);
+  Cache* kp = nullptr;
+  cudaError_t err = card_cache(0, &kp);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> guard(lock);
-  Cache& k = caches[dev];
-  if (k.max_smem == 0) {
-    err = cudaDeviceGetAttribute(&k.max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-  }
+  Cache& k = *kp;
   const size_t cap = static_cast<size_t>(k.max_smem);
   const int res_a = tc::kv_smem(c, true) <= cap;
   // the q path's row buffer in shared memory where it fits (c <= 1024),
@@ -810,25 +850,20 @@ cudaError_t launch_tc(const void* x_, const void* dy_, const void* wqkv_,
   const size_t smem_kv = tc::kv_path_smem(c, res_kv);
   if (smem_a > cap || smem_q > cap || smem_kv > cap || tc::WG_SMEM > cap)
     return cudaErrorInvalidValue;
-  auto grant = [&](auto kernel, size_t bytes, size_t& have) {
-    if (bytes <= have) return cudaSuccess;
-    const cudaError_t e = prgpt::allow_smem(kernel, bytes);
-    if (e == cudaSuccess) have = bytes;
-    return e;
-  };
   if ((err = grant(bwd_kv_partials_tc, smem_a, k.cap_a)) != cudaSuccess ||
       (err = grant(q_path_bwd_tc, smem_q, k.cap_q)) != cudaSuccess ||
       (err = grant(kv_path_bwd_tc, smem_kv, k.cap_kv)) != cudaSuccess ||
       (err = grant(wgrad_partials_tc, tc::WG_SMEM, k.cap_w)) != cudaSuccess)
     return err;
 
-  bwd_kv_partials_tc<<<dim3(p.splits, b), tc::NTHREADS, smem_a, stream>>>(
-      x, wqkv, fs + p.part, n, c, p.rows_per_split, p.splits, res_a,
+  bwd_kv_partials_tc<<<dim3(p.kv_splits, b), tc::NTHREADS, smem_a,
+                       stream>>>(
+      x, wqkv, fs + p.part, n, c, p.kv_rows, p.kv_splits, res_a,
       res_a ? tc::X_BYTES : tc::X_BYTES + tc::WKV_BYTES);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   bwd_merge_context_tc<<<dim3(CBLK / tc::NTHREADS, b), tc::NTHREADS, 0,
                          stream>>>(fs + p.part, fs + p.chat, fs + p.stats,
-                                   p.splits, scale);
+                                   p.kv_splits, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   q_path_bwd_tc<<<dim3(p.splits, b), tc::NTHREADS, smem_q, stream>>>(
       x, dy, wqkv, wout, bout, g, fs + p.chat, static_cast<bf16*>(dxq_),

@@ -21,14 +21,15 @@
 //
 // Design: the TPU kernel walks n sequentially per batch row, phase 0 over
 // k and v with (m, s, C) in VMEM, phase 1 over q. Blocks here carry
-// nothing, so one call is K1's three launches with k and v loaded instead
-// of projected (A and B are K1's own code, linear_attention_kv.cuh):
+// nothing, so one call is three launches, K1's structure with k and v
+// loaded instead of projected (the CUDA-core bodies of
+// linear_attention_kv.cuh; B is also kernel B of K1's fp32 path):
 //   A  core_kv_partials   grid (splits, b): per-split (m, s, C) partials,
 //                         the four 32x32 head blocks of C only (the TPU
 //                         kernel computes all of 128x128 and masks it).
 //   B  core_merge_context grid (b): C^, rounded to T.
 //   C  core_emit          grid (row groups, b): per 16-row tile, q's
-//                         per-head softmax and q C^ (K1's code); C^ is read
+//                         per-head softmax and q C^; C^ is read
 //                         once per block of TILES tiles.
 // Products are fp32 FMAs on the CUDA cores; the bytes, not the products,
 // bound this function.

@@ -1,10 +1,9 @@
-// The k/v side of the LinearAttention core, shared by K1
-// (linear_attention.cu, the forward), K3 (linear_attention_bwd.cu, its
-// backward, which recomputes these statistics exactly as the forward made
-// them) and K4 (linear_attention_core.cu, the core alone on packed qkv):
+// The k/v side of the LinearAttention core in CUDA-core fp32 FMAs, the
+// bodies of K4 (linear_attention_core.cu, the core alone on packed qkv),
+// and the constants K1 and K3 share with it (their bodies are on the
+// tensor cores: linear_attention_tc.cuh, linear_attention_tf32.cuh):
 //
-//   k, v = x W_qkv[:, 128:256], x W_qkv[:, 256:384]   (rounded to T; K1, K3)
-//   k, v = qkv[:, 128:256], qkv[:, 256:384]           (K4)
+//   k, v = qkv[:, 128:256], qkv[:, 256:384]
 //   m    = max_n k                   (per lane, online)
 //   s    = sum_n exp(k - m)
 //   C    = sum_n round_T(exp(k - m))^T v   (the four 32x32 head blocks)
@@ -13,11 +12,10 @@
 // Blocks run in parallel and carry nothing, so the statistics come in two
 // launches: kv_partials_body over (split, batch) writes per-split (m, s, C)
 // partials; merge_context_body over batch merges them with max-rescaling.
-// kv_partials_body takes its rows of k and v from a row loader:
-// ProjectKV (K1, K3) or LoadKV (K4). q_context_body is the q side the
-// forwards share: per-head softmax of q, then q C^. Each kernel file wraps
-// these bodies in __global__ kernels of its own names, so a profile tells
-// the kernels' launches apart.
+// kv_partials_body takes its rows of k and v from a row loader (LoadKV).
+// q_context_body is K4's q side: per-head softmax of q, then q C^. Each
+// kernel file wraps these bodies in __global__ kernels of its own names,
+// so a profile tells the kernels' launches apart.
 
 #pragma once
 
@@ -39,46 +37,15 @@ constexpr int THREADS = 256;
 constexpr int ROWS = 16;              // rows per tile
 
 // Dynamic shared memory of kv_partials_body whose loader stages c
-// channels of x per row (c = 0: LoadKV stages nothing).
+// channels per row (c = 0: LoadKV stages nothing).
 inline size_t kv_partials_smem(int c) {
   return sizeof(float) * (ROWS * c + ROWS * 3 * HID + 2 * HID);
 }
 
-// Row loaders of kv_partials_body: called by all THREADS threads, each
-// fills kv[r * 2 * HID + j] (r < rows, j < 2 * HID: k, then v) for rows
-// r0 .. r0 + rows of batch row bi, rounded to T; xs is its ROWS * c floats
-// of staging.
-template <typename T>
-struct ProjectKV {  // k and v projected from x (b, n, c): K1, K3
-  const T* x;
-  const T* wqkv;
-  int c;
-
-  __device__ __forceinline__ void operator()(float* xs, float* kv, int bi,
-                                             int n, int r0,
-                                             int rows) const {
-    const int tid = threadIdx.x;
-    const T* xb = x + static_cast<size_t>(bi) * n * c;
-    for (int i = tid; i < rows * c; i += THREADS)
-      xs[i] = to_f(xb[static_cast<size_t>(r0) * c + i]);
-    __syncthreads();
-
-    // kv column tid (k for tid < 128, v above), all rows of the tile
-    float a[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) a[r] = 0.f;
-    const T* wcol = wqkv + HID + tid;
-    for (int ci = 0; ci < c; ++ci) {
-      const float w = to_f(wcol[static_cast<size_t>(ci) * QKV]);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) a[r] = fmaf(xs[r * c + ci], w, a[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      if (r < rows) kv[r * 2 * HID + tid] = rnd<T>(a[r]);
-  }
-};
-
+// Row loader of kv_partials_body: called by all THREADS threads, fills
+// kv[r * 2 * HID + j] (r < rows, j < 2 * HID: k, then v) for rows
+// r0 .. r0 + rows of batch row bi; the first argument is the loader's
+// staging, none here.
 template <typename T>
 struct LoadKV {  // k and v read from packed qkv (b, n, 3 * HID): K4
   const T* qkv;
@@ -210,7 +177,7 @@ __device__ __forceinline__ void merge_context_body(
   }
 }
 
-// The q side of the forwards (K1, K4) for one tile of rows: qs holds q
+// The q side of K4's forward for one tile of rows: qs holds q
 // (rows x HID, rounded to T) and becomes its per-head softmax (rounded to
 // T); core = qs C^ on the head blocks (rounded to T), ch holding C^
 // (CBLK). Called by all THREADS threads; returns after a barrier.

@@ -6,7 +6,8 @@
 // thread per entry of C^ instead of one block per batch row (that body's
 // split loop was a quarter of the bf16 forward's time at 64 splits). K3's
 // bf16 backward runs A and B too (linear_attention_bwd.cu); the fp32
-// paths and K4 keep the CUDA-core bodies of linear_attention_kv.cuh.
+// paths have bodies of their own (linear_attention_tf32.cuh), and K4
+// keeps the CUDA-core bodies of linear_attention_kv.cuh.
 //
 // - Tiles. TM (64) rows, 8 warps. x is staged by cp.async in chunks of
 //   KCH (64) channels, 128-byte rows; channels past c are zero-filled (c

@@ -4,13 +4,16 @@ and the core alone on packed qkv, each with its plain PyTorch version.
 ``fused_linear_attention`` is a ``torch.autograd.Function`` (the port of
 the JAX ``custom_vjp``). Its forward runs the hand-written CUDA kernel K1
 (``csrc/linear_attention.cu``, which replaces
-``pointreggpt_tpu/ops/linear_attention.py::_pallas_fused``; bf16 on the
-tensor cores, ``csrc/linear_attention_tc.cuh``) for a CUDA tensor and ``fused_linear_attention_plain`` for a CPU tensor. It saves only
+``pointreggpt_tpu/ops/linear_attention.py::_pallas_fused``; on the tensor
+cores, bf16 in ``csrc/linear_attention_tc.cuh`` and fp32 in three TF32
+passes in ``csrc/linear_attention_tf32.cuh``) for a CUDA tensor and
+``fused_linear_attention_plain`` for a CPU tensor. It saves only
 ``(x, w_qkv, w_out, b_out, g_out)``, the JAX residuals. Its backward runs
 K3 (``csrc/linear_attention_bwd.cu``, which replaces ``_pallas_fused_bwd``)
 through ``fused_linear_attention_bwd`` for a CUDA tensor and
 ``fused_linear_attention_bwd_plain`` for a CPU tensor; its bf16 path runs
-on the tensor cores (``csrc/linear_attention_bwd_tc.cuh``).
+on the tensor cores (``csrc/linear_attention_bwd_tc.cuh``), its fp32 path
+recomputes the statistics with K1's fp32 kernels.
 
 Shapes past a kernel's limit are routed, as the JAX dispatch
 (``_dispatch_fused``, ``_fused_bwd``) sends them to XLA: :func:`_k1_takes`
@@ -54,8 +57,9 @@ MAX_C = 2048  # the widest c K1 and K3 take, the TPU kernels' own limit
 def _k1_takes(dtype: torch.dtype, c: int) -> bool:
     """Whether K1 takes a (b, n, c) CUDA tensor of ``dtype`` (bf16 or
     fp32): c <= 2048, and c % 8 == 0 in bf16 (its tensor-core body stages
-    16-byte chunks). Else the plain version runs, as the JAX
-    ``_dispatch_fused`` runs ``_xla_fused``."""
+    16-byte chunks; the fp32 body stages 4-byte ones where c % 4 != 0).
+    Else the plain version runs, as the JAX ``_dispatch_fused`` runs
+    ``_xla_fused``."""
     return 1 <= c <= MAX_C and (dtype != torch.bfloat16 or c % 8 == 0)
 
 

@@ -27,8 +27,11 @@ K1_SHAPES = [(65536, 64), (16384, 64), (4096, 128), (1024, 256),
 # LayerNorm output is O(1) (inside (-2, 2) on K1.check_inputs): bf16 keeps
 # 8 mantissa bits, and a few values round one or two bf16 steps (2^-7
 # each) apart where the kernel's fp32 sums run in another order -> 3e-2
-# absolute. fp32 differs only by summation order.
-K1_TOL = [(torch.bfloat16, 3e-2, 1e-3), (torch.float32, 1e-3, 1e-5)]
+# absolute. fp32: the three-pass TF32 products keep about 22 bits, a few
+# 1e-6 on these inputs (tests/test_torch_port_tf32x3.py emulates them),
+# where a single TF32 pass, or one of the two small passes dropped, is
+# about 1e-3 off -> 1e-4 absolute.
+K1_TOL = [(torch.bfloat16, 3e-2, 1e-3), (torch.float32, 1e-4, 1e-5)]
 
 
 @pytest.fixture(scope="module")
@@ -61,8 +64,20 @@ def test_linear_attention_kernel_matches_plain(cuda, dtype, atol, eps, n, c):
     assert err <= atol, err
 
 
-# Faults planted in a copy of csrc/linear_attention.cu: (text, replacement).
-# The check above must fail for each of them at the production shapes.
+# Faults planted in copies of csrc/linear_attention.cu and its headers:
+# (text, replacement). The check above must fail for each of them at the
+# production shapes.
+#
+# The three-pass split in common.cuh, shared by K1's and K2's fp32 bodies:
+# one of the two small passes dropped, and both (a single TF32 pass).
+_SMALL_PASSES = ("  mma1688_tf32(c, a_lo, b_hi[0], b_hi[1]);\n"
+                 "  mma1688_tf32(c, a_hi, b_lo[0], b_lo[1]);\n")
+TF32_FAULTS = {
+    "small_pass_dropped": (_SMALL_PASSES, _SMALL_PASSES.splitlines(True)[1]),
+    "single_pass": (_SMALL_PASSES, ""),
+}
+# K4's q softmax (linear_attention_kv.cuh), and that softmax taken over all
+# 128 lanes instead of each head's 32
 _SOFTMAX = """\
   for (int task = warp; task < rows * NH; task += THREADS / 32) {
     float* qv = qs + (task / NH) * HID + (task % NH) * DH;
@@ -81,18 +96,30 @@ _SOFTMAX_ACROSS_HEADS = """\
     for (int h = 0; h < NH; ++h)
       qv[h * DH + lane] = rnd<T>(expf(qv[h * DH + lane] - m) / s);
   }"""
-# fp32: the CUDA-core bodies (linear_attention.cu, linear_attention_kv.cuh)
+# fp32: the three-pass TF32 bodies (linear_attention_tf32.cuh) and the
+# split: a kv split's partial dropped (merged as empty), C's rescale by
+# alpha dropped, C^ zeroed where it is staged, q's softmax taken over the
+# warp's two heads, the bias dropped, x's chunks written unswizzled while
+# ldmatrix reads them swizzled, C^'s rows read in their own order instead
+# of the softmax fragments' permuted one, and TF32_FAULTS
 K1_FAULTS = {
-    "context_zeroed": ("rnd<T>(acc * scale * inv_s[d])", "rnd<T>(0.f * acc)"),
-    "kv_split_dropped": ("for (int i = 0; i < splits; ++i)",
-                         "for (int i = 1; i < splits; ++i)"),
-    "kv_rescale_dropped": ("acc[j] *= al;", "acc[j] *= 1.f;"),
-    "q_softmax_unnormalised": ("rnd<T>(e / prgpt::warp_sum(e))",
-                               "rnd<T>(e)"),
-    # the head mask lost from q's softmax: normalised over all 128 lanes
-    "q_softmax_across_heads": (_SOFTMAX, _SOFTMAX_ACROSS_HEADS),
-    "bias_dropped": ("const float bj = rnd<T>(bout[j]);",
-                     "const float bj = 0.f;"),
+    "kv_split_dropped": ("pf[tid] = m_s[tid];",
+                         "pf[tid] = split == 0 ? -INFINITY : m_s[tid];"),
+    "kv_rescale_dropped": (
+        "cacc[j][e] = fmaf(cacc[j][e], e < 2 ? al0 : al1, tcc[j][e]);",
+        "cacc[j][e] = cacc[j][e] + tcc[j][e];"),
+    "context_zeroed": ("= chb[idx];", "= 0.f * chb[idx];"),
+    "q_softmax_across_heads": ("const int jb0 = 4 * hh, jb1 = jb0 + 4;",
+                               "const int jb0 = 0, jb1 = 8;"),
+    "bias_dropped": (
+        "const float b0 = bout[col], b1 = two ? bout[col + 1] : 0.f;",
+        "const float b0 = 0.f, b1 = 0.f;"),
+    "swizzle_mismatch": ("cp16(dst + swz(r, j, KCH * 4),",
+                         "cp16(dst + r * KCH * 4 + (j << 4),"),
+    "context_rows_unpermuted": (
+        "const int d0 = kd * 8 + 2 * t4, d1 = d0 + 1;",
+        "const int d0 = kd * 8 + t4, d1 = d0 + 4;"),
+    **TF32_FAULTS,
 }
 
 
@@ -181,6 +208,9 @@ def test_linear_attention_check_sees_planted_fault(cuda, k1_mutants,
 
 
 K2_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# the bounds of chip_smoke.py's K2 check, which each planted fault must
+# exceed (fp32: a single TF32 pass is about 1.5e-3 off on K2.check_inputs)
+K2_GATE = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 
 def _k2_err(device, dtype, b, n, kind="check", cache=None):
@@ -216,9 +246,9 @@ def test_attention_kernel_matches_plain(cuda, dtype, b, n, kind):
     assert err <= K2_TOL[dtype], err
 
 
-# Faults planted in a copy of csrc/attention.cu, all in the bf16
-# tensor-core kernel; its check must fail on each at the production
-# shapes.
+# Faults planted in a copy of csrc/attention.cu; the kernel's check must
+# fail on each at the production shapes. bf16: the tensor-core kernel
+# flash_fwd_tc.
 K2_FAULTS = {
     "online_rescale_dropped": ("al[r] = exp2f(m[r] - mx[r]);",
                                "al[r] = 1.f;"),
@@ -233,10 +263,33 @@ K2_FAULTS = {
 }
 
 
+# fp32: the three-pass TF32 kernel flash_fwd_tf32x3: the online rescale
+# dropped, V's rows read in their own order instead of P's permuted one,
+# the scale applied to q twice, the staged chunks written unswizzled while
+# ldmatrix reads them swizzled, and TF32_FAULTS
+K2_F32_FAULTS = {
+    "online_rescale_dropped": ("alpha[r] = exp2f(m[r] - mx[r]);",
+                               "alpha[r] = 1.f;"),
+    "v_rows_unpermuted": ("const int k0 = jb * 8 + 2 * t4, k1 = k0 + 1;",
+                          "const int k0 = jb * 8 + t4, k1 = k0 + 4;"),
+    "scale_applied_twice": ("__uint_as_float(qh[kk][e]) * scale)",
+                            "__uint_as_float(qh[kk][e]) * scale * scale)"),
+    "swizzle_mismatch": ("cp16(dst + swz128(r, j),",
+                         "cp16(dst + r * F_ROW + (j << 4),"),
+    **TF32_FAULTS,
+}
+K2_DTYPE_FAULTS = {torch.bfloat16: K2_FAULTS, torch.float32: K2_F32_FAULTS}
+
+
 @pytest.fixture(scope="module")
 def k2_mutants(cuda, tmp_path_factory):
-    return build_mutants(tmp_path_factory.mktemp("k2_mutants"), "attention",
-                         K2_FAULTS, K2.bind)
+    root = tmp_path_factory.mktemp("k2_mutants")
+    mutants = {}
+    for dtype, faults in K2_DTYPE_FAULTS.items():
+        d = root / str(dtype).split(".")[-1]
+        d.mkdir()
+        mutants[dtype] = build_mutants(d, "attention", faults, K2.bind)
+    return mutants
 
 
 @pytest.fixture(scope="module")
@@ -244,14 +297,16 @@ def k2_refs():
     return {}
 
 
-@pytest.mark.parametrize("fault", sorted(K2_FAULTS))
+@pytest.mark.parametrize("dtype,fault", [
+    (dtype, fault) for dtype in sorted(K2_DTYPE_FAULTS, key=str)
+    for fault in sorted(K2_DTYPE_FAULTS[dtype])])
 def test_attention_check_sees_planted_fault(cuda, k2_mutants, k2_refs,
-                                            monkeypatch, fault):
-    monkeypatch.setattr(K2, "_lib", lambda: k2_mutants[fault])
-    errs = {b: _k2_err(cuda, torch.bfloat16, b, 1024, cache=k2_refs)
+                                            monkeypatch, dtype, fault):
+    monkeypatch.setattr(K2, "_lib", lambda: k2_mutants[dtype][fault])
+    errs = {b: _k2_err(cuda, dtype, b, 1024, cache=k2_refs)
             for b in (8, 32)}
-    print(fault, errs)
-    assert _check_fails(errs, K2_TOL[torch.bfloat16]), errs
+    print(fault, dtype, errs)
+    assert _check_fails(errs, K2_GATE[dtype]), errs
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -280,6 +335,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                     device=cuda)[1:].view(1, 16, 4, 32)
     with pytest.raises(ValueError):
         K2.multihead_attention(q, q, q, scale=0.25)
+    # the fp32 kernel stages 16-byte chunks too: rows 4 bytes off raise
+    qf = torch.zeros(1 + 16 * 4 * 32, device=cuda)[1:].view(1, 16, 4, 32)
+    with pytest.raises(ValueError):
+        K2.multihead_attention(qf, qf, qf, scale=0.25)
 
 
 # K3 against its plain version: max |got - ref| / max |ref| per output, on
@@ -474,6 +533,33 @@ def test_dim256_training_step_runs_k1_and_k3_at_c2048(cuda):
         assert prm.grad is not None and torch.isfinite(prm.grad).all(), name
 
 
+@pytest.mark.parametrize("n,c,shift", [(256, 36, 0), (300, 34, 0),
+                                       (300, 36, 1)])
+def test_fp32_block_launches_at_any_c(cuda, n, c, shift):
+    """fp32 K1 and K3 take every c <= 2048: at c = 36, at a ragged c = 34
+    (4-byte staging) and on an x 4 bytes past a 16-byte boundary (shift)
+    both launch, none is routed, and both hold their plain versions'
+    bounds (K3 through K1's fp32 kernel A)."""
+    x, dy, *w = K1.check_inputs_bwd(2, n, c, torch.float32, cuda)
+    if shift:
+        x = torch.empty(x.numel() + shift, device=cuda)[shift:].view_as(
+            x).copy_(x)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    ops = (K1.fused_linear_attention, K1.fused_linear_attention_bwd)
+    before = [(op.launches, op.plain_routes) for op in ops]
+    out = K1.fused_linear_attention(x, *w, eps=1e-5)
+    got = K1.fused_linear_attention_bwd(x, dy, *w, eps=1e-5)
+    torch.cuda.synchronize()
+    assert [(op.launches - a, op.plain_routes - r)
+            for op, (a, r) in zip(ops, before)] == [(1, 0), (1, 0)]
+    ref = K1.fused_linear_attention_plain(x, *w, eps=1e-5)
+    assert (out - ref).abs().max().item() <= next(
+        atol for dtype, atol, _ in K1_TOL if dtype == torch.float32)
+    want = K1.fused_linear_attention_bwd_plain(x, dy, *w, eps=1e-5)
+    assert _worst([_rel(a, r) for a, r in zip(got, want)]) <= \
+        K3_TOL[torch.float32][0]
+
+
 def test_bf16_c36_block_runs_the_plain_version_by_routing(cuda):
     """bf16 at c = 36 (c % 8 != 0): the tensor-core kernels do not take
     it, so forward and backward run the plain versions on the card, each
@@ -539,12 +625,15 @@ def test_linear_attention_core_backward_on_the_card(cuda):
 
 
 # Faults planted in a copy of csrc/linear_attention_core.cu or the shared
-# header; the K4 check must fail on each at the production shapes.
+# header (linear_attention_kv.cuh, K4's CUDA-core bodies); the K4 check
+# must fail on each at the production shapes.
 K4_FAULTS = {
-    "context_zeroed": K1_FAULTS["context_zeroed"],
-    "kv_split_dropped": K1_FAULTS["kv_split_dropped"],
-    "kv_rescale_dropped": K1_FAULTS["kv_rescale_dropped"],
-    "q_softmax_across_heads": K1_FAULTS["q_softmax_across_heads"],
+    "context_zeroed": ("rnd<T>(acc * scale * inv_s[d])", "rnd<T>(0.f * acc)"),
+    "kv_split_dropped": ("for (int i = 0; i < splits; ++i)",
+                         "for (int i = 1; i < splits; ++i)"),
+    "kv_rescale_dropped": ("acc[j] *= al;", "acc[j] *= 1.f;"),
+    # the head mask lost from q's softmax: normalised over all 128 lanes
+    "q_softmax_across_heads": (_SOFTMAX, _SOFTMAX_ACROSS_HEADS),
 }
 
 
