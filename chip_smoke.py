@@ -43,9 +43,9 @@ Phases, each printing one JSON line:
    of their plain versions at every shape, each shape's TFLOP/s and share
    of its bound beside cuDNN's, ``conv3x3``'s gradients against autograd
    of ``conv3x3_plain`` (fp32 at a small shape, 1e-4; bf16 at (16, 256,
-   256, 128 -> 64), 3e-2); then K5's fp32 path (the direct CUDA-core
-   kernel) at (8, 256, 256, 64 -> 64) against its plain version (1e-5)
-   and fp32 cuDNN;
+   256, 128 -> 64), 3e-2); then K5's fp32 path (three TF32 passes on
+   the tensor cores) at the same four shapes against its plain version
+   (1e-5 relative) and fp32 cuDNN (TF32 off);
 8. ``net_parity``: a small whole-U-Net forward on the card against the
    same net on the CPU (fp32, plain path);
 9. ``forward_profile``: one production DiffusionUNet forward (bf16,
@@ -55,7 +55,14 @@ Phases, each printing one JSON line:
    64^2 on the card against the CPU, per parameter; ``wide_net``: the same
    for a dim-256 net (LinearAttention up to c = 2048, where K1 and K3 must
    launch with no plain route), K1 against its plain version at (8, 1024,
-   2048) in both types, and one bf16 forward + backward of that net;
+   2048) in both types (with its time and bound), and one bf16 forward +
+   backward of that net;
+   ``mask_fwd_bwd``: one fp32 MaskUNet forward + backward of the
+   MaskTrainer's loss at its microbatch (4 x 256^2), the path that runs
+   K1, K2 and K3 in fp32: launches (none routed to a plain version), the
+   step's time (median, least and most of 10 steps after a warm-up that
+   ends when the steps settle), the device time by kernel category of one
+   more step, timed alike, and the gradients card vs CPU (at one image);
 11. ``train_step``: one production optimizer step (microbatch 32 x
    accumulation 2, 256^2, bf16): seconds, img/s, peak memory, launches
    (16 K1, 16 K3, 2 K2), and the device time of one microbatch forward +
@@ -563,7 +570,7 @@ def phase_conv_tools(torch, dev):
         r["library_tflops"] = wk["flops"] / r["library_ms"] / 1e9
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         r["library_share_of_bound"] = r["bound_ms"] / r["library_ms"]
-    fp32 = conv_fp32_direct(torch, KC, dev)
+    fp32 = conv_fp32(torch, KC, dev)
     emit("conv_tools", card=card_line(), rtol=CONV_RTOL,
          grad_rel_err=grad_errs, grad_rtol=CONV_GRAD_RTOL,
          k5_launches=k5_launches, k6_launches=k6_launches, k5=k5_rows,
@@ -573,41 +580,57 @@ def phase_conv_tools(torch, dev):
             conv_summary(k6_rows, KC, k6_launches))
 
 
-CONV_FP32_SHAPE = (8, 256, 256, 64, 64)
-CONV_FP32_RTOL = 1e-5  # the direct kernel's fp32 sums in another order
+CONV_FP32_RTOL = 1e-5  # three TF32 passes keep about 21 bits a product
 
 
-def conv_fp32_direct(torch, KC, dev) -> dict:
-    """K5's fp32 path (the direct CUDA-core kernel) at one tool shape,
-    apart from the bf16 path: error against ``conv3x3_plain``, time, bound
-    (three TF32 passes, and at the CUDA cores' rate) and fp32 cuDNN (TF32
-    off)."""
-    from pointreggpt_tpu_torch.tools import errors
+def conv_fp32(torch, KC, dev) -> dict:
+    """K5's fp32 path (three TF32 passes on the tensor cores,
+    ``conv3_tf32.cuh``) at the four tool shapes, apart from the bf16 path:
+    error against ``conv3x3_plain``, time, bound (three TF32 passes, and
+    at the CUDA cores' rate) and fp32 cuDNN (TF32 off), per shape and
+    summed."""
+    from pointreggpt_tpu_torch.tools import errors, profile_conv
 
-    x, w = KC.check_inputs_conv(*CONV_FP32_SHAPE, torch.float32, dev)
-    with torch.no_grad():
-        e = errors(KC.conv3x3(x, w), KC.conv3x3_plain(x, w))
-        if not e["rel_err"] <= CONV_FP32_RTOL:
-            raise AssertionError(f"K5 fp32 at {CONV_FP32_SHAPE}: "
-                                 f"{e['rel_err']} > {CONV_FP32_RTOL}")
-        ms = time_ms(lambda: KC.conv3x3(x, w), 5, 1)
-        plain_ms = time_ms(lambda: KC.conv3x3_plain(x, w), 2, 1)
-        library_ms = time_ms(lambda: KC.conv_library(x, w), 10)
-    wk = KC.work_conv(*CONV_FP32_SHAPE, 4)
-    b_ms, b_by = bound(wk, PEAK["float32"])
-    del x, w
-    return dict(shape=list(CONV_FP32_SHAPE), rel_err=e["rel_err"],
-                max_abs_err=e["max_abs_err"], rtol=CONV_FP32_RTOL, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by, **cuda_core_bound(wk, "float32"),
-                vs_library=ms / library_ms,
-                tflops=wk["flops"] / ms / 1e9)
+    rows = []
+    for shape in profile_conv.SHAPES:
+        x, w = KC.check_inputs_conv(*shape, torch.float32, dev)
+        with torch.no_grad():
+            e = errors(KC.conv3x3(x, w), KC.conv3x3_plain(x, w))
+            if not e["rel_err"] <= CONV_FP32_RTOL:
+                raise AssertionError(f"K5 fp32 at {shape}: {e['rel_err']} "
+                                     f"> {CONV_FP32_RTOL}")
+            ms = time_ms(lambda: KC.conv3x3(x, w), 5, 1)
+            plain_ms = time_ms(lambda: KC.conv3x3_plain(x, w), 2, 1)
+            library_ms = time_ms(lambda: KC.conv_library(x, w), 10)
+        wk = KC.work_conv(*shape, 4)
+        b_ms, b_by = bound(wk, PEAK["float32"])
+        rows.append(dict(shape=list(shape), rel_err=e["rel_err"],
+                         max_abs_err=e["max_abs_err"], ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         **cuda_core_bound(wk, "float32"),
+                         vs_library=ms / library_ms,
+                         tflops=wk["flops"] / ms / 1e9,
+                         share_of_bound=b_ms / ms))
+        del x, w
+        torch.cuda.empty_cache()
+    works = [KC.work_conv(*r["shape"], 4) for r in rows]
+    b_ms, b_by = summed_bound(works, PEAK["float32"])
+    ms = sum(r["ms"] for r in rows)
+    library_ms = sum(r["library_ms"] for r in rows)
+    return dict(shapes=rows, rtol=CONV_FP32_RTOL,
+                max_rel_err=max(r["rel_err"] for r in rows),
+                max_abs_err=max(r["max_abs_err"] for r in rows), ms=ms,
+                plain_ms=sum(r["plain_ms"] for r in rows), bound_ms=b_ms,
+                bound_by=b_by, **cuda_core_bound(summed(works), "float32"),
+                library_ms=library_ms, vs_library=ms / library_ms)
 
 
-def let_cores_count(torch, net, x, t, pc) -> None:
+def let_cores_count(torch, net, *inputs) -> None:
     """Let each LinearAttention's core, not its to_out bias, carry the
     block's output, as K1.check_inputs does: zero the bias and scale the
-    weight by n^1.5 / 2 for the block's n pixels at this input size."""
+    weight by n^1.5 / 2 for the block's n pixels at the size of
+    ``inputs`` (what ``net`` takes)."""
     from pointreggpt_tpu_torch.models.blocks import LinearAttention
 
     pixels = {}
@@ -618,7 +641,7 @@ def let_cores_count(torch, net, x, t, pc) -> None:
     hooks = [m.register_forward_pre_hook(count_pixels)
              for m in net.modules() if isinstance(m, LinearAttention)]
     with torch.inference_mode():
-        net(x, t, pc)
+        net(*inputs)
     for h in hooks:
         h.remove()
     with torch.no_grad():
@@ -681,9 +704,25 @@ def device_time(torch, prof) -> dict:
                     if any(k in ev.name for k in keys)), "other")
         cats[cat] = cats.get(cat, 0.0) + us
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    return dict(device_ms=total / 1e3, kernels_launched=n,
+    return dict(device_ms=total / 1e3, busy_ms=busy_ms(torch, prof),
+                kernels_launched=n,
                 by_category_ms={k: v / 1e3 for k, v in sorted(cats.items())},
                 top_kernels_ms=[[k[:90], v / 1e3] for k, v in top])
+
+
+def busy_ms(torch, prof) -> float:
+    """The time in a profiled window when at least one device activity ran
+    (the union of their intervals): unlike their sum it cannot exceed the
+    window, where activities overlap."""
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
 
 
 def phase_forward_profile(torch, dev):
@@ -721,6 +760,116 @@ def phase_forward_profile(torch, dev):
          mask_forward_fp32=device_time(torch, mask_prof),
          **device_time(torch, prof))
     del net, mask, x
+    torch.cuda.empty_cache()
+
+
+MASK_BATCH = 4  # the MaskTrainer's microbatch (its config's batch size)
+MASK_PARITY_BATCH = 1  # card vs CPU: one image of it, for the CPU's time
+MASK_STEPS = 10  # timed steps, after the warm-up
+MASK_SETTLE = 0.05  # warm-up ends when three steps lie within 5%
+MASK_WARMUP_MAX = 12
+
+
+def mask_loss(torch, prob, target):
+    """The MaskTrainer's loss: binary cross entropy on the keep
+    probabilities, each log term floored at -100."""
+    tiny = torch.finfo(torch.float32).tiny
+    log_p = torch.log(prob.clamp_min(tiny)).clamp_min(-100.0)
+    log_q = torch.log((1 - prob).clamp_min(tiny)).clamp_min(-100.0)
+    return -(target * log_p + (1 - target) * log_q).mean()
+
+
+def phase_mask_fwd_bwd(torch, K1, K2, dev):
+    """One fp32 MaskUNet (``MaskModelConfig``: dim 64, (1, 2, 4, 8), 8
+    groups) forward and backward of the MaskTrainer's loss at its
+    microbatch, 4 x 256^2: K1, K2 and K3 launch in fp32 (counted; none
+    routed to a plain version); the step's time by CUDA events once it has
+    settled, and the device time by kernel category (summed and busy) of
+    one more step, timed alike; the loss gradients card against CPU
+    (fp32, ``GRAD_RTOL``) at ``MASK_PARITY_BATCH`` images, with each
+    LinearAttention's core carrying its output."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.models.blocks import LinearAttention
+
+    def inputs(batch, seed):
+        rng = np.random.default_rng(seed)
+        depth = rng.uniform(0.2, 1.0, (batch, 1, 256, 256))
+        depth[rng.uniform(size=depth.shape) < 0.05] = 0.0  # invalid pixels
+        target = (rng.uniform(size=depth.shape) < 0.7).astype(np.float64)
+        return (torch.tensor(depth, dtype=torch.float32),
+                torch.tensor(target, dtype=torch.float32))
+
+    def step(net, depth, target):
+        mask_loss(torch, net(depth), target).backward()
+
+    torch.manual_seed(0)
+    net = C.build_mask_unet(C.MaskModelConfig()).to(
+        memory_format=torch.channels_last)
+    n_attn = sum(isinstance(m, LinearAttention) for m in net.modules())
+    depth, target = inputs(MASK_PARITY_BATCH, 5)
+    let_cores_count(torch, net, depth)
+    gpu_net = copy.deepcopy(net).to(dev, memory_format=torch.channels_last)
+    step(net, depth, target)
+    reset_counts(K1, K2)
+    step(gpu_net, depth.to(dev), target.to(dev))
+    torch.cuda.synchronize()
+    worst, worst_name = grad_errors(torch, net, gpu_net)
+    if worst > GRAD_RTOL:
+        raise AssertionError(f"mask_fwd_bwd: {worst_name} card vs CPU "
+                             f"{worst} > {GRAD_RTOL}")
+    del net
+
+    depth, target = (t.to(dev) for t in inputs(MASK_BATCH, 6))
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+
+    def timed_step() -> float:
+        gpu_net.zero_grad(set_to_none=True)
+        e0.record()
+        step(gpu_net, depth, target)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    # warm up until the last three steps lie within MASK_SETTLE of their
+    # median (the allocator's pool and cuDNN's workspaces grow in the first
+    # steps), at most MASK_WARMUP_MAX steps
+    warm = [timed_step() for _ in range(3)]
+    while (len(warm) < MASK_WARMUP_MAX and
+           np.ptp(warm[-3:]) > MASK_SETTLE * np.median(warm[-3:])):
+        warm.append(timed_step())
+    reset_counts(K1, K2)
+    times = [timed_step() for _ in range(MASK_STEPS)]
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    want = (MASK_STEPS * n_attn, MASK_STEPS * n_attn, MASK_STEPS)
+    if (k1_n, k3_n, k2_n) != want:
+        raise AssertionError(f"mask_fwd_bwd launches K1, K3, K2 = "
+                             f"{(k1_n, k3_n, k2_n)} over {MASK_STEPS} "
+                             f"steps, want {want}")
+    check_no_routes("mask_fwd_bwd", routes)
+    bad = [n for n, p in gpu_net.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    if bad:
+        raise AssertionError(f"mask_fwd_bwd: gradients not finite {bad[:4]}")
+    # the profiled step follows the timed ones and is timed alike, so its
+    # breakdown belongs to the settled steps it is reported beside
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_ms = timed_step()
+    emit("mask_fwd_bwd", card=card_line(), batch=MASK_BATCH, image=256,
+         warmup_ms=warm, step_ms=float(np.median(times)),
+         step_ms_min=min(times), step_ms_max=max(times), step_ms_all=times,
+         profiled_step_ms=profiled_ms,
+         k1_per_step=k1_n / MASK_STEPS, k3_per_step=k3_n / MASK_STEPS,
+         k2_per_step=k2_n / MASK_STEPS, plain_routes=routes,
+         grad_parity_batch=MASK_PARITY_BATCH, grad_max_rel_err=worst,
+         grad_worst=worst_name, grad_rtol=GRAD_RTOL,
+         fwd_bwd=device_time(torch, prof))
+    del gpu_net, depth, target, prof
     torch.cuda.empty_cache()
 
 
@@ -952,7 +1101,7 @@ def phase_wide_net(torch, K1, K2, dev):
     from pointreggpt_tpu_torch.models import DiffusionUNet
     from pointreggpt_tpu_torch.models.blocks import LinearAttention
 
-    k1_err = {}
+    k1_err, k1_wide = {}, {}
     for dtype, eps in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
         name = str(dtype).split(".")[-1]
         args = K1.check_inputs(8, *K3_WIDE, dtype, dev)
@@ -962,6 +1111,15 @@ def phase_wide_net(torch, K1, K2, dev):
         if not err <= K_ATOL[("k1", name)]:
             raise AssertionError(f"K1 {name} at (8, {K3_WIDE}): {err}")
         k1_err[name] = err
+        # its time (device time, as phase_k1 takes it) beside its bound
+        wk = K1.work(8, *K3_WIDE, args[0].element_size())
+        b_ms, b_by = bound(wk, PEAK[name])
+        k1_wide[name] = dict(
+            ms=graph_ms(torch, lambda: K1.fused_linear_attention(*args,
+                                                                 eps=eps), 10),
+            plain_ms=time_ms(lambda: K1.fused_linear_attention_plain(
+                *args, eps=eps), 3, 1),
+            bound_ms=b_ms, bound_by=b_by, **cuda_core_bound(wk, name))
         del args
 
     cl = torch.channels_last
@@ -1017,6 +1175,7 @@ def phase_wide_net(torch, K1, K2, dev):
         raise AssertionError(f"wide_net bf16: loss {loss.item()}, "
                              f"gradients not finite {bad[:4]}")
     emit("wide_net", dim=WIDE_DIM, widths=widths, k1_wide_max_abs_err=k1_err,
+         k1_wide=k1_wide,
          max_rel_err=worst, worst=worst_name, rtol=GRAD_RTOL,
          launches_fp32=[k1_n, k3_n], launches_bf16=[bk1, bk3],
          plain_routes=routes, bf16_loss=loss.item())
@@ -1262,6 +1421,7 @@ def main(argv=None) -> int:
     phase_forward_profile(torch, dev)
     phase_grad_parity(torch, dev)
     phase_wide_net(torch, K1, K2, dev)
+    phase_mask_fwd_bwd(torch, K1, K2, dev)
     with tempfile.TemporaryDirectory(prefix="prgpt_train_") as tmp:
         tmp = Path(tmp)
         folder, gt_log = write_training_tree(tmp, 64, args.seed)
@@ -1288,6 +1448,8 @@ def main(argv=None) -> int:
         csrc + "linear_attention_kv.cuh", csrc + "linear_attention_tc.cuh",
         csrc + "linear_attention_bwd_tc.cuh", csrc + "conv3_tc.cuh",
         csrc + "linear_attention_tf32.cuh")
+    BWD_TF32_HEADER, CONV_TF32_HEADER = (
+        csrc + "linear_attention_bwd_tf32.cuh", csrc + "conv3_tf32.cuh")
 
     # calls routed to the plain version by shape on both main paths (each
     # phase checked them 0)
@@ -1325,7 +1487,8 @@ def main(argv=None) -> int:
              fp32=k2_f32, **k2),
         dict(name="fused_linear_attention_bwd", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_bwd.cu",
-             headers=[BWD_TC_HEADER, TC_HEADER, TF32_HEADER, KV_HEADER],
+             headers=[BWD_TC_HEADER, BWD_TF32_HEADER, TC_HEADER, TF32_HEADER,
+                      KV_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:316",
              **launches(1, "k3_launches"), **routes("k3"), library_ms=None,
              work="the 8 calls of one dim-64 U-Net backward, bf16, "
@@ -1336,8 +1499,11 @@ def main(argv=None) -> int:
                   "of the six outputs, max_rel_err the one the check "
                   "bounds; bf16 on the tensor cores "
                   "(linear_attention_bwd_tc.cuh), fp32 (under fp32, batch "
-                  "8) K1's fp32 kernel A (three TF32 passes) and the "
-                  "CUDA-core path kernels",
+                  "8) on the tensor cores in three TF32 passes: the q "
+                  "path, kv path and weight gradients of "
+                  "linear_attention_bwd_tf32.cuh after K1's fp32 kernels "
+                  "A and B (linear_attention_tf32.cuh), bound_ms at "
+                  "494.7 / 3 TFLOP/s, cuda_core_bound_ms at 67",
              fp32=k3_f32, **k3),
         dict(name="linear_attention_core", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_core.cu",
@@ -1352,7 +1518,7 @@ def main(argv=None) -> int:
              **k4),
         dict(name="conv3x3", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/conv3x3.cu",
-             headers=[CONV_HEADER],
+             headers=[CONV_HEADER, CONV_TF32_HEADER],
              replaces="tools/profile_conv.py:111",
              work="profile_conv.main: the 4 shapes (16,256,256,64->64), "
                   "(16,256,256,128->64), (8,256,256,64->64), "
@@ -1361,8 +1527,11 @@ def main(argv=None) -> int:
                   "F.conv2d, cuDNN, bf16 channels-last); launches counted "
                   "over one call of the tool's main (forwards, and the "
                   "backward's dx, of its timing and gradient loops); the "
-                  "bf16 kernel is conv3_tc.cuh's implicit GEMM, fp32 "
-                  "(under fp32, one shape) the direct CUDA-core kernel",
+                  "bf16 kernel is conv3_tc.cuh's implicit GEMM; fp32 "
+                  "(under fp32, the same 4 shapes, library_ms F.conv2d "
+                  "fp32 with TF32 off) conv3_tf32.cuh's implicit GEMM in "
+                  "three TF32 passes on the tensor cores, bound_ms at "
+                  "494.7 / 3 TFLOP/s, cuda_core_bound_ms at 67",
              **k5),
         dict(name="conv3_igemm", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/conv3_igemm.cu",

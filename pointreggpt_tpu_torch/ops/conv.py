@@ -9,9 +9,10 @@ is needed.
 
 - ``conv3x3`` is a ``torch.autograd.Function`` (the port of the JAX
   ``custom_vjp``). Its forward runs K5 (``csrc/conv3x3.cu``, which replaces
-  ``_conv3x3_pallas``) on w cast to x.dtype: in bf16 the tensor-core
-  implicit GEMM of ``csrc/conv3_tc.cuh``, in fp32 a direct conv on the
-  CUDA cores. Its backward computes dx as K5 again, on the spatially
+  ``_conv3x3_pallas``) on w cast to x.dtype, an implicit GEMM on the
+  tensor cores: in bf16 ``csrc/conv3_tc.cuh``, in fp32 three TF32 passes
+  in ``csrc/conv3_tf32.cuh`` (on w repacked as (cout, 3, 3, cin)). Its
+  backward computes dx as K5 again, on the spatially
   flipped weights with in and out channels swapped, and dw as nine shifted
   (pixels x cin)^T @ (pixels x cout) products in fp32 (``_wgrad``; plain
   matrix products, as the JAX package leaves them to XLA outside any
@@ -159,8 +160,11 @@ def _k5(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv3x3: cin={cin}, cout={cout} outside [1, "
                          f"{max_c}]")
     # the cast copy may be freed on return while the launch still runs:
-    # the caching allocator hands its memory out again only in stream order
-    w = w.to(x.dtype).contiguous()
+    # the caching allocator hands its memory out again only in stream order.
+    # The fp32 body reads B^T's rows: w repacked as (cout, 3, 3, cin)
+    w = w.to(x.dtype)
+    w = (w if x.dtype == torch.bfloat16 else w.permute(3, 0, 1, 2)
+         ).contiguous()
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     rc = lib.prgpt_conv3x3(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h,
                            wd, cin, cout, int(x.dtype == torch.bfloat16),

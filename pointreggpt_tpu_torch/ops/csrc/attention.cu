@@ -34,7 +34,7 @@
 //
 // fp32 (flash_fwd_tf32x3, the MaskUNet's path): the same structure on the
 // TF32 tensor cores in three passes (common.cuh: a b ~= a_lo b_hi + a_hi
-// b_lo + a_hi b_hi, about 22 bits of each product; one TF32 pass keeps 10
+// b_lo + a_hi b_hi, about 21 bits of each product; one TF32 pass keeps 10
 // and misses the fp32 tolerance). q is scaled in fp32 before the product,
 // as the TPU kernel and the plain version do, and split once for the
 // whole walk. Rows are 128 bytes (32 floats); 16-byte chunk j of row r

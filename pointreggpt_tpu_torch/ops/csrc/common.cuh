@@ -105,12 +105,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// fp32-accurate products on the TF32 tensor cores (the fp32 bodies of K1
-// and K2): x = hi + lo, hi = tf32(x) and lo = tf32(x - hi) (x - hi is
-// exact in fp32), so hi + lo holds x within 2^-22 relative, and
-// a b ~= a_lo b_hi + a_hi b_lo + a_hi b_hi keeps about 22 bits of each
-// product (the dropped a_lo b_lo is 2^-22 of it): the "3xTF32" of
-// CUTLASS's OpMultiplyAddFastF32.
+// fp32-accurate products on the TF32 tensor cores (the fp32 bodies of K1,
+// K2, K3 and K5): x = hi + lo with hi = tf32(x) and lo = x - hi as the
+// tensor cores read it (split_frag below), so hi + lo holds x within
+// 2^-21 relative, and a b ~= a_lo b_hi + a_hi b_lo + a_hi b_hi keeps
+// about 21 bits of each product (the dropped a_lo b_lo is 2^-22 of it):
+// the "3xTF32" of CUTLASS's OpMultiplyAddFastF32.
 
 // 4 bytes global -> shared; zero-filled where !full (no bytes are read)
 __device__ __forceinline__ void cp4(uint32_t dst, const void* src,
@@ -129,19 +129,23 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// A fragment (4 values) or B fragment (2 values) split in place: v holds
-// the fp32 bits and becomes hi, lo gets the rest
+// A fragment (4 values) or B fragment (2 values) split in place for three
+// TF32 passes: v holds the fp32 bits and becomes hi = tf32(x), lo gets x -
+// hi, exact in fp32 and left unrounded. The tensor cores read a tf32
+// operand's top 19 bits, so lo loses its low 13 there: x ~= hi + lo within
+// 2^-21 relative (2^-22 with lo rounded too), for two integer operations
+// fewer a value. Every fp32 body takes this split: against a rounded lo
+// it made each of K1, K2, K3 and K5 fp32 faster at the same measured
+// error (PERF.md, on an H100).
 template <int N>
 __device__ __forceinline__ void split_frag(uint32_t (&v)[N],
                                            uint32_t (&lo)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) split_tf32(__uint_as_float(v[i]), v[i], lo[i]);
+  for (int i = 0; i < N; ++i) {
+    const float x = __uint_as_float(v[i]);
+    v[i] = to_tf32(x);
+    lo[i] = __float_as_uint(x - __uint_as_float(v[i]));
+  }
 }
 
 // c += a (16x8, row) @ b (8x8, col), tf32 in, fp32 accumulators

@@ -52,6 +52,15 @@
 //   within each quad of lanes gives every lane 8 consecutive channels,
 //   stored as one 16-byte vector (element-wise where cout % 8 != 0),
 //   masked at the ragged edges of h, w, the tile's rows and cout.
+//
+// The tile walk, the ring, the resident weights and the launch's choice
+// of stages are one kernel and one launch, templates over a body: Bf16
+// here, K5's fp32 body in conv3_tf32.cuh. A body gives the element type
+// E, the tile's columns TC, the channels of a chunk KCH, the window's
+// bytes, the staging of a chunk's window and weights (load_window,
+// load_weights), each lane's fixed offsets (lanes), the products of one
+// staged chunk (compute) and the epilogue (store). The kernel holds a
+// warp's 4 x NJ accumulator fragments across a tile's chunks.
 #pragma once
 
 #include <cstdint>
@@ -65,11 +74,11 @@ using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;  // 8 warps: 4 along the pixels x 2
 constexpr int NJ = 4;         // n8 fragments per warp: 32 channels
-constexpr int BN = 64;         // output channels per tile
-constexpr int KCH = 64;        // input channels per chunk: 128-byte rows
-constexpr int WARP_PX = 64;    // pixels per warp: 4 A fragments
-constexpr int ROW_BYTES = KCH * 2;
-constexpr int CHUNK_W_BYTES = 9 * KCH * BN * 2;  // 73,728
+constexpr int BN = 64;        // output channels per tile
+constexpr int KCH = 64;       // bf16 input channels per chunk
+constexpr int WARP_PX = 64;   // pixels per warp: 4 A fragments
+constexpr int ROW_BYTES = 128;  // a window position's chunk, a weight row
+constexpr int CHUNK_W_BYTES = 9 * BN * ROW_BYTES;  // 73,728
 
 struct Geo {
   int b, h, wd, cin, cout, rows;
@@ -79,6 +88,9 @@ struct Geo {
 struct Tile {
   int img, y0, x0, n0;
 };
+
+// a warp's accumulators: 4 A fragments (16 pixels each) x NJ n8 blocks
+using Acc = float[4][NJ][4];
 
 __device__ __forceinline__ uint32_t pick4(const uint32_t (&a)[4], int i) {
   return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
@@ -96,12 +108,12 @@ __device__ __forceinline__ Tile decode(int t, const Geo& g) {
 }
 
 // Where window position `pos`, channel `ch` of tile `tl` comes from, and
-// whether it lies inside the image and below cin (else it is zero).
-template <int TC>
-__device__ __forceinline__ const bf16* window_src(const bf16* x,
-                                                  const Geo& g,
-                                                  const Tile& tl, int pos,
-                                                  int ch, bool& in) {
+// whether it lies inside the image and below cin (else it is zero); E is
+// the element type.
+template <int TC, typename E>
+__device__ __forceinline__ const E* window_src(const E* x, const Geo& g,
+                                               const Tile& tl, int pos,
+                                               int ch, bool& in) {
   constexpr int WC = TC + 2;
   const int wr = pos / WC;
   const int gy = tl.y0 - 1 + wr;
@@ -112,156 +124,111 @@ __device__ __forceinline__ const bf16* window_src(const bf16* x,
             : x;
 }
 
-// The (rows + 2) x (TC + 2) halo window of channels c0 .. c0 + 64 of one
-// tile into the stage at `dst` ([position][64 channels], swizzled); zeros
-// outside the image and past cin.
-template <int TC, bool VEC>
-__device__ __forceinline__ void load_window(uint32_t dst, const bf16* x,
-                                            const Geo& g, const Tile& tl,
-                                            int c0) {
-  const int npos = (g.rows + 2) * (TC + 2);
-  if (VEC) {
-    for (int i = threadIdx.x; i < npos * 8; i += THREADS) {
-      const int j = i & 7;
-      const int pos = i >> 3;
-      bool in;
-      const bf16* src = window_src<TC>(x, g, tl, pos, c0 + 8 * j, in);
-      cp16(dst + pos * ROW_BYTES + ((j ^ (pos & 7)) << 4), src, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < npos * KCH; i += THREADS) {
-      const int k = i & (KCH - 1);
-      const int pos = i >> 6;
-      bool in;
-      const bf16* src = window_src<TC>(x, g, tl, pos, c0 + k, in);
-      const uint32_t a = dst + pos * ROW_BYTES +
-                         (((k >> 3) ^ (pos & 7)) << 4) + (k & 7) * 2;
-      const bf16 v = in ? *src : __float2bfloat16_rn(0.f);
-      asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a),
-                   "h"(*reinterpret_cast<const unsigned short*>(&v))
-                   : "memory");
-    }
-  }
-}
-
-// Weights of input channels c0 .. c0 + 64 and output channels n0 .. n0 +
-// BN into `dst` ([tap][64 k][BN], row (tap, k) swizzled by k & 7); zeros
-// past cin and cout.
-template <bool VEC>
-__device__ __forceinline__ void load_weights(uint32_t dst, const bf16* w,
-                                             const Geo& g, int n0, int c0) {
-  if (VEC) {
-    for (int i = threadIdx.x; i < 9 * KCH * (BN / 8); i += THREADS) {
-      const int jn = i & 7;
-      const int row = i >> 3;
-      const int k = row & (KCH - 1);
-      const int ci = c0 + k, n = n0 + 8 * jn;
-      const bool in = ci < g.cin && n < g.cout;
-      const bf16* src =
-          in ? w + (static_cast<size_t>(row >> 6) * g.cin + ci) * g.cout + n
-             : w;
-      cp16(dst + row * ROW_BYTES + ((jn ^ (k & 7)) << 4), src, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < 9 * KCH * BN; i += THREADS) {
-      const int nn = i & (BN - 1);
-      const int row = i >> 6;
-      const int k = row & (KCH - 1);
-      const int ci = c0 + k, n = n0 + nn;
-      const bf16 v =
-          ci < g.cin && n < g.cout
-              ? w[(static_cast<size_t>(row >> 6) * g.cin + ci) * g.cout + n]
-              : __float2bfloat16_rn(0.f);
-      const uint32_t a =
-          dst + row * ROW_BYTES + (((nn >> 3) ^ (k & 7)) << 4) + (nn & 7) * 2;
-      asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a),
-                   "h"(*reinterpret_cast<const unsigned short*>(&v))
-                   : "memory");
-    }
-  }
-}
-
-template <int TC, bool VEC>
-__global__ void __launch_bounds__(THREADS, 1)
-conv3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                bf16* __restrict__ out, Geo g, int resident, int stages,
-                int stage_bytes) {
-  constexpr int WC = TC + 2;
-  constexpr int RW = WARP_PX / TC;  // image rows per warp
-  constexpr int CJ = TC / 16;       // 16-pixel A fragments per warp row
-  constexpr int WIN_BYTES = (4 * RW + 2) * WC * ROW_BYTES;
+// The bf16 body (K5 bf16, K6): 64-channel chunks, mma.sync.m16n8k16.
+template <int TC_>
+struct Bf16 {
+  using E = bf16;
+  static constexpr int TC = TC_;
+  static constexpr int KCH = conv3::KCH;
+  static constexpr int RW = WARP_PX / TC;  // image rows per warp
+  static constexpr int CJ = TC / 16;       // 16-pixel A fragments a row
+  static constexpr int WC = TC + 2;
+  static constexpr int WIN_BYTES = (4 * RW + 2) * WC * ROW_BYTES;
   static_assert(TC % 16 == 0 && WARP_PX % TC == 0, "tile columns");
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t wres = smem_u32(smem);
-  const uint32_t ring = wres + (resident ? g.nch * CHUNK_W_BYTES : 0);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warp_m = warp & 3, warp_n = warp >> 2;
-  const int G = gridDim.x;
-  const int my_tiles = g.tiles > static_cast<int>(blockIdx.x)
-                           ? (g.tiles - 1 - blockIdx.x) / G + 1
-                           : 0;
-  const int L = my_tiles * g.nch;
-  // window position of this lane's A row: the warp's first image row,
-  // column lane & 15 (window row wr, fragment column j and tap column dx
-  // add wr * WC + 16 j + dx)
-  const int lpos = warp_m * RW * WC + (lane & 15);
-
-  auto prefetch = [&](int i) {
-    if (i < L) {
-      const Tile tl = decode<TC>(blockIdx.x + (i / g.nch) * G, g);
-      const int c0 = (i % g.nch) * KCH;
-      const uint32_t st = ring + (i % stages) * stage_bytes;
-      load_window<TC, VEC>(st, x, g, tl, c0);
-      if (!resident) load_weights<VEC>(st + WIN_BYTES, w, g, tl.n0, c0);
+  // The (rows + 2) x (TC + 2) halo window of channels c0 .. c0 + 64 of
+  // one tile into the stage at `dst` ([position][64 channels],
+  // swizzled); zeros outside the image and past cin.
+  template <bool VEC>
+  static __device__ __forceinline__ void load_window(uint32_t dst,
+                                                     const bf16* x,
+                                                     const Geo& g,
+                                                     const Tile& tl,
+                                                     int c0) {
+    const int npos = (g.rows + 2) * WC;
+    if (VEC) {
+      for (int i = threadIdx.x; i < npos * 8; i += THREADS) {
+        const int j = i & 7;
+        const int pos = i >> 3;
+        bool in;
+        const bf16* src = window_src<TC>(x, g, tl, pos, c0 + 8 * j, in);
+        cp16(dst + pos * ROW_BYTES + ((j ^ (pos & 7)) << 4), src, in);
+      }
+    } else {
+      for (int i = threadIdx.x; i < npos * KCH; i += THREADS) {
+        const int k = i & (KCH - 1);
+        const int pos = i >> 6;
+        bool in;
+        const bf16* src = window_src<TC>(x, g, tl, pos, c0 + k, in);
+        const uint32_t a = dst + pos * ROW_BYTES +
+                           (((k >> 3) ^ (pos & 7)) << 4) + (k & 7) * 2;
+        const bf16 v = in ? *src : __float2bfloat16_rn(0.f);
+        asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a),
+                     "h"(*reinterpret_cast<const unsigned short*>(&v))
+                     : "memory");
+      }
     }
-    cp_commit();
-  };
-  auto load_resident = [&](int n0) {
-    for (int c = 0; c < g.nch; ++c)
-      load_weights<VEC>(wres + c * CHUNK_W_BYTES, w, g, n0, c * KCH);
-  };
-
-  int cur_n = -1;
-  if (resident && L > 0) {
-    cur_n = decode<TC>(blockIdx.x, g).n0;
-    load_resident(cur_n);  // committed with item 0
   }
-  for (int s = 0; s < stages - 1; ++s) prefetch(s);
 
-  // acc[i * CJ + j]: image row i of the warp, pixels 16 j .. 16 j + 15
-  float acc[4][NJ][4];
-#pragma unroll
-  for (int f = 0; f < 4; ++f)
-#pragma unroll
-    for (int n = 0; n < NJ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[f][n][e] = 0.f;
-
-  for (int i = 0; i < L; ++i) {
-    if (stages == 3)
-      cp_wait<1>();
-    else
-      cp_wait<0>();
-    // item i is in shared memory for every thread, and every warp is done
-    // with item i - 1, whose stage the prefetch below refills
-    __syncthreads();
-    prefetch(i + stages - 1);
-
-    const Tile tl = decode<TC>(blockIdx.x + (i / g.nch) * G, g);
-    const int c = i % g.nch;
-    if (resident && tl.n0 != cur_n) {
-      load_resident(tl.n0);
-      cp_commit();
-      cp_wait<0>();
-      __syncthreads();
-      cur_n = tl.n0;
+  // Weights of input channels c0 .. c0 + 64 and output channels n0 .. n0
+  // + BN into `dst` ([tap][64 k][BN], row (tap, k) swizzled by k & 7);
+  // zeros past cin and cout.
+  template <bool VEC>
+  static __device__ __forceinline__ void load_weights(uint32_t dst,
+                                                      const bf16* w,
+                                                      const Geo& g, int n0,
+                                                      int c0) {
+    if (VEC) {
+      for (int i = threadIdx.x; i < 9 * KCH * (BN / 8); i += THREADS) {
+        const int jn = i & 7;
+        const int row = i >> 3;
+        const int k = row & (KCH - 1);
+        const int ci = c0 + k, n = n0 + 8 * jn;
+        const bool in = ci < g.cin && n < g.cout;
+        const bf16* src =
+            in ? w + (static_cast<size_t>(row >> 6) * g.cin + ci) * g.cout +
+                     n
+               : w;
+        cp16(dst + row * ROW_BYTES + ((jn ^ (k & 7)) << 4), src, in);
+      }
+    } else {
+      for (int i = threadIdx.x; i < 9 * KCH * BN; i += THREADS) {
+        const int nn = i & (BN - 1);
+        const int row = i >> 6;
+        const int k = row & (KCH - 1);
+        const int ci = c0 + k, n = n0 + nn;
+        const bf16 v =
+            ci < g.cin && n < g.cout
+                ? w[(static_cast<size_t>(row >> 6) * g.cin + ci) * g.cout +
+                    n]
+                : __float2bfloat16_rn(0.f);
+        const uint32_t a = dst + row * ROW_BYTES +
+                           (((nn >> 3) ^ (k & 7)) << 4) + (nn & 7) * 2;
+        asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a),
+                     "h"(*reinterpret_cast<const unsigned short*>(&v))
+                     : "memory");
+      }
     }
-    const uint32_t xsm = ring + (i % stages) * stage_bytes;
-    const uint32_t wsm =
-        resident ? wres + c * CHUNK_W_BYTES : xsm + WIN_BYTES;
+  }
+
+  // Window position of this lane's A row: the warp's first image row,
+  // column lane & 15 (window row wr, fragment column j and tap column dx
+  // add wr * WC + 16 j + dx).
+  struct Lanes {
+    int lpos;
+  };
+  static __device__ __forceinline__ Lanes lanes(int lane, int warp_m,
+                                                int warp_n) {
+    return {warp_m * RW * WC + (lane & 15)};
+  }
+
+  // Chunk c's products (window at xsm, weights at wsm) into acc; acc[i *
+  // CJ + j] is image row i of the warp, pixels 16 j .. 16 j + 15.
+  static __device__ __forceinline__ void compute(Acc& acc, uint32_t xsm,
+                                                 uint32_t wsm, int c,
+                                                 int lane, int warp_n,
+                                                 const Lanes& ln) {
+    const int lpos = ln.lpos;
     // B rows (tap, k) with k = 16 kk + (lane & 7) + 8 ((lane >> 3) & 1)
     const uint32_t bl = wsm + ((lane & 7) + ((lane >> 3) & 1) * 8) * ROW_BYTES;
 
@@ -313,9 +280,14 @@ conv3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
             }
       }
     }
+  }
 
-    if (c != g.nch - 1) continue;
-    // epilogue: round once, store, reset the accumulators
+  // The finished tile: round once, store.
+  template <bool VEC>
+  static __device__ __forceinline__ void store(const Acc& acc, bf16* out,
+                                               const Geo& g, const Tile& tl,
+                                               int lane, int warp_m,
+                                               int warp_n) {
     const int t = lane & 3;
     const int nw = tl.n0 + warp_n * 8 * NJ;
 #pragma unroll
@@ -361,6 +333,89 @@ conv3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         }
       }
     }
+  }
+};
+
+template <class B, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+conv3_kernel(const typename B::E* __restrict__ x,
+             const typename B::E* __restrict__ w,
+             typename B::E* __restrict__ out, Geo g, int resident,
+             int stages, int stage_bytes) {
+  constexpr int TC = B::TC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t wres = smem_u32(smem);
+  const uint32_t ring = wres + (resident ? g.nch * CHUNK_W_BYTES : 0);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warp_m = warp & 3, warp_n = warp >> 2;
+  const int G = gridDim.x;
+  const int my_tiles = g.tiles > static_cast<int>(blockIdx.x)
+                           ? (g.tiles - 1 - blockIdx.x) / G + 1
+                           : 0;
+  const int L = my_tiles * g.nch;
+  const typename B::Lanes ln = B::lanes(lane, warp_m, warp_n);
+
+  auto prefetch = [&](int i) {
+    if (i < L) {
+      const Tile tl = decode<TC>(blockIdx.x + (i / g.nch) * G, g);
+      const int c0 = (i % g.nch) * B::KCH;
+      const uint32_t st = ring + (i % stages) * stage_bytes;
+      B::template load_window<VEC>(st, x, g, tl, c0);
+      if (!resident)
+        B::template load_weights<VEC>(st + B::WIN_BYTES, w, g, tl.n0, c0);
+    }
+    cp_commit();
+  };
+  auto load_resident = [&](int n0) {
+    for (int c = 0; c < g.nch; ++c)
+      B::template load_weights<VEC>(wres + c * CHUNK_W_BYTES, w, g, n0,
+                                    c * B::KCH);
+  };
+
+  int cur_n = -1;
+  if (resident && L > 0) {
+    cur_n = decode<TC>(blockIdx.x, g).n0;
+    load_resident(cur_n);  // committed with item 0
+  }
+  for (int s = 0; s < stages - 1; ++s) prefetch(s);
+
+  Acc acc;
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+#pragma unroll
+    for (int n = 0; n < NJ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[f][n][e] = 0.f;
+
+  for (int i = 0; i < L; ++i) {
+    if (stages == 3)
+      cp_wait<1>();
+    else
+      cp_wait<0>();
+    // item i is in shared memory for every thread, and every warp is done
+    // with item i - 1, whose stage the prefetch below refills
+    __syncthreads();
+    prefetch(i + stages - 1);
+
+    const Tile tl = decode<TC>(blockIdx.x + (i / g.nch) * G, g);
+    const int c = i % g.nch;
+    if (resident && tl.n0 != cur_n) {
+      load_resident(tl.n0);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      cur_n = tl.n0;
+    }
+    const uint32_t xsm = ring + (i % stages) * stage_bytes;
+    const uint32_t wsm =
+        resident ? wres + c * CHUNK_W_BYTES : xsm + B::WIN_BYTES;
+    B::compute(acc, xsm, wsm, c, lane, warp_n, ln);
+
+    if (c != g.nch - 1) continue;
+    // epilogue: store, reset the accumulators
+    B::template store<VEC>(acc, out, g, tl, lane, warp_m, warp_n);
 #pragma unroll
     for (int f = 0; f < 4; ++f)
 #pragma unroll
@@ -371,17 +426,18 @@ conv3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   cp_wait<0>();
 }
 
-// Launch over (b, h, wd, cin, cout) with tiles of `rows` output rows (at
-// most 4 WARP_PX / TC) x TC columns on a persistent grid of min(tiles, sms)
-// blocks.
-template <int TC>
-cudaError_t launch(const void* x, const void* w, void* out, int b, int h,
-                   int wd, int cin, int cout, int rows, int sms,
-                   cudaStream_t stream) {
-  constexpr int WROWS = 4 * (WARP_PX / TC) + 2;
-  constexpr int WIN_BYTES = WROWS * (TC + 2) * ROW_BYTES;
+// Launch body B over (b, h, wd, cin, cout) with tiles of `rows` output rows
+// (at most 4 WARP_PX / TC) x TC columns on a persistent grid of min(tiles,
+// sms) blocks.
+template <class B>
+cudaError_t launch_body(const void* x, const void* w, void* out, int b,
+                        int h, int wd, int cin, int cout, int rows, int sms,
+                        cudaStream_t stream) {
+  using E = typename B::E;
+  constexpr int TC = B::TC;
+  constexpr int VEC_C = 16 / sizeof(E);  // channels of a 16-byte copy
   if (b < 1 || h < 1 || wd < 1 || cin < 1 || cout < 1 || rows < 1 ||
-      rows > WROWS - 2 || sms < 1)
+      rows > 4 * (WARP_PX / TC) || sms < 1)
     return cudaErrorInvalidValue;
   Geo g;
   g.b = b, g.h = h, g.wd = wd, g.cin = cin, g.cout = cout, g.rows = rows;
@@ -390,7 +446,7 @@ cudaError_t launch(const void* x, const void* w, void* out, int b, int h,
   g.n_tiles = (cout + BN - 1) / BN;
   g.spatial = b * g.row_tiles * g.col_tiles;
   g.tiles = g.n_tiles * g.spatial;
-  g.nch = (cin + KCH - 1) / KCH;
+  g.nch = (cin + B::KCH - 1) / B::KCH;
 
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -398,30 +454,40 @@ cudaError_t launch(const void* x, const void* w, void* out, int b, int h,
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
+  const size_t cap = static_cast<size_t>(max_smem);
   const size_t res_bytes = static_cast<size_t>(g.nch) * CHUNK_W_BYTES;
-  int resident = 1, stages = 3, stage_bytes = WIN_BYTES;
-  if (res_bytes + 3 * WIN_BYTES > static_cast<size_t>(max_smem)) stages = 2;
-  if (res_bytes + 2 * WIN_BYTES > static_cast<size_t>(max_smem)) {
+  int resident = 1, stages = 3, stage_bytes = B::WIN_BYTES;
+  if (res_bytes + 3 * B::WIN_BYTES > cap) stages = 2;
+  if (res_bytes + 2 * B::WIN_BYTES > cap) {
     resident = 0;
-    stage_bytes = WIN_BYTES + CHUNK_W_BYTES;
-    stages = 3 * stage_bytes <= max_smem ? 3 : 2;
+    stage_bytes = B::WIN_BYTES + CHUNK_W_BYTES;
+    stages = 3 * static_cast<size_t>(stage_bytes) <= cap ? 3 : 2;
   }
   const size_t smem = (resident ? res_bytes : 0) +
                       static_cast<size_t>(stages) * stage_bytes;
-  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
+  if (smem > cap) return cudaErrorInvalidValue;
 
-  const bool vec = cin % 8 == 0 && cout % 8 == 0 &&
+  const bool vec = cin % VEC_C == 0 && cout % VEC_C == 0 &&
                    (reinterpret_cast<uintptr_t>(x) |
                     reinterpret_cast<uintptr_t>(w) |
                     reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  auto kernel = vec ? conv3_tc_kernel<TC, true> : conv3_tc_kernel<TC, false>;
+  auto kernel = vec ? conv3_kernel<B, true> : conv3_kernel<B, false>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int grid = g.tiles < sms ? g.tiles : sms;
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<bf16*>(out), g, resident, stages, stage_bytes);
+      static_cast<const E*>(x), static_cast<const E*>(w),
+      static_cast<E*>(out), g, resident, stages, stage_bytes);
   return cudaGetLastError();
+}
+
+// The bf16 body with TC output columns a tile.
+template <int TC>
+cudaError_t launch(const void* x, const void* w, void* out, int b, int h,
+                   int wd, int cin, int cout, int rows, int sms,
+                   cudaStream_t stream) {
+  return launch_body<Bf16<TC>>(x, w, out, b, h, wd, cin, cout, rows, sms,
+                               stream);
 }
 
 }  // namespace conv3

@@ -45,7 +45,7 @@
 // persistent grid), B with one thread per entry of C^. fp32 (the MaskUNet):
 // A and C are linear_attention_tf32.cuh's bodies, the same design on the
 // TF32 tensor cores with every product in three passes (a_lo b_hi + a_hi
-// b_lo + a_hi b_hi, about 22 bits of each product; one TF32 pass, 10 bits,
+// b_lo + a_hi b_hi, about 21 bits of each product; one TF32 pass, 10 bits,
 // would not hold the fp32 tolerance), 32-channel chunks and fp32 byte
 // counts; B with one thread per entry of C^, as in bf16. K3's fp32
 // backward launches the same A and B. Bound of the fp32 forward at batch

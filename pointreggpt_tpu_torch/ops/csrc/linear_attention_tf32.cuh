@@ -8,7 +8,7 @@
 // CUDA-core bodies of linear_attention_kv.cuh.
 //
 // Every product runs in three TF32 passes (common.cuh: a b ~= a_lo b_hi +
-// a_hi b_lo + a_hi b_hi, about 22 bits of each product, where one TF32
+// a_hi b_lo + a_hi b_hi, about 21 bits of each product, where one TF32
 // pass keeps 10): mma.sync.m16n8k8.tf32 with fp32 accumulators. Each A
 // fragment is split once and reused over every n8 tile it meets. The
 // tensor cores truncate the sum each mma accumulates, so a long sum into

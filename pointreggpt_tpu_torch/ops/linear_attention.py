@@ -11,9 +11,10 @@ passes in ``csrc/linear_attention_tf32.cuh``) for a CUDA tensor and
 ``(x, w_qkv, w_out, b_out, g_out)``, the JAX residuals. Its backward runs
 K3 (``csrc/linear_attention_bwd.cu``, which replaces ``_pallas_fused_bwd``)
 through ``fused_linear_attention_bwd`` for a CUDA tensor and
-``fused_linear_attention_bwd_plain`` for a CPU tensor; its bf16 path runs
-on the tensor cores (``csrc/linear_attention_bwd_tc.cuh``), its fp32 path
-recomputes the statistics with K1's fp32 kernels.
+``fused_linear_attention_bwd_plain`` for a CPU tensor; on the tensor
+cores, bf16 in ``csrc/linear_attention_bwd_tc.cuh`` and fp32 in three TF32
+passes in ``csrc/linear_attention_bwd_tf32.cuh``, each recomputing the
+statistics with K1's kernels of its type.
 
 Shapes past a kernel's limit are routed, as the JAX dispatch
 (``_dispatch_fused``, ``_fused_bwd``) sends them to XLA: :func:`_k1_takes`
@@ -262,11 +263,10 @@ def fused_linear_attention_bwd(x, dy, w_qkv, w_out, b_out, g_out,
     f32 = dict(dtype=torch.float32, device=x.device)
     # the scratch is freed on return while the launches still run: the
     # caching allocator hands it out again only in the order of this stream
-    fscratch = torch.empty(
-        lib.prgpt_linear_attention_bwd_fscratch(b, n, c, bf16), **f32)
-    tscratch = torch.empty(
-        lib.prgpt_linear_attention_bwd_tscratch(b, n, c, bf16),
-        dtype=x.dtype, device=x.device)
+    fscratch = torch.empty(lib.prgpt_linear_attention_bwd_fscratch(b, n, c),
+                           **f32)
+    tscratch = torch.empty(lib.prgpt_linear_attention_bwd_tscratch(b, n, c),
+                           dtype=x.dtype, device=x.device)
     dx_q, dx_kv = torch.empty_like(x), torch.empty_like(x)
     if bf16 and any(t.data_ptr() % 16 for t in (x, dy, w_qkv, w_out,
                                                 dx_q, dx_kv, tscratch)):
@@ -439,7 +439,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.prgpt_linear_attention_bwd.restype = i
         for fn in (lib.prgpt_linear_attention_bwd_fscratch,
                    lib.prgpt_linear_attention_bwd_tscratch):
-            fn.argtypes = [i, i, i, i]
+            fn.argtypes = [i, i, i]
             fn.restype = ctypes.c_longlong
         lib._prgpt_typed = True
     return lib

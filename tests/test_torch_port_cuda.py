@@ -27,7 +27,7 @@ K1_SHAPES = [(65536, 64), (16384, 64), (4096, 128), (1024, 256),
 # LayerNorm output is O(1) (inside (-2, 2) on K1.check_inputs): bf16 keeps
 # 8 mantissa bits, and a few values round one or two bf16 steps (2^-7
 # each) apart where the kernel's fp32 sums run in another order -> 3e-2
-# absolute. fp32: the three-pass TF32 products keep about 22 bits, a few
+# absolute. fp32: the three-pass TF32 products keep about 21 bits, a few
 # 1e-6 on these inputs (tests/test_torch_port_tf32x3.py emulates them),
 # where a single TF32 pass, or one of the two small passes dropped, is
 # about 1e-3 off -> 1e-4 absolute.
@@ -392,20 +392,41 @@ def test_linear_attention_bwd_is_deterministic(cuda, dtype, n, c):
         assert torch.equal(x, y)
 
 
-# Faults planted in a copy of csrc/linear_attention_bwd.cu; the K3 check
-# must fail on each at the production shapes. fp32: the CUDA-core bodies.
+# Faults planted in a copy of csrc/linear_attention_bwd.cu and its headers;
+# the K3 check must fail on each at the production shapes. fp32: the
+# three-pass TF32 bodies (linear_attention_bwd_tf32.cuh): ds dropped from
+# dk; each block's dC^ partial keeping its first row tile only; the
+# LayerNorm backward's mean term dropped; the softmax-q backward summed
+# over the warp's two heads; a streamed W_k|v chunk skipped (c > 128: the
+# chunk of two items before is used); the staged chunks written
+# unswizzled while ldmatrix and the 32-bit loads read them swizzled; the
+# last row of each weight-gradient stage dropped; the fixed-order sum of
+# the weight-gradient partials (reduce_partials, shared with bf16) skipping
+# its first partial; and TF32_FAULTS (the split in common.cuh)
 K3_FAULTS = {
-    "ds_dropped": ("(rnd<T>(a) + ds[col])", "(rnd<T>(a) + 0.f * ds[col])"),
-    # each split's dC^ partial keeps its first row tile only
-    "dchat_one_tile": ("for (int j = 0; j < 16; ++j) dch[j] = fmaf(p, dv[j], "
-                       "dch[j]);",
-                       "for (int j = 0; j < 16; ++j) dch[j] = r0 == r_begin "
-                       "? fmaf(p, dv[j], dch[j]) : dch[j];"),
-    "dx_kv_zeroed": ("dxkv[(row0 + r) * c + j] = from_f<T>(a[r]);",
-                     "dxkv[(row0 + r) * c + j] = from_f<T>(0.f * a[r]);"),
-    "ln_mean_term_dropped": ("xh * rs[4 * r + 3]", "0.f * rs[4 * r + 3]"),
+    "ds_dropped": ("o *= t[mi][j][e] + ds_s[",
+                   "o *= t[mi][j][e] + 0.f * ds_s["),
+    "dchat_one_tile": (
+        "for (int e = 0; e < 4; ++e) dch[j][e] += tcc[j][e];",
+        "for (int e = 0; e < 4; ++e) dch[j][e] += r0 == r_begin ? "
+        "tcc[j][e] : 0.f;"),
+    "ln_mean_term_dropped": ("(dyv[u] * gj - (st[2] + xh * st[3]))",
+                             "(dyv[u] * gj - (xh * st[3]))"),
+    "q_softmax_bwd_across_heads": ("const int s0 = 4 * hh, s1 = s0 + 4;",
+                                   "const int s0 = 0, s1 = 8;"),
+    "weight_chunk_skipped": (
+        "load_tile<2 * HID>(s + X_BYTES, wqkv, QKV, k * KCH, KCH, c, HID,",
+        "if (k != 1) load_tile<2 * HID>(s + X_BYTES, wqkv, QKV, k * KCH, "
+        "KCH, c, HID,"),
+    "swizzle_mismatch": ("cp16(dst + swk(r, j, NC * 4),",
+                         "cp16(dst + r * NC * 4 + (j << 4),"),
+    "wgrad_row_dropped": (
+        "load_tile<WG_Q>(st + WG_A, b, Q, k0, WG_K, r_end, q0, Q, vec);",
+        "load_tile<WG_Q>(st + WG_A, b, Q, k0, WG_K, k0 + WG_K - 1 < r_end "
+        "? k0 + WG_K - 1 : r_end, q0, Q, vec);"),
     "wgrad_split_dropped": ("for (int s = 0; s < count; ++s)",
                             "for (int s = 1; s < count; ++s)"),
+    **TF32_FAULTS,
 }
 
 
@@ -702,7 +723,8 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, shape):
 
 @pytest.mark.parametrize("shape,dtype,tol", [
     ((2, 9, 37, 70, 36), torch.float32, 1e-4),
-    ((16, 256, 256, 128, 64), torch.bfloat16, 3e-2)])
+    ((16, 256, 256, 128, 64), torch.bfloat16, 3e-2),
+    ((8, 256, 256, 64, 64), torch.float32, 1e-4)])
 def test_conv3x3_gradients_on_the_card(cuda, shape, dtype, tol):
     x, w = KC.check_inputs_conv(*shape, dtype, cuda)
     before = KC.conv3x3.launches
@@ -714,6 +736,31 @@ def test_conv3x3_gradients_on_the_card(cuda, shape, dtype, tol):
     for a, r in zip(got, ref):
         assert a.grad.dtype == r.dtype
         assert _rel(a.grad, r.grad) <= tol
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_conv3x3_fp32_kernel_matches_plain_at_the_tool_shapes(cuda, shape):
+    # the three-pass TF32 body at every shape profile_conv.main runs
+    before = KC.conv3x3.launches
+    err = _k5_err(cuda, torch.float32, shape)
+    assert KC.conv3x3.launches == before + 1
+    assert err <= CONV_TOL[torch.float32], err
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 37, 16, 24), (1, 20, 20, 72, 64)])
+def test_conv3x3_fp32_takes_any_alignment(cuda, shape):
+    """fp32 x and w 4 bytes past a 16-byte boundary take the 4-byte
+    staging, launch and hold the same bound."""
+    x, w = KC.check_inputs_conv(*shape, torch.float32, cuda)
+    xs = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x).copy_(x)
+    ws = torch.empty(w.numel() + 1, device=cuda)[1:].view_as(w).copy_(w)
+    assert xs.data_ptr() % 16 and xs.is_contiguous()
+    before = KC.conv3x3.launches
+    with torch.no_grad():
+        out = KC.conv3x3(xs, ws)
+    torch.cuda.synchronize()
+    assert KC.conv3x3.launches == before + 1
+    assert _rel(out, KC.conv3x3_plain(x, w)) <= CONV_TOL[torch.float32]
 
 
 K6_SHAPES = [((2, 32, 32, 64, 64), 8), ((8, 256, 256, 64, 64), 8)]
@@ -798,6 +845,29 @@ CONV_FAULTS = {
 }
 K5_FAULTS = CONV_FAULTS
 K6_FAULTS = CONV_FAULTS
+# K5's fp32 path, the three-pass TF32 body (conv3_tf32.cuh): the window's
+# chunks written unswizzled while ldmatrix reads them swizzled; the halo's
+# zero-fill lost (positions outside the image and channels past cin read
+# x's first four floats); the right tap column reading the centre
+# column's window positions (a tap offset); the right tap column's
+# fragment of the second chunk not added; the weights' hi passed for their
+# lo; and TF32_FAULTS (the split in common.cuh)
+K5_F32_FAULTS = {
+    "swizzle_mismatch": ("cp16(win + row_chunk(pos, j), src, in);",
+                         "cp16(win + pos * 128 + (j << 4), src, in);"),
+    "halo_not_zeroed": ("cp16(win + row_chunk(pos, j), src, in);",
+                        "cp16(win + row_chunk(pos, j), src, true);"),
+    "tap_offset": ("const int wpos = apos + wr * WC + dx;",
+                   "const int wpos = apos + wr * WC + (dx == 2 ? 1 : dx);"),
+    "chunk_fragment_dropped": (
+        "for (int e = 0; e < 4; ++e) acc[r][n][e] += t[r][n][e];",
+        "for (int e = 0; e < 4; ++e) acc[r][n][e] += c == 1 && dx == 2 ? "
+        "0.f : t[r][n][e];"),
+    "weights_hi_for_lo": (
+        "mma_3xtf32(t[r][n], ah, al, bh[dy][n], bl[dy][n]);",
+        "mma_3xtf32(t[r][n], ah, al, bh[dy][n], bh[dy][n]);"),
+    **TF32_FAULTS,
+}
 
 
 def _check_fails(errs: dict, tol: float) -> bool:
@@ -808,12 +878,14 @@ def _check_fails(errs: dict, tol: float) -> bool:
 @pytest.fixture(scope="module")
 def conv_mutants(cuda, tmp_path_factory):
     root = tmp_path_factory.mktemp("conv_mutants")
-    (root / "k5").mkdir()
-    (root / "k6").mkdir()
+    for d in ("k5", "k6", "k5_f32"):
+        (root / d).mkdir()
     return (build_mutants(root / "k5", "conv3x3", K5_FAULTS,
                           KC.bind_conv3x3),
             build_mutants(root / "k6", "conv3_igemm", K6_FAULTS,
-                          KC.bind_igemm))
+                          KC.bind_igemm),
+            build_mutants(root / "k5_f32", "conv3x3", K5_F32_FAULTS,
+                          KC.bind_conv3x3))
 
 
 @pytest.fixture(scope="module")
@@ -829,6 +901,16 @@ def test_conv3x3_check_sees_planted_fault(cuda, conv_mutants, conv_refs,
             for s in [CONV_SMALL[3], K5_SHAPES[2]]}
     print(fault, errs)
     assert _check_fails(errs, CONV_TOL[torch.bfloat16]), errs
+
+
+@pytest.mark.parametrize("fault", sorted(K5_F32_FAULTS))
+def test_conv3x3_fp32_check_sees_planted_fault(cuda, conv_mutants, conv_refs,
+                                               monkeypatch, fault):
+    monkeypatch.setattr(KC, "_conv3x3_lib", lambda: conv_mutants[2][fault])
+    errs = {s: _k5_err(cuda, torch.float32, s, conv_refs)
+            for s in [CONV_SMALL[3], K5_SHAPES[2]]}
+    print(fault, errs)
+    assert _check_fails(errs, CONV_TOL[torch.float32]), errs
 
 
 @pytest.mark.parametrize("fault", sorted(K6_FAULTS))

@@ -4,8 +4,9 @@ torch on the CPU and held against the JAX package in fp32.
 On the card the fp32 bodies (``csrc/linear_attention_tf32.cuh`` for K1,
 ``flash_fwd_tf32x3`` in ``csrc/attention.cu`` for K2) take every product
 on the TF32 tensor cores in three passes: x = hi + lo with hi = tf32(x) and
-lo = tf32(x - hi), and a b ~= a_lo b_hi + a_hi b_lo + a_hi b_hi. Here TF32
-rounding is done on the fp32 bits with integer operations, as
+lo = x - hi, which the tensor cores read to TF32 by dropping its 13 low
+bits (``split_raw_lo``), and a b ~= a_lo b_hi + a_hi b_lo + a_hi b_hi. Here
+TF32 rounding is done on the fp32 bits with integer operations, as
 ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero), and each
 TF32 product is exact in fp32 (11-bit by 11-bit significands), so the
 design's error, and what a single pass would cost, show before any card
@@ -46,9 +47,18 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 
 def split(x: torch.Tensor) -> tuple:
     """(hi, lo): hi = tf32(x), lo = tf32(x - hi); x - hi is exact in
-    fp32."""
+    fp32. The exact two-term split, which ``split_raw_lo`` approximates."""
     hi = tf32(x)
     return hi, tf32(x.float() - hi)
+
+
+def split_raw_lo(x: torch.Tensor) -> tuple:
+    """(hi, lo) as the tensor cores take them from ``common.cuh``'s
+    ``split_frag``: hi = tf32(x) rounded, lo = x - hi (exact in fp32) read
+    to TF32 by dropping its 13 low bits."""
+    hi = tf32(x)
+    u = (x.float() - hi).contiguous().view(torch.int32)
+    return hi, (u & -0x2000).view(torch.float32)
 
 
 def mm3(a: torch.Tensor, b: torch.Tensor, passes: str = "three"):
@@ -56,8 +66,8 @@ def mm3(a: torch.Tensor, b: torch.Tensor, passes: str = "three"):
     exact in fp32, the sums in fp32: ``three`` passes, or a planted fault
     of the card tests: ``small_dropped`` (a_lo b_hi left out) or
     ``single`` (one TF32 pass)."""
-    ah, al = split(a)
-    bh, bl = split(b)
+    ah, al = split_raw_lo(a)
+    bh, bl = split_raw_lo(b)
     if passes == "single":
         return ah @ bh
     if passes == "small_dropped":
@@ -113,6 +123,24 @@ def test_split_keeps_10_bits_and_rebuilds_x_within_2_pow_minus_22():
     assert ((hi.double() - xd).abs() <= 2.0**-11 * xd.abs()).all()
     err = (hi.double() + lo.double() - xd).abs()
     assert (err <= 2.0**-22 * xd.abs()).all(), (err / xd.abs()).max()
+
+
+def test_raw_lo_split_loses_at_most_one_bit_of_the_exact_split():
+    # the kernels' split: the same hi, lo within one TF32 unit of the
+    # rounded lo (its low 13 bits dropped, not rounded), so hi + lo holds
+    # x within 2^-21 relative where the exact split holds 2^-22
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.normal(size=100_000) *
+                     10.0**rng.uniform(-30, 30, 100_000), dtype=torch.float32)
+    hi, lo = split(x)
+    hr, lr = split_raw_lo(x)
+    assert torch.equal(hr, hi)
+    assert not (lr.view(torch.int32) & 0x1FFF).any()
+    raw = (x.double() - hr.double()).abs()
+    assert ((lr.double() - lo.double()).abs() <= 2.0**-10 * raw).all()
+    xd = x.double()
+    err = (hr.double() + lr.double() - xd).abs()
+    assert (err <= 2.0**-21 * xd.abs()).all(), (err / xd.abs()).max()
 
 
 def test_three_passes_hold_fp32_products_where_one_does_not():
