@@ -32,8 +32,10 @@ Phases, each printing one JSON line:
 6. ``k4_*``: K4 (the LinearAttention core on packed qkv) driven through
    ``linear_attention_core`` at (8, n, 384) for the U-Net's four n, held
    against its plain version by max |got - ref| / max |ref| (3e-2 bf16,
-   1e-4 fp32), with times and bounds; also n = 1000 and, in fp32, the
-   backward against autograd of the plain version;
+   1e-4 fp32), with device time (a CUDA graph of 20 calls) beside event
+   time, bounds, shares of the bound and one call's device time by launch
+   (``tools/profile_k4.py``); also n = 1000 and, in fp32, the backward
+   against autograd of the plain version;
 7. ``conv_tools``: the two conv tools' entry points,
    ``pointreggpt_tpu_torch.tools.profile_conv.main`` (K5 through the
    ``conv3x3`` op at the U-Net's four hot conv shapes, bf16, against the
@@ -432,8 +434,11 @@ K4_RTOL = {"bfloat16": 3e-2, "float32": 1e-4}
 
 def phase_k4(torch, K1, dev, dtype):
     """K4 driven through ``linear_attention_core`` at (8, n, 384) for the
-    four n, against its plain version on ``K1.check_inputs_core``."""
+    four n, against its plain version on ``K1.check_inputs_core``; each
+    shape's device time (a CUDA graph of 20 calls), event time and one
+    call's device time by launch (``tools/profile_k4.py``)."""
     from pointreggpt_tpu_torch.tools import errors
+    from pointreggpt_tpu_torch.tools.profile_k4 import profile_shape
 
     name = str(dtype).split(".")[-1]
     rtol, size = K4_RTOL[name], torch.tensor([], dtype=dtype).element_size()
@@ -453,15 +458,19 @@ def phase_k4(torch, K1, dev, dtype):
         if not np.isfinite(err) or err > rtol:
             raise AssertionError(f"K4 {name} at (8, {n}): relative error "
                                  f"{err} > {rtol}")
-        ms = time_ms(lambda: K1.linear_attention_core(qkv), 20)
         plain_ms = time_ms(lambda: K1.linear_attention_core_plain(qkv), 2, 1)
+        del ref
+        prof = profile_shape(torch, K1, n, dtype)
         wk = K1.work_core(8, n, size)
         b_ms, b_by = bound(wk, PEAK[name])
-        rows.append(dict(n=n, **e, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, **cuda_core_bound(wk, name), **wk))
-        del ref
+        rows.append(dict(n=n, **e, ms=prof["graph_ms"],
+                         event_ms=prof["event_ms"], plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         share_of_bound=b_ms / prof["graph_ms"],
+                         **cuda_core_bound(wk, name),
+                         by_launch=prof["by_launch"], **wk))
     del inputs
-    # a row count that is no multiple of the 16-row tile
+    # a row count that is no multiple of the 64-row tile
     qkv = K1.check_inputs_core(8, 1000, dtype, dev)
     odd_err = errors(K1.linear_attention_core(qkv),
                      K1.linear_attention_core_plain(qkv))["rel_err"]
@@ -483,13 +492,18 @@ def phase_k4(torch, K1, dev, dtype):
     torch.cuda.empty_cache()
     emit(f"k4_{name}", shapes=rows, rtol=rtol, launches=launches, **extra)
     b_ms, b_by = summed_bound(rows, PEAK[name])
+    ms = sum(r["ms"] for r in rows)
+    by_launch = {}
+    for r in rows:
+        for k, v in r["by_launch"].items():
+            by_launch[k] = by_launch.get(k, 0.0) + v
     return dict(launches=launches,
                 max_rel_err=max(r["rel_err"] for r in rows),
                 max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=sum(r["ms"] for r in rows),
+                ms=ms, event_ms=sum(r["event_ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=b_ms, bound_by=b_by,
-                **cuda_core_bound(summed(rows), name))
+                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                **cuda_core_bound(summed(rows), name), by_launch=by_launch)
 
 
 CONV_RTOL = 1e-2  # K5 and K6 against their plain versions, bf16
@@ -1507,13 +1521,18 @@ def main(argv=None) -> int:
              fp32=k3_f32, **k3),
         dict(name="linear_attention_core", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_core.cu",
-             headers=[KV_HEADER],
+             headers=[KV_HEADER, TC_HEADER, TF32_HEADER],
              replaces="pointreggpt_tpu/ops/linear_attention.py:95",
              library_ms=None,
              work="linear_attention_core at (8, n, 384) bf16 for n = 65536, "
                   "16384, 4096, 1024, one call each (times and bounds "
-                  "summed over the 4 shapes); launches counted over those "
-                  "calls; max_rel_err is the one the check bounds",
+                  "summed over the 4 shapes; ms is device time, a CUDA "
+                  "graph of 20 calls, event_ms back-to-back launches, "
+                  "by_launch one profiled call's device time); launches "
+                  "counted over those calls; max_rel_err is the one the "
+                  "check bounds; bf16 and fp32 (under fp32, three TF32 "
+                  "passes, bound_ms at 494.7 / 3 TFLOP/s) on the tensor "
+                  "cores, kernels A, B and C of linear_attention_core.cu",
              fp32={k: v for k, v in k4_f32.items() if k != "launches"},
              **k4),
         dict(name="conv3x3", route="cuda",

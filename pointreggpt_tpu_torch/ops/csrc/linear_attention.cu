@@ -141,7 +141,7 @@ kv_partials_tc(const __nv_bfloat16* __restrict__ x,
 __global__ void __launch_bounds__(tc::NTHREADS)
 merge_context_tc(const float* __restrict__ part, float* __restrict__ chat,
                  int splits, float scale) {
-  tc::merge_context_tc_body(part, chat, nullptr, splits, scale);
+  merge_context_body<__nv_bfloat16>(part, chat, nullptr, splits, scale);
 }
 
 __global__ void __launch_bounds__(tc::NTHREADS)
@@ -229,7 +229,7 @@ emit_out_tf32(const float* __restrict__ x, const float* __restrict__ wqkv,
 __global__ void __launch_bounds__(tf32x3::NTHREADS)
 merge_context_tf32(const float* __restrict__ part, float* __restrict__ chat,
                    int splits, float scale) {
-  tf32x3::merge_context_tf32_body(part, chat, nullptr, splits, scale);
+  merge_context_body<float>(part, chat, nullptr, splits, scale);
 }
 
 // fp32: kernels A and C on the TF32 tensor cores in three passes, B with

@@ -98,7 +98,7 @@ __global__ void __launch_bounds__(tf32x3::NTHREADS)
 bwd_merge_context_tf32(const float* __restrict__ part,
                        float* __restrict__ chat, float* __restrict__ stats,
                        int splits, float scale) {
-  tf32x3::merge_context_tf32_body(part, chat, stats, splits, scale);
+  merge_context_body<float>(part, chat, stats, splits, scale);
 }
 
 __global__ void __launch_bounds__(bwd32::NTHREADS, 1)
@@ -196,7 +196,7 @@ bwd_kv_partials_tc(const __nv_bfloat16* __restrict__ x,
 __global__ void __launch_bounds__(tc::NTHREADS)
 bwd_merge_context_tc(const float* __restrict__ part, float* __restrict__ chat,
                      float* __restrict__ stats, int splits, float scale) {
-  tc::merge_context_tc_body(part, chat, stats, splits, scale);
+  merge_context_body<__nv_bfloat16>(part, chat, stats, splits, scale);
 }
 
 __global__ void __launch_bounds__(tc::NTHREADS, 2)

@@ -1,9 +1,9 @@
 // K3's bf16 bodies on the tensor cores, written for Hopper (sm_90a): the
 // q path, the kv path and the weight-gradient products of
 // linear_attention_bwd.cu. The k/v statistics and their merge are K1's
-// kernels A and B (kv_partials_tc_body, merge_context_tc_body in
-// linear_attention_tc.cuh; B also keeps the merged m, s and C for the
-// fold); the fold (dC^ -> dC, ds) and the fixed-order reductions stay the
+// kernels A and B (kv_partials_tc_body in linear_attention_tc.cuh,
+// merge_context_body in linear_attention_kv.cuh; B also keeps the merged
+// m, s and C for the fold); the fold (dC^ -> dC, ds) and the fixed-order reductions stay the
 // shared CUDA-core kernels of linear_attention_bwd.cu.
 //
 // - Tiles. TM (64) rows, 8 warps, as K1's kernels; a block walks the row

@@ -1,13 +1,11 @@
 // K1's bf16 bodies on the tensor cores, written for Hopper (sm_90a):
-// the three launches of K1 (linear_attention.cu): A (kv_partials_tc), B
-// (merge_context_tc) and C (emit_out_tc). A writes the same (m, s, C)
-// partials as the CUDA-core body, in the same scratch layout; B merges
-// them as merge_context_body (linear_attention_kv.cuh) does, with one
-// thread per entry of C^ instead of one block per batch row (that body's
-// split loop was a quarter of the bf16 forward's time at 64 splits). K3's
-// bf16 backward runs A and B too (linear_attention_bwd.cu); the fp32
-// paths have bodies of their own (linear_attention_tf32.cuh), and K4
-// keeps the CUDA-core bodies of linear_attention_kv.cuh.
+// kernels A (kv_partials_tc) and C (emit_out_tc) of K1's three launches
+// (linear_attention.cu); its kernel B is linear_attention_kv.cuh's
+// merge_context_body, which merges A's (m, s, C) partials with one thread
+// per entry of C^. K3's bf16 backward runs A and B too
+// (linear_attention_bwd.cu); the fp32 paths have bodies of their own
+// (linear_attention_tf32.cuh), and K4 (linear_attention_core.cu) uses this
+// file's fragment loaders and swizzle.
 //
 // - Tiles. TM (64) rows, 8 warps. x is staged by cp.async in chunks of
 //   KCH (64) channels, 128-byte rows; channels past c are zero-filled (c
@@ -18,7 +16,7 @@
 //   otherwise each ring stage carries its chunk of weights with x's chunk
 //   (streamed from L2). A block walks many tiles (A: its split's row range;
 //   C: a persistent grid over all tiles), so resident weights are read once
-//   per block, not once per 16 rows as in the CUDA-core body.
+//   per block, not once per tile.
 // - Ring. Two stages, one work item (a tile's chunk) each: item i + 1
 //   loads while item i computes.
 // - Swizzle. Every staged row is a multiple of 128 bytes; 16-byte chunk j
@@ -164,7 +162,8 @@ __device__ __forceinline__ float col_sum(float v) {
 }
 
 // Kernel A over grid (splits, b): the (m, s, C) partials of split
-// blockIdx.x of batch row blockIdx.y, as kv_partials_body writes them.
+// blockIdx.x of batch row blockIdx.y, in PSTRIDE floats each: m, s, then
+// the four 32x32 head blocks of C.
 __device__ __forceinline__ void kv_partials_tc_body(
     const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     float* __restrict__ part, int n, int c, int rows_per_split, int splits,
@@ -674,44 +673,6 @@ __device__ __forceinline__ void emit_out_tc_body(
     }
   }
   cp_wait<0>();
-}
-
-// Kernel B over grid (CBLK / NTHREADS, b): the partials of batch row
-// blockIdx.y merged with max-rescaling into C^ (rounded to bf16), one
-// thread per entry of the four head blocks, as merge_context_body computes
-// it but spread over CBLK threads per batch row instead of one block; when
-// stats is not null (K3), also the merged m, s and unscaled C into
-// stats[bi * STATS + (0 | HID | 2 * HID)].
-__device__ __forceinline__ void merge_context_tc_body(
-    const float* __restrict__ part, float* __restrict__ chat,
-    float* __restrict__ stats, int splits, float scale) {
-  const int idx = blockIdx.x * NTHREADS + threadIdx.x;
-  const int bi = blockIdx.y;
-  const int d = (idx / (DH * DH)) * DH + (idx / DH) % DH;  // C^'s row lane
-  const float* pb = part + static_cast<size_t>(bi) * splits * PSTRIDE;
-  float m = -INFINITY;
-#pragma unroll 8
-  for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, pb[sp * PSTRIDE + d]);
-  float s = 0.f, acc = 0.f;
-#pragma unroll 8
-  for (int sp = 0; sp < splits; ++sp) {
-    const float mi = pb[sp * PSTRIDE + d];
-    if (mi != -INFINITY) {
-      const float w = expf(mi - m);
-      s += pb[sp * PSTRIDE + HID + d] * w;
-      acc += pb[sp * PSTRIDE + 2 * HID + idx] * w;
-    }
-  }
-  chat[static_cast<size_t>(bi) * CBLK + idx] =
-      rnd<bf16>(acc * scale * (1.f / fmaxf(s, 1e-30f)));
-  if (stats) {
-    float* st = stats + static_cast<size_t>(bi) * STATS;
-    st[2 * HID + idx] = acc;
-    if (idx % DH == 0) {
-      st[d] = m;
-      st[HID + d] = s;
-    }
-  }
 }
 
 // Dynamic shared memory of kernel A (weights resident or streamed) and

@@ -1,11 +1,11 @@
-// K1's fp32 bodies, written for Hopper (sm_90a): the three launches of
-// K1 (linear_attention.cu): A (kv_partials_tf32) and C (emit_out_tf32) on
-// the TF32 tensor cores, and B (merge_context_tf32), which merges A's
-// partials with one thread per entry of C^. A writes the same (m, s, C)
-// partials as the other bodies, in the same scratch layout. K3's fp32
-// backward (linear_attention_bwd.cu) launches this A and B too, so that
-// it recomputes the forward's statistics bit for bit. K4 keeps the
-// CUDA-core bodies of linear_attention_kv.cuh.
+// K1's fp32 bodies, written for Hopper (sm_90a): kernels A
+// (kv_partials_tf32) and C (emit_out_tf32) of K1's three launches
+// (linear_attention.cu), on the TF32 tensor cores; kernel B is
+// linear_attention_kv.cuh's merge_context_body, as in bf16. A writes the
+// same (m, s, C) partials as the other bodies, in the same scratch layout.
+// K3's fp32 backward (linear_attention_bwd.cu) launches this A and B too,
+// so that it recomputes the forward's statistics bit for bit. K4
+// (linear_attention_core.cu) uses this file's swizzles.
 //
 // Every product runs in three TF32 passes (common.cuh: a b ~= a_lo b_hi +
 // a_hi b_lo + a_hi b_hi, about 21 bits of each product, where one TF32
@@ -177,7 +177,7 @@ __device__ __forceinline__ void ldb(uint32_t (&hi)[2], uint32_t (&lo)[2],
 }
 
 // Kernel A over grid (splits, b): the (m, s, C) partials of split
-// blockIdx.x of batch row blockIdx.y, as kv_partials_body writes them.
+// blockIdx.x of batch row blockIdx.y, as kv_partials_tc_body writes them.
 __device__ __forceinline__ void kv_partials_tf32_body(
     const float* __restrict__ x, const float* __restrict__ wqkv,
     float* __restrict__ part, int n, int c, int rows_per_split, int splits,
@@ -707,44 +707,6 @@ __device__ __forceinline__ void emit_out_tf32_body(
     }
   }
   cp_wait<0>();
-}
-
-// Kernel B over grid (CBLK / NTHREADS, b): the partials of batch row
-// blockIdx.y merged with max-rescaling into C^, one thread per entry of
-// the four head blocks, as linear_attention_tc.cuh's kernel B does (one
-// block per batch row, as merge_context_body runs, walks some 66 splits
-// per entry serially); when stats is not null (K3), also the merged m, s
-// and unscaled C into stats[bi * STATS + (0 | HID | 2 * HID)].
-__device__ __forceinline__ void merge_context_tf32_body(
-    const float* __restrict__ part, float* __restrict__ chat,
-    float* __restrict__ stats, int splits, float scale) {
-  const int idx = blockIdx.x * NTHREADS + threadIdx.x;
-  const int bi = blockIdx.y;
-  const int d = (idx / (DH * DH)) * DH + (idx / DH) % DH;  // C^'s row lane
-  const float* pb = part + static_cast<size_t>(bi) * splits * PSTRIDE;
-  float m = -INFINITY;
-#pragma unroll 8
-  for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, pb[sp * PSTRIDE + d]);
-  float s = 0.f, acc = 0.f;
-#pragma unroll 8
-  for (int sp = 0; sp < splits; ++sp) {
-    const float mi = pb[sp * PSTRIDE + d];
-    if (mi != -INFINITY) {
-      const float w = expf(mi - m);
-      s += pb[sp * PSTRIDE + HID + d] * w;
-      acc += pb[sp * PSTRIDE + 2 * HID + idx] * w;
-    }
-  }
-  chat[static_cast<size_t>(bi) * CBLK + idx] =
-      acc * scale * (1.f / fmaxf(s, 1e-30f));
-  if (stats) {
-    float* st = stats + static_cast<size_t>(bi) * STATS;
-    st[2 * HID + idx] = acc;
-    if (idx % DH == 0) {
-      st[d] = m;
-      st[HID + d] = s;
-    }
-  }
 }
 
 // Dynamic shared memory of kernel A (weights resident or streamed) and

@@ -31,7 +31,8 @@ n) linear attention core -> out projection + bias -> channel LayerNorm
 ``linear_attention_core`` is the core alone, (b, n, 3*hidden) packed
 ``[q | k | v]`` -> (b, n, hidden), the port of the JAX ``custom_vjp`` of the
 same name. Its forward runs K4 (``csrc/linear_attention_core.cu``, which
-replaces ``_pallas_core``) for a CUDA tensor and
+replaces ``_pallas_core``; on the tensor cores, bf16 in one pass and fp32
+in three TF32 passes) for a CUDA tensor and
 ``linear_attention_core_plain`` for a CPU tensor; its backward is the
 gradient of the plain version, recomputed, on either device: the JAX
 package has no backward kernel for K4 (its ``_bwd`` takes XLA's vjp of
@@ -150,11 +151,15 @@ def fused_linear_attention_bwd_plain(x, dy, w_qkv, w_out, b_out, g_out,
         return torch.autograd.grad(out, leaves, dy.to(out.dtype))
 
 
-def _splits(b: int, n: int, rows: int):
-    """(splits, rows_per_split) for the kv phase: enough blocks to fill the
-    card, each a whole number of row tiles."""
+def _splits(b: int, n: int, rows: int, per_row: int | None = None):
+    """(splits, rows_per_split) for a kv phase: up to ``per_row`` blocks
+    for each batch row (K1 and K3: enough to fill the card about twice,
+    ``_TARGET_BLOCKS`` in all), each a whole number of row tiles and none
+    empty."""
+    if per_row is None:
+        per_row = -(-_TARGET_BLOCKS // b)
     tiles = -(-n // rows)
-    splits = max(1, min(tiles, -(-_TARGET_BLOCKS // b)))
+    splits = max(1, min(tiles, per_row))
     tiles_per_split = -(-tiles // splits)
     return -(-tiles // tiles_per_split), tiles_per_split * rows
 
@@ -344,10 +349,17 @@ def _core_forward(qkv: torch.Tensor, heads: int, dim_head: int
         raise ValueError("linear_attention_core: qkv must be a contiguous "
                          f"(b, n >= 1, {3 * HIDDEN}) tensor, got "
                          f"{tuple(qkv.shape)}")
+    if qkv.data_ptr() % 16:
+        raise ValueError("linear_attention_core: the kernel stages 16-byte "
+                         "chunks and needs a 16-byte aligned qkv")
     b, n, _ = qkv.shape
+    bf16 = int(qkv.dtype == torch.bfloat16)
     lib = _core_lib()
-    splits, rows_per_split = _splits(
-        b, n, lib.prgpt_linear_attention_core_rows_per_tile())
+    slots = ctypes.c_int(0)
+    _build.check(lib.prgpt_linear_attention_core_kv_slots(
+        bf16, ctypes.byref(slots)), "linear_attention_core")
+    splits, rows_per_split = _core_splits(
+        b, n, lib.prgpt_linear_attention_core_rows_per_tile(), slots.value)
     # the scratch may be freed on return while the launches still run: the
     # caching allocator hands its memory out again only in the order of
     # this stream
@@ -356,11 +368,19 @@ def _core_forward(qkv: torch.Tensor, heads: int, dim_head: int
     out = torch.empty((b, n, HIDDEN), dtype=qkv.dtype, device=qkv.device)
     rc = lib.prgpt_linear_attention_core(
         qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, splits,
-        rows_per_split, int(qkv.dtype == torch.bfloat16),
+        rows_per_split, bf16,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(rc, "linear_attention_core")
     linear_attention_core.launches += 1
     return out
+
+
+def _core_splits(b: int, n: int, rows: int, slots: int):
+    """K4's kv splits: ``slots`` is how many blocks of its kernel A the card
+    holds at once (132 SMs x 2 in bf16, x 1 in fp32 on an H100), so each
+    batch row gets ``slots // b`` of them and the kv phase runs in one
+    wave, every block with its ring of tiles in flight."""
+    return _splits(b, n, rows, max(1, slots // b))
 
 
 class LinearAttentionCoreFn(torch.autograd.Function):
@@ -454,6 +474,9 @@ def bind_core(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.prgpt_linear_attention_core.restype = i
         lib.prgpt_linear_attention_core_rows_per_tile.argtypes = []
         lib.prgpt_linear_attention_core_rows_per_tile.restype = i
+        lib.prgpt_linear_attention_core_kv_slots.argtypes = [
+            i, ctypes.POINTER(i)]
+        lib.prgpt_linear_attention_core_kv_slots.restype = i
         lib.prgpt_linear_attention_core_scratch.argtypes = [i, i]
         lib.prgpt_linear_attention_core_scratch.restype = ctypes.c_longlong
         lib._prgpt_typed = True

@@ -378,7 +378,8 @@ def _includes(name, files):
     ("K2_FAULTS", "attention"), ("K2_F32_FAULTS", "attention"),
     ("K3_FAULTS", "linear_attention_bwd"),
     ("K3_TC_FAULTS", "linear_attention_bwd"),
-    ("K4_FAULTS", "linear_attention_core"), ("K5_FAULTS", "conv3x3"),
+    ("K4_FAULTS", "linear_attention_core"),
+    ("K4_TC_FAULTS", "linear_attention_core"), ("K5_FAULTS", "conv3x3"),
     ("K5_F32_FAULTS", "conv3x3"), ("K6_FAULTS", "conv3_igemm")])
 def test_planted_fault_texts_each_sit_in_one_source(table, source):
     # the card's mutant builds patch the one file of the kernel's source and

@@ -64,14 +64,16 @@ def split_raw_lo(x: torch.Tensor) -> tuple:
 def mm3(a: torch.Tensor, b: torch.Tensor, passes: str = "three"):
     """a @ b as the kernels take it on the TF32 tensor cores, each product
     exact in fp32, the sums in fp32: ``three`` passes, or a planted fault
-    of the card tests: ``small_dropped`` (a_lo b_hi left out) or
-    ``single`` (one TF32 pass)."""
+    of the card tests: ``small_dropped`` (a_lo b_hi left out),
+    ``b_lo_dropped`` (a_hi b_lo left out) or ``single`` (one TF32 pass)."""
     ah, al = split_raw_lo(a)
     bh, bl = split_raw_lo(b)
     if passes == "single":
         return ah @ bh
     if passes == "small_dropped":
         return ah @ bl + ah @ bh
+    if passes == "b_lo_dropped":
+        return al @ bh + ah @ bh
     return al @ bh + ah @ bl + ah @ bh
 
 
