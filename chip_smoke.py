@@ -79,12 +79,21 @@ Phases, each printing one JSON line:
    on 64 synthetic depth frames, 3 steps with a milestone at step 3;
    checks the losses, the 5x5 sample grid, the checkpoint's reference
    layout, that ``Generator.load`` reads it, and the launches (16 K1,
-   16 K3 and 2 K2 per optimizer step; the milestone's grid counted apart).
+   16 K3 and 2 K2 per optimizer step; the milestone's grid counted apart);
+14. ``mask_train_path``: K1, K3 and K2 in fp32 against their plain
+   versions at the MaskTrainer's batch of 4, then the depth-correction
+   entry points at ``MaskModelConfig`` / ``MaskTrainConfig`` widths:
+   ``make_depth_correction_data`` on 48 synthetic pairs whose frames
+   differ by a camera motion, ``train_depth_correction`` for 2 epochs and
+   a resumed third, ``test_depth_correction`` on 4 items; checks 8 K1,
+   8 K3 and 1 K2 per optimizer step, the staircase learning rate, both
+   checkpoints, the Generator's reading of ``model-best.pt`` and 8 GIFs,
+   and reports each step's time by CUDA events beside ``mask_fwd_bwd``'s.
 
 The last three lines are the kernel table (one JSON object: K1-K3's
-launch counts from the two main paths, K4's from its op's drive, K5's and
-K6's from their tools' entry points; K1's and K3's ``plain_routes``, the
-calls routed to the plain version by shape, must be 0 on both paths), the
+launch counts from the three main paths, K4's from its op's drive, K5's
+and K6's from their tools' entry points; K1's and K3's ``plain_routes``,
+the calls routed to the plain version by shape, must be 0 on each path), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -784,15 +793,6 @@ MASK_SETTLE = 0.05  # warm-up ends when three steps lie within 5%
 MASK_WARMUP_MAX = 12
 
 
-def mask_loss(torch, prob, target):
-    """The MaskTrainer's loss: binary cross entropy on the keep
-    probabilities, each log term floored at -100."""
-    tiny = torch.finfo(torch.float32).tiny
-    log_p = torch.log(prob.clamp_min(tiny)).clamp_min(-100.0)
-    log_q = torch.log((1 - prob).clamp_min(tiny)).clamp_min(-100.0)
-    return -(target * log_p + (1 - target) * log_q).mean()
-
-
 def phase_mask_fwd_bwd(torch, K1, K2, dev):
     """One fp32 MaskUNet (``MaskModelConfig``: dim 64, (1, 2, 4, 8), 8
     groups) forward and backward of the MaskTrainer's loss at its
@@ -808,6 +808,7 @@ def phase_mask_fwd_bwd(torch, K1, K2, dev):
 
     from pointreggpt_tpu_torch import config as C
     from pointreggpt_tpu_torch.models.blocks import LinearAttention
+    from pointreggpt_tpu_torch.train.mask_trainer import bce_loss
 
     def inputs(batch, seed):
         rng = np.random.default_rng(seed)
@@ -818,7 +819,7 @@ def phase_mask_fwd_bwd(torch, K1, K2, dev):
                 torch.tensor(target, dtype=torch.float32))
 
     def step(net, depth, target):
-        mask_loss(torch, net(depth), target).backward()
+        bce_loss(net(depth), target).backward()
 
     torch.manual_seed(0)
     net = C.build_mask_unet(C.MaskModelConfig()).to(
@@ -885,6 +886,7 @@ def phase_mask_fwd_bwd(torch, K1, K2, dev):
          fwd_bwd=device_time(torch, prof))
     del gpu_net, depth, target, prof
     torch.cuda.empty_cache()
+    return {"step_ms": float(np.median(times)), "step_ms_all": times}
 
 
 def write_synthetic_tree(root: Path, n_scenes: int, seed: int):
@@ -961,6 +963,267 @@ def check_no_routes(where: str, routes: dict) -> None:
     if any(routes.values()):
         raise AssertionError(f"{where}: calls routed to the plain version "
                              f"by shape {routes}, want none")
+
+
+MASK_PAIRS = 48  # 36 train pairs (9 steps an epoch at batch 4), 12 val
+MASK_VAL_FRACTION = 0.25  # 12 val pairs: batches of 8 and a ragged 4
+MASK_EPOCHS = 2  # then a resumed call runs the third
+MASK_ATOL = 1e-5  # keep probabilities, the Generator's net vs the trainer's
+
+
+def mask_batch_checks(torch, K1, K2) -> dict:
+    """K1, K3 and K2 in fp32 against their plain versions at the
+    MaskTrainer's batch (``MASK_BATCH``), on the shapes its step gives
+    them: K1 and K3 at the MaskUNet's eight (n, c) (``K1_SHAPES``; the kv
+    split layout and its merge depend on the batch,
+    ``ops/linear_attention.py::_splits``), K2 at (4, 1024, 4, 32); the
+    gates of ``phase_k1``, ``phase_k3`` and ``phase_k2``. Returns the
+    largest error of each."""
+    dev, f32, eps = torch.device("cuda"), torch.float32, 1e-5
+    k1_atol, k2_atol = K_ATOL[("k1", "float32")], K_ATOL[("k2", "float32")]
+    k3_rtol = K3_ATOL["float32"]
+    k1_err = k3_rel = 0.0
+    for n, c in sorted(set(K1_SHAPES)):
+        args = K1.check_inputs(MASK_BATCH, n, c, f32, dev)
+        out = K1.fused_linear_attention(*args, eps=eps)
+        ref = K1.fused_linear_attention_plain(*args, eps=eps)
+        err = (out - ref).abs().max().item()
+        if not err <= k1_atol:
+            raise AssertionError(f"K1 float32 at ({MASK_BATCH}, {n}, {c}): "
+                                 f"max abs err {err} > {k1_atol}")
+        k1_err = max(k1_err, err)
+        del args, out, ref
+        rel, _ = k3_errors(torch, K1, K1.check_inputs_bwd(
+            MASK_BATCH, n, c, f32, dev), eps)
+        bad = {k: v for k, v in rel.items() if not v <= k3_rtol}
+        if bad:
+            raise AssertionError(f"K3 float32 at ({MASK_BATCH}, {n}, {c}): "
+                                 f"relative errors {bad} > {k3_rtol}")
+        k3_rel = max(k3_rel, *rel.values())
+        torch.cuda.empty_cache()
+    q, k, v = K2.check_inputs(MASK_BATCH, 1024, 4, 32, f32, dev)
+    k2_err = (K2.multihead_attention(q, k, v, scale=32**-0.5) -
+              K2.multihead_attention_plain(q, k, v, scale=32**-0.5)
+              ).abs().max().item()
+    if not k2_err <= k2_atol:
+        raise AssertionError(f"K2 float32 at ({MASK_BATCH}, 1024, 4, 32): "
+                             f"max abs err {k2_err} > {k2_atol}")
+    return dict(batch=MASK_BATCH, k1_max_abs_err=k1_err, k1_atol=k1_atol,
+                k3_max_rel_err=k3_rel, k3_rtol=k3_rtol,
+                k2_max_abs_err=k2_err, k2_atol=k2_atol)
+
+
+def phase_mask_train_path(torch, K1, K2, seed: int, tmp: Path,
+                          fwd_bwd: dict):
+    """The depth-correction path through its three entry points at the
+    production configuration (``MaskModelConfig``: dim 64, (1, 2, 4, 8),
+    fp32; ``MaskTrainConfig``: batch 4 at 256^2, lr 4e-5, gamma 0.95,
+    validation batch 8), cut in depth only (48 pairs, 3 epochs):
+    ``make_depth_correction_data`` on a synthetic tree whose fragment
+    pairs differ by a camera motion, ``train_depth_correction`` for 2
+    epochs and again with ``--resume latest`` for a third, then
+    ``test_depth_correction`` on 4 items. Checks 8 K1, 8 K3 and 1 K2 per
+    optimizer step (8 K1 and 1 K2 per validation batch, and the forward
+    that records the best net's output, counted apart), no
+    plain route, finite losses, the staircase learning rate, both
+    checkpoints, the Generator's reading of ``model-best.pt`` (its net's
+    keep probabilities on a validation input against the trainer's net's
+    when it saved them, within ``MASK_ATOL``) and the 8 GIFs; reports each
+    step's device time (CUDA events) beside ``mask_fwd_bwd``'s median.
+    First, apart from the counted run, :func:`mask_batch_checks`."""
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.cli import make_depth_correction_data
+    from pointreggpt_tpu_torch.cli import test_depth_correction
+    from pointreggpt_tpu_torch.cli import train_depth_correction
+    from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
+    from pointreggpt_tpu_torch.generate import Generator
+    from pointreggpt_tpu_torch.models.blocks import LinearAttention
+    from pointreggpt_tpu_torch.tools.synthetic_3dmatch import (
+        write_motion_tree)
+    from pointreggpt_tpu_torch.train import checkpoint as ckpt
+    from pointreggpt_tpu_torch.train import mask_trainer as mt
+
+    checks = mask_batch_checks(torch, K1, K2)
+    root = tmp / "mask_path"
+    rgbd, data_root, info_path, _ = write_motion_tree(root, MASK_PAIRS, seed)
+    cfg = C.MaskTrainConfig()
+    pairs, results = root / "pairs", root / "results"
+    steps, epochs, evals, best_probs, saves = [], [], [], [], []
+    Trainer = mt.MaskTrainer
+    orig = (Trainer.train_step, Trainer.train_one_epoch,
+            Trainer.eval_one_epoch, Trainer.save)
+
+    def train_step(self, *a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss = orig[0](self, *a)
+        e1.record()
+        steps.append((self.epoch, e0, e1, loss,
+                      self.opt.param_groups[0]["lr"]))
+        return loss
+
+    def train_one_epoch(self):
+        t0 = time.perf_counter()
+        out = orig[1](self)
+        epochs.append((self.epoch, time.perf_counter() - t0))
+        return out
+
+    def eval_one_epoch(self):
+        before = counts(K1, K2)[:3]
+        t0 = time.perf_counter()
+        orig[2](self)
+        evals.append((self.epoch, time.perf_counter() - t0,
+                      tuple(b - a for a, b in zip(before,
+                                                  counts(K1, K2)[:3]))))
+
+    def save(self, milestone):
+        if milestone == "best":
+            # the net's keep probabilities when it is saved as the best,
+            # its launches counted apart
+            before = counts(K1, K2)[:3]
+            with torch.inference_mode():
+                best_probs[:] = [self.model.eval()(val_input()).cpu()]
+            saves.append(tuple(b - a for a, b in zip(before,
+                                                     counts(K1, K2)[:3])))
+        orig[3](self, milestone)
+
+    def val_input():
+        item = mt.PairedDepthDataset(str(pairs), "val", cfg.image_size)[0]
+        return torch.from_numpy(item["input_img"][None]).permute(
+            0, 3, 1, 2).cuda()
+
+    cwd = os.getcwd()
+    os.chdir(root)  # the tester reads ./dataset/indoor/data
+    try:
+        t0 = time.perf_counter()
+        make_depth_correction_data.main([
+            "--data", str(rgbd), "--train_info", str(info_path),
+            "--data_root", str(data_root), "--out", str(pairs),
+            "--image_size", str(cfg.image_size),
+            "--num_pairs", str(MASK_PAIRS),
+            "--val_fraction", str(MASK_VAL_FRACTION), "--seed", str(seed)])
+        make_s = time.perf_counter() - t0
+        flags = ["--data", str(pairs), "--results_folder", str(results),
+                 "--samples_folder", str(root / "samples")]
+        (Trainer.train_step, Trainer.train_one_epoch,
+         Trainer.eval_one_epoch, Trainer.save) = (
+            train_step, train_one_epoch, eval_one_epoch, save)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(K1, K2)
+        t0 = time.perf_counter()
+        train_depth_correction.main(flags + ["--epochs", str(MASK_EPOCHS)])
+        train_depth_correction.main(flags + [
+            "--epochs", str(MASK_EPOCHS + 1), "--resume", "latest"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        *total, routes = counts(K1, K2)
+        peak = torch.cuda.max_memory_allocated()
+        (Trainer.train_step, Trainer.train_one_epoch,
+         Trainer.eval_one_epoch, Trainer.save) = orig
+        t0 = time.perf_counter()
+        test_depth_correction.main([
+            "--resume", "best", "--data", str(rgbd),
+            "--info", str(info_path), "--limit", "4",
+            "--image_size", str(cfg.image_size),
+            "--results_folder", str(results),
+            "--samples_folder", str(root / "test_samples")])
+        test_s = time.perf_counter() - t0
+    finally:
+        (Trainer.train_step, Trainer.train_one_epoch,
+         Trainer.eval_one_epoch, Trainer.save) = orig
+        os.chdir(cwd)
+
+    n_train = len(json.loads((pairs / "metadata/train.json").read_text()))
+    per_epoch = n_train // cfg.train_batch_size
+    n_steps = len(steps)
+    if [e for e, _ in epochs] != list(range(MASK_EPOCHS + 1)) or \
+            n_steps != per_epoch * (MASK_EPOCHS + 1) or per_epoch < 8:
+        raise AssertionError(
+            f"mask_train_path: epochs {[e for e, _ in epochs]} with "
+            f"{n_steps} steps, want 0..{MASK_EPOCHS} (the last resumed) "
+            f"of {per_epoch} >= 8 steps")
+    val_batches = -(-len(json.loads((pairs / "metadata/val.json")
+                                    .read_text())) // cfg.val_batch_size)
+    mask = C.build_mask_unet(C.MaskModelConfig())
+    n_attn = sum(isinstance(m, LinearAttention) for m in mask.modules())
+    eval_n = tuple(sum(e[2][i] for e in evals) for i in range(3))
+    want_eval = (n_attn * val_batches * len(evals), 0,
+                 val_batches * len(evals))
+    save_n = tuple(sum(n[i] for n in saves) for i in range(3))
+    step_n = tuple(t - v - b for t, v, b in zip(total, eval_n, save_n))
+    want_step = (n_attn * n_steps, n_attn * n_steps, n_steps)
+    if (step_n, eval_n) != (want_step, want_eval) or len(evals) != 3:
+        raise AssertionError(
+            f"mask_train_path launches K1, K3, K2: steps {step_n} (want "
+            f"{want_step}), validation {eval_n} (want {want_eval})")
+    check_no_routes("mask_train_path", routes)
+    losses = [v.item() for _, _, _, v, _ in steps]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"mask_train_path losses {losses}")
+    lrs = {e: lr for e, _, _, _, lr in steps}
+    want_lrs = {e: cfg.train_lr * cfg.lr_gamma**e for e in lrs}
+    if any(abs(lrs[e] - want_lrs[e]) > 1e-12 for e in lrs):
+        raise AssertionError(f"mask_train_path learning rates {lrs}, want "
+                             f"{want_lrs}")
+    for name in ("model-best.pt", "model-latest.pt"):
+        if not (results / name).is_file():
+            raise AssertionError(f"mask_train_path: no {name}")
+    data = ckpt.load_checkpoint(results / "model-latest.pt")
+    if data["epoch"] != MASK_EPOCHS or \
+            len(data["loss_hist"]) != MASK_EPOCHS + 1:
+        raise AssertionError("mask_train_path: model-latest.pt holds epoch "
+                             f"{data['epoch']}, {data['loss_hist']}")
+
+    # the port's Generator reads model-best.pt as generation does
+    gen = Generator(C.build_diffusion_unet(C.ModelConfig(dim=8)),
+                    GaussianDiffusion(image_size=cfg.image_size), str(rgbd),
+                    depth_correction_model=mask,
+                    depth_correction_results=str(results),
+                    samples_folder=str(root / "gen_samples"))
+    gen._load_depth_correction()
+    dc = gen.device_models()[1]
+    with torch.inference_mode():
+        prob = dc(val_input()).cpu()
+    gen_err = (prob - best_probs[0]).abs().max().item()
+    if not gen_err <= MASK_ATOL:
+        raise AssertionError(f"mask_train_path: the Generator's mask net "
+                             f"{gen_err} from the trainer's > {MASK_ATOL}")
+    gifs = sorted(p.name for p in (root / "test_samples").iterdir())
+    if len(gifs) != 8 or not all(g.endswith(".gif") for g in gifs):
+        raise AssertionError(f"mask_train_path: test GIFs {gifs}")
+
+    step_ms = [a.elapsed_time(b) for _, a, b, _, _ in steps]
+    # the first epoch carries the warm-up (cuDNN's workspaces, the
+    # allocator's pool); the settled steps are the later epochs'
+    settled = step_ms[per_epoch:]
+    med = float(np.median(settled))
+    res = dict(
+        pairs=MASK_PAIRS, train_pairs=n_train, steps_per_epoch=per_epoch,
+        batch=cfg.train_batch_size, image=cfg.image_size,
+        val_batch=cfg.val_batch_size, val_batches=val_batches,
+        make_pairs_s=make_s, train_s=train_s, test_s=test_s,
+        epoch_wall_s=[s for _, s in epochs],
+        val_wall_s=[s for _, s, _ in evals],
+        step_ms=med, step_ms_min=min(settled), step_ms_max=max(settled),
+        step_ms_first_epoch=step_ms[:per_epoch], step_ms_all=step_ms,
+        img_per_s=cfg.train_batch_size * 1e3 / med,
+        img_per_s_epoch=[per_epoch * cfg.train_batch_size / s
+                         for _, s in epochs],
+        fwd_bwd_step_ms=fwd_bwd["step_ms"],
+        step_over_fwd_bwd=med / fwd_bwd["step_ms"], batch_checks=checks,
+        peak_mem_gb=peak / 1e9, losses=losses,
+        lr_by_epoch=[lrs[e] for e in sorted(lrs)],
+        k1_per_step=step_n[0] / n_steps, k3_per_step=step_n[1] / n_steps,
+        k2_per_step=step_n[2] / n_steps,
+        k1_per_val_batch=eval_n[0] / (val_batches * len(evals)),
+        k2_per_val_batch=eval_n[2] / (val_batches * len(evals)),
+        k1_launches=total[0], k3_launches=total[1], k2_launches=total[2],
+        plain_routes=routes, generator_max_abs_err=gen_err,
+        generator_atol=MASK_ATOL, gifs=len(gifs))
+    emit("mask_train_path", card=card_line(), **res)
+    return res
 
 
 def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
@@ -1435,7 +1698,7 @@ def main(argv=None) -> int:
     phase_forward_profile(torch, dev)
     phase_grad_parity(torch, dev)
     phase_wide_net(torch, K1, K2, dev)
-    phase_mask_fwd_bwd(torch, K1, K2, dev)
+    fwd_bwd = phase_mask_fwd_bwd(torch, K1, K2, dev)
     with tempfile.TemporaryDirectory(prefix="prgpt_train_") as tmp:
         tmp = Path(tmp)
         folder, gt_log = write_training_tree(tmp, 64, args.seed)
@@ -1443,19 +1706,25 @@ def main(argv=None) -> int:
         main_res = phase_main_path(torch, K1, K2, args.seed,
                                    args.num_samples)
         train_res = phase_train_path(torch, K1, K2, folder, gt_log, tmp)
+        mask_res = phase_mask_train_path(torch, K1, K2, args.seed, tmp,
+                                         fwd_bwd)
     sample_steps = main_res["num_samples"]
 
-    # launches: both main paths (generation, then training), each counted
-    # from 0 just before its entry point runs; per sample step of
-    # generation, and per optimizer step of training (its milestone grid
-    # counted apart)
+    # launches: the three main paths (generation, diffusion training,
+    # depth-correction training), each counted from 0 just before its
+    # entry point runs; per sample step of generation, per optimizer step
+    # of diffusion training (its milestone grid counted apart) and per
+    # optimizer step of the MaskTrainer (its validation counted apart)
     def launches(i, key):
-        return dict(launches=main_res[key] + train_res[key],
+        mask_key = ("k1_per_step", "k3_per_step", "k2_per_step")[i]
+        return dict(launches=main_res[key] + train_res[key] + mask_res[key],
                     launches_generate=main_res[key],
                     launches_train=train_res[key],
+                    launches_mask_train=mask_res[key],
                     per_sample_step=main_res[key] / sample_steps,
                     per_optimizer_step=train_res["per_optimizer_step"][i],
-                    launches_train_grid=train_res["grid_launches"][i])
+                    launches_train_grid=train_res["grid_launches"][i],
+                    per_mask_optimizer_step=mask_res[mask_key])
 
     csrc = "pointreggpt_tpu_torch/ops/csrc/"
     KV_HEADER, TC_HEADER, BWD_TC_HEADER, CONV_HEADER, TF32_HEADER = (
@@ -1469,7 +1738,8 @@ def main(argv=None) -> int:
     # phase checked them 0)
     def routes(key):
         return dict(plain_routes=main_res["plain_routes"][key] +
-                    train_res["plain_routes"][key])
+                    train_res["plain_routes"][key] +
+                    mask_res["plain_routes"][key])
     kernels = [
         dict(name="fused_linear_attention", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention.cu",

@@ -1,6 +1,6 @@
 """Dataclass configs with CLI overrides, and the builders of live objects.
 
-Own copy of the generation and diffusion-training configs of
+Own copy of the generation, diffusion-training and mask-training configs of
 ``pointreggpt_tpu/config.py`` (same fields and defaults, so the port's CLIs
 take the same flags), with builders that make the port's torch modules.
 """
@@ -80,6 +80,24 @@ class TrainConfig:
     calculate_fid: bool = False
     # 0 = auto (os.cpu_count())
     num_workers: int = 0
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class MaskTrainConfig:
+    """Depth-correction trainer hyperparameters (train_depth_correction)."""
+
+    data: str = "./dataset/depth_correction"
+    image_size: int = 256
+    train_batch_size: int = 4
+    train_lr: float = 4e-5
+    lr_gamma: float = 0.95
+    epochs: int = 100
+    # validation batch; metrics are per item, so it does not change them
+    val_batch_size: int = 8
+    results_folder: str = "./depth_correction_results"
+    samples_folder: str = "./depth_correction_samples"
+    num_workers: int = 0  # 0 = auto (os.cpu_count())
     seed: int = 0
 
 

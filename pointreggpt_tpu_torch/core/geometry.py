@@ -182,6 +182,22 @@ def transform_points(points: torch.Tensor, pose: torch.Tensor
     return rotate(pose[:, :3, :3], points) + pose[:, None, :3, 3]
 
 
+def reproject(
+    depth: torch.Tensor,
+    intrinsic: torch.Tensor,
+    relative_pose: torch.Tensor,
+    *,
+    clip: Optional[Tuple[float, float]] = (0.0, 10.0),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(b, h, w) depth in meters seen from another camera pose: back-project,
+    apply the (b, 4, 4) ``relative_pose``, z-buffer at the same (b, 3, 3)
+    intrinsics. Returns (depth (b, h, w), mask (b, h, w))."""
+    b, h, w = depth.shape
+    points, valid = depth_to_points(depth, intrinsic, clip=clip)
+    points = transform_points(points, relative_pose)
+    return points_to_depth(points, valid, intrinsic, image_size=(h, w))
+
+
 def min_pool(depth: torch.Tensor, *, window: int = 3,
              stride: int = 1) -> torch.Tensor:
     """Min-pool with +inf padding ("SAME") over (b, h, w)."""

@@ -1,14 +1,20 @@
-"""Host-side data for the port: 3DMatch frame records, the diffusion
-training set, and a prefetching batch loader.
+"""Host-side data for the port: 3DMatch frame records, the diffusion and
+depth-correction training sets, the depth-correction test set, and a
+prefetching batch loader.
 
-Own copies of ``resolve_frame_record``, ``DepthDataset``, ``collate`` and
-``PrefetchLoader`` from ``pointreggpt_tpu/data/datasets.py``, with the same
-contracts:
+Own copies of ``resolve_frame_record``, ``DepthDataset``,
+``PairedDepthDataset``, ``TestDataset``, ``collate`` and ``PrefetchLoader``
+from ``pointreggpt_tpu/data/datasets.py``, with the same contracts:
 
 - :class:`DepthDataset` lists training frames from ``gt.log`` (one depth
   PNG path per line, relative to the RGB-D root) with their scene's
   ``camera-intrinsics.txt``; its h-flip is a pure function of
   ``(seed, epoch, index)`` through ``np.random.default_rng``.
+- :class:`PairedDepthDataset` reads the (input, label) pairs that
+  ``metadata/{subset}.json`` lists, with the keep mask
+  ``|label - input| < 0.005``.
+- :class:`TestDataset` reprojects the first frame of one fragment of a
+  3DMatch pair into the other's view, on its device.
 - :class:`PrefetchLoader` draws a fresh permutation per epoch from
   ``default_rng([seed, epoch])``, can start at ``start_epoch``, decodes in
   worker threads ahead of the consumer, re-raises a decode error in the
@@ -20,6 +26,7 @@ bit for bit. Batches are dicts of stacked numpy arrays, NHWC.
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import threading
@@ -27,9 +34,11 @@ from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from pointreggpt_tpu_torch import resolve_device
 from pointreggpt_tpu_torch.core import imageio16
-from pointreggpt_tpu_torch.core.geometry import intrinsic_transform
+from pointreggpt_tpu_torch.core.geometry import intrinsic_transform, reproject
 
 
 def resolve_frame_record(data_root: str, folder: str, rel_path: str,
@@ -106,6 +115,106 @@ class DepthDataset:
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         return self.getitem_at_epoch(index, 0)
+
+
+class PairedDepthDataset:
+    """Depth-correction pairs: (h, w, 1) input and label depths in [0, 1]
+    (raw PNG values x 1e-4, above 1 set to 0) and the keep mask
+    ``|label - input| < 0.005`` as float32.
+
+    Args:
+        folder: root holding ``data/`` and ``metadata/{subset}.json``.
+        subset: ``train`` or ``val``.
+        image_size: the model's resolution (the PNGs are stored at it).
+    """
+
+    def __init__(self, folder: str, subset: str, image_size: int):
+        self.folder = folder
+        self.image_size = image_size
+        with open(os.path.join(folder, f"metadata/{subset}.json"), "r") as f:
+            self.metadata = list(json.load(f))
+
+    def __len__(self) -> int:
+        return len(self.metadata)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        meta = self.metadata[index]
+
+        def load(name):
+            raw = imageio16.read_depth_png(
+                os.path.join(self.folder, "data", name)).astype(
+                    np.float32) * 1e-4
+            return np.where(raw > 1.0, 0.0, raw)
+
+        input_img = load(meta["input_path"])
+        label_img = load(meta["label_path"])
+        mask = (np.abs(label_img - input_img) < 0.005).astype(np.float32)
+        return {"input_img": input_img[..., None],
+                "label_img": label_img[..., None],
+                "mask": mask[..., None]}
+
+    def getitem_at_epoch(self, index: int,
+                         epoch: int) -> Dict[str, np.ndarray]:
+        """Item ``index``; the pairs do not change with the epoch."""
+        return self[index]
+
+
+class TestDataset:
+    """Depth-correction test inputs from 3DMatch test pairs.
+
+    Item ``i`` of the first half reprojects the first frame of pair
+    ``i``'s src fragment into its tgt view (relative pose
+    ``inv(tgt_pose) @ src_pose``, :func:`reproject` on ``device``); the
+    second half swaps src and tgt. Both images are kept only where the
+    reprojection and the label are valid. Items are (h, w, 1) float32
+    ``input_img`` and ``label_img`` in [0, 1].
+
+    Args:
+        info: ``{"src": [...], "tgt": [...]}`` fragment paths (``.pth``).
+        folder: 3DMatch-RGBD test root.
+        image_size: the model's resolution.
+        data_root: root of the fragments' ``.info.txt`` files.
+        device: where the reprojection runs (see ``resolve_device``).
+    """
+
+    def __init__(self, info: Dict[str, Sequence[str]], folder: str,
+                 image_size: int, *,
+                 data_root: str = "./dataset/indoor/data", device=None):
+        self.info = info
+        self.folder = folder
+        self.image_size = image_size
+        self.data_root = data_root
+        self.device = resolve_device(device)
+
+    def __len__(self) -> int:
+        return len(self.info["src"]) + len(self.info["tgt"])
+
+    def _frame_record(self, rel_path: str):
+        return resolve_frame_record(self.data_root, self.folder, rel_path,
+                                    self.image_size, with_pose=True)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        half = len(self) // 2
+        src, tgt = self.info["src"], self.info["tgt"]
+        if (index // half) % 2 == 1:
+            src, tgt = tgt, src
+        src_image, src_pose, intrinsic = self._frame_record(src[index % half])
+        tgt_image, tgt_pose, _ = self._frame_record(tgt[index % half])
+        relative = (np.linalg.inv(tgt_pose) @ src_pose).astype(np.float32)
+
+        def on_device(a):
+            return torch.from_numpy(np.ascontiguousarray(a[None])).to(
+                self.device)
+
+        depth_rpj, mask_rpj = reproject(on_device(src_image * 10.0),
+                                        on_device(intrinsic),
+                                        on_device(relative))
+        input_img = depth_rpj[0].cpu().numpy() * 0.1
+        mutual = mask_rpj[0].cpu().numpy() & (tgt_image > 0)
+        input_img = np.where(mutual, input_img, 0.0).astype(np.float32)
+        label_img = np.where(mutual, tgt_image, 0.0).astype(np.float32)
+        return {"input_img": input_img[..., None],
+                "label_img": label_img[..., None]}
 
 
 def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

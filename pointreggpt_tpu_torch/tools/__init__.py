@@ -1,5 +1,7 @@
 """Profiling tools of the port (``python -m pointreggpt_tpu_torch.tools.<name>``)
-and what they share: timing and the card's peak rate.
+and what they share: timing and the card's peak rate; and
+``synthetic_3dmatch``, the synthetic 3DMatch trees of the smoke run and
+the tests.
 
 Nothing here runs at import: the CPU tests import every module freely.
 """

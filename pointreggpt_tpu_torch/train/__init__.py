@@ -1,2 +1,2 @@
-"""Diffusion training on one GPU: the Trainer, its EMA, checkpoints and
-logging."""
+"""Training on one GPU: the diffusion Trainer with its EMA, the
+depth-correction MaskTrainer and MaskTester, checkpoints and logging."""

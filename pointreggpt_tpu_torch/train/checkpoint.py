@@ -5,7 +5,9 @@ The diffusion trainer saves ``{step, model, opt, ema, version}`` to
 ``state_dict`` under ``opt``, and the EMA's state dict, whose U-Net sits
 under ``ema_model.model.`` (the reference's EMA wraps its
 GaussianDiffusion, whose ``model`` is the U-Net). ``Generator.load`` reads
-the same files.
+the same files. The MaskTrainer saves ``{epoch, model, opt, loss_hist,
+best_metrics}``, its MaskUNet under ``model`` with no prefix, which
+``Generator`` reads from ``model-best.pt``.
 
 A write goes to a temporary file, is flushed and fsynced, and replaces the
 target with ``os.replace``; the directory is fsynced after, so a crash

@@ -1,12 +1,13 @@
-"""Logging and running averages (port of the first half of
-``pointreggpt_tpu/train/metrics.py``; ``mask_metrics`` comes with the mask
-trainer)."""
+"""Logging, running averages and the depth-correction validation metrics
+(port of ``pointreggpt_tpu/train/metrics.py``)."""
 
 from __future__ import annotations
 
 import logging
 import sys
-from typing import Optional
+from typing import Dict, Optional
+
+import torch
 
 
 def create_logger(log_file: Optional[str] = None,
@@ -67,3 +68,52 @@ class AverageMeter:
 
     def __float__(self) -> float:
         return float(self.avg)
+
+
+def mask_metrics(input_img: torch.Tensor, label_img: torch.Tensor,
+                 label_mask: torch.Tensor, output_prob: torch.Tensor, *,
+                 mask_threshold: float = 0.99) -> Dict[str, torch.Tensor]:
+    """Depth-correction validation metrics of each item, on its device.
+
+    The depth errors between the input kept where the predicted
+    probability passes ``mask_threshold`` and the label kept where the
+    label mask does, and the 2x2 confusion matrix of the two masks: MSE,
+    MAE, SAE (summed absolute error), mIoU (the nan-mean of the two
+    classes' IoU, a class absent from both masks left out), PAcc and FP
+    (pixels the label drops and the prediction keeps).
+
+    Args:
+        input_img / label_img: (b, ...) depths in [0, 1].
+        label_mask: (b, ...) float or bool ground-truth keep mask.
+        output_prob: (b, ...) predicted keep probability.
+
+    Returns:
+        dict of (b,) float32 tensors, one value per item; the JAX
+        package's ``mask_metrics`` of a whole batch is this function's of
+        that batch with a leading axis of 1.
+    """
+    b = input_img.shape[0]
+    out_mask = (output_prob > mask_threshold).reshape(b, -1)
+    lab_mask = (label_mask > mask_threshold).reshape(b, -1)
+    zero = input_img.new_zeros(())
+    out_img = torch.where(out_mask, input_img.reshape(b, -1), zero)
+    lab_img = torch.where(lab_mask, label_img.reshape(b, -1), zero)
+
+    diff = lab_img - out_img
+    mse = (diff * diff).mean(dim=1)
+    mae = diff.abs().mean(dim=1)
+    sae = diff.abs().sum(dim=1)
+
+    # rows: label keeps (0, 1); columns: prediction keeps (0, 1)
+    idx = 2 * lab_mask.long() + out_mask.long()
+    counts = torch.zeros(b, 4, dtype=torch.float32, device=idx.device)
+    counts.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
+    matrix = counts.reshape(b, 2, 2)
+    intersection = torch.diagonal(matrix, dim1=1, dim2=2)
+    union = matrix.sum(dim=2) + matrix.sum(dim=1) - intersection
+    iou = intersection / torch.where(union > 0, union,
+                                     torch.full_like(union, float("nan")))
+    return {"MSE": mse, "MAE": mae, "SAE": sae,
+            "mIoU": torch.nanmean(iou, dim=1),
+            "PAcc": intersection.sum(dim=1) / matrix.sum(dim=(1, 2)),
+            "FP": matrix[:, 0, 1]}

@@ -9,10 +9,11 @@ port's ``state_dict`` (reference key names). They invert the layouts of
 ``model``, every key and shape must match its ``state_dict``; anything else
 raises.
 
-``adam_state_from_jax`` carries an optax ``chain(clip_by_global_norm,
-adam)`` state into a torch Adam ``state_dict``, so a JAX training state
-continues in the port. Gradient trees map through
-``diffusion_unet_from_jax`` like params.
+``adam_state_from_jax`` (DiffusionUNet) and ``mask_adam_state_from_jax``
+(MaskUNet, whose optax state also counts the learning-rate schedule's
+steps) carry an optax ``chain(clip_by_global_norm, adam)`` state into a
+torch Adam ``state_dict``, so a JAX training state continues in the port.
+Gradient trees map through ``diffusion_unet_from_jax`` like params.
 
 ``load_reference_checkpoint`` reads a reference ``.pt`` checkpoint.
 """
@@ -211,6 +212,38 @@ def _adam_moments(node: Any):
     return None
 
 
+def _schedule_counts(node: Any) -> list:
+    """The ``count`` of every optax state inside ``node`` that is not an
+    Adam state (``ScaleByScheduleState``: the schedule's clock)."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return []
+    if "count" in getattr(node, "_fields", ()):  # not tuple.count
+        return [int(np.asarray(node.count))]
+    if isinstance(node, tuple):
+        return [c for child in node for c in _schedule_counts(child)]
+    return []
+
+
+def _adam_state(opt_state_np: Any, model: torch.nn.Module, convert, *,
+                lr: float, betas: Tuple[float, float], eps: float) -> Dict:
+    found = _adam_moments(opt_state_np)
+    if found is None:
+        raise ValueError("adam_state_from_jax: no (count, mu, nu) Adam "
+                         "state in the given optax state")
+    count, mu, nu = found
+    mu_sd = convert(mu, model)
+    nu_sd = convert(nu, model)
+    step = torch.tensor(float(np.asarray(count)))
+    names = [n for n, _ in model.named_parameters()]
+    template = torch.optim.Adam(model.parameters(), lr=lr, betas=betas,
+                                eps=eps).state_dict()
+    template["state"] = {
+        i: {"step": step.clone(), "exp_avg": mu_sd[n].clone(),
+            "exp_avg_sq": nu_sd[n].clone()}
+        for i, n in enumerate(names)}
+    return template
+
+
 def adam_state_from_jax(opt_state_np: Any, model: torch.nn.Module, *,
                         lr: float = 8e-5,
                         betas: Tuple[float, float] = (0.9, 0.99),
@@ -225,19 +258,28 @@ def adam_state_from_jax(opt_state_np: Any, model: torch.nn.Module, *,
     agree: optax divides ``mu / (1 - b1^t)`` by ``sqrt(nu / (1 - b2^t)) +
     eps``, torch the same quantities in another arrangement.
     """
-    found = _adam_moments(opt_state_np)
-    if found is None:
-        raise ValueError("adam_state_from_jax: no (count, mu, nu) Adam "
-                         "state in the given optax state")
-    count, mu, nu = found
-    mu_sd = diffusion_unet_from_jax(mu, model)
-    nu_sd = diffusion_unet_from_jax(nu, model)
-    step = torch.tensor(float(np.asarray(count)))
-    names = [n for n, _ in model.named_parameters()]
-    template = torch.optim.Adam(model.parameters(), lr=lr, betas=betas,
-                                eps=eps).state_dict()
-    template["state"] = {
-        i: {"step": step.clone(), "exp_avg": mu_sd[n].clone(),
-            "exp_avg_sq": nu_sd[n].clone()}
-        for i, n in enumerate(names)}
-    return template
+    return _adam_state(opt_state_np, model, diffusion_unet_from_jax, lr=lr,
+                       betas=betas, eps=eps)
+
+
+def mask_adam_state_from_jax(opt_state_np: Any, model: torch.nn.Module, *,
+                             lr: float = 4e-5,
+                             betas: Tuple[float, float] = (0.9, 0.99),
+                             eps: float = 1e-8) -> Dict:
+    """:func:`adam_state_from_jax` for a MaskUNet's optax state (the JAX
+    MaskTrainer's ``chain(clip_by_global_norm, adam(schedule))``), its
+    moments mapped through :func:`mask_unet_from_jax`.
+
+    The Adam ``step`` it writes is optax's count, which also drives the
+    learning-rate schedule (the port's MaskTrainer reads its schedule's
+    clock from that step); the schedule's own count must equal it, else
+    this raises.
+    """
+    sd = _adam_state(opt_state_np, model, mask_unet_from_jax, lr=lr,
+                     betas=betas, eps=eps)
+    count = int(np.asarray(_adam_moments(opt_state_np)[0]))
+    for c in _schedule_counts(opt_state_np):
+        if c != count:
+            raise ValueError(f"mask_adam_state_from_jax: the schedule's "
+                             f"count {c} differs from Adam's {count}")
+    return sd

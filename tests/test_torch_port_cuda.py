@@ -938,3 +938,105 @@ def test_conv3_igemm_check_sees_planted_fault(cuda, conv_mutants, conv_refs,
     errs = {s: _k6_err(cuda, s, rows, conv_refs) for s, rows in K6_SHAPES}
     print(fault, errs)
     assert _check_fails(errs, CONV_TOL[torch.bfloat16]), errs
+
+
+# ---------------------------------------------------------------------------
+# the depth-correction path on the card
+
+# fp32 gradients, card (K1, K2, K3 in three TF32 passes, cuDNN fp32) vs CPU
+# (plain versions): per parameter, relative to its largest gradient
+MASK_GRAD_RTOL = 2e-3
+
+
+def _write_pairs(root, size, n=2, seed=0):
+    """``n`` train pairs and one val pair of uint16 depth PNGs."""
+    import json
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    (root / "data").mkdir(parents=True)
+    (root / "metadata").mkdir()
+    for subset, count in (("train", n), ("val", 1)):
+        entries = []
+        for i in range(count):
+            base = rng.integers(500, 9000, (size, size))
+            label = base + rng.integers(0, 30, base.shape)
+            off = rng.uniform(size=base.shape) < 0.3
+            label[off] += rng.integers(60, 2000, int(off.sum()))
+            names = [f"{subset}-{i}-{k}.depth.png" for k in ("in", "lb")]
+            for name, a in zip(names, (base, label)):
+                Image.fromarray(a.astype(np.uint16)).save(root / "data" / name)
+            entries.append({"input_path": names[0], "label_path": names[1]})
+        (root / "metadata" / f"{subset}.json").write_text(
+            json.dumps(entries))
+    return str(root)
+
+
+# the small width has 2 channels a group: with 1 (dim 8, 8 groups) the
+# bias of the conv before each GroupNorm has a gradient of exactly 0, and
+# both sides hold rounding noise there
+@pytest.mark.parametrize("dim,mults,groups,size", [
+    (8, (1, 2), 4, 32), (64, (1, 2, 4, 8), 8, 64)])
+def test_mask_trainer_step_on_the_card_matches_the_cpu(cuda, tmp_path, dim,
+                                                       mults, groups, size,
+                                                       monkeypatch):
+    from pointreggpt_tpu_torch.data.datasets import collate
+    from pointreggpt_tpu_torch.models import MaskUNet
+    from pointreggpt_tpu_torch.train.mask_trainer import (MaskTrainer,
+                                                          _to_device)
+
+    # fp32 convs in fp32, as train_depth_correction sets them (cuDNN's
+    # default TF32 keeps 10 mantissa bits)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    folder = _write_pairs(tmp_path / "dc", size)
+    torch.manual_seed(0)
+    kw = dict(dim=dim, dim_mults=mults, resnet_block_groups=groups)
+    net = MaskUNet(**kw)
+    trainers = [MaskTrainer(MaskUNet(**kw), folder,
+                            image_size=size, train_batch_size=2,
+                            train_lr=4e-5, num_workers=1, device=dev,
+                            results_folder=str(tmp_path / f"r{dev}"),
+                            samples_folder=str(tmp_path / f"s{dev}"))
+                for dev in ("cpu", "cuda")]
+    batch = collate([trainers[0].train_ds[i] for i in range(2)])
+    for tr in trainers:
+        tr.model.load_state_dict(net.state_dict())
+        before = K1.fused_linear_attention_bwd.launches
+        tr.train_step(*_to_device(batch, ("input_img", "mask"), tr.device))
+    torch.cuda.synchronize()
+    n_attn = 2 * len(mults)
+    assert K1.fused_linear_attention_bwd.launches == before + n_attn
+    lr = trainers[0].lr_at(0)
+    for (name, p), q in zip(trainers[0].model.named_parameters(),
+                            trainers[1].model.parameters()):
+        g, gq = p.grad, q.grad.cpu()
+        scale = g.abs().max().item()
+        assert (gq - g).abs().max().item() <= MASK_GRAD_RTOL * scale, name
+        # Adam's first step moves each parameter by lr times the sign of
+        # its gradient: where the gradient is larger than the card-vs-CPU
+        # bound, both sides take the same step, equal to fp32 rounding of
+        # the O(1) parameter; elsewhere the sign may differ (at most 2 lr)
+        diff = (q.detach().cpu() - p.detach()).abs()
+        sure = g.abs() > 2 * MASK_GRAD_RTOL * scale
+        assert diff[sure].max().item() <= 1e-6, name
+        assert diff.max().item() <= 2 * lr * 1.001, name
+
+
+def test_test_dataset_item_on_the_card_matches_the_cpu(cuda, tmp_path):
+    from pointreggpt_tpu_torch.data import datasets
+    from pointreggpt_tpu_torch.tools.synthetic_3dmatch import (
+        write_motion_tree)
+
+    rgbd, data_root, _, info = write_motion_tree(tmp_path, 1, seed=3)
+    got, want = (datasets.TestDataset(info, str(rgbd), 256,
+                                      data_root=str(data_root),
+                                      device=dev)[0]
+                 for dev in ("cuda", "cpu"))
+    for k in ("input_img", "label_img"):
+        # the same fp32 arithmetic; the card may fuse a multiply-add, which
+        # can move a point across a pixel edge: at most 0.1% of pixels
+        off = np.abs(got[k] - want[k]) > 1e-6
+        assert off.mean() <= 1e-3, (k, off.mean())
+    assert (got["input_img"] > 0).mean() > 0.5
