@@ -90,8 +90,28 @@ Phases, each printing one JSON line:
    checkpoints, the Generator's reading of ``model-best.pt`` and 8 GIFs,
    and reports each step's time by CUDA events beside ``mask_fwd_bwd``'s.
 
+15. ``jax_parity``: the port's full-width outputs on the card against
+   the JAX package's, computed once on the CPU and committed as
+   ``tests/data/torch_port_jax_reference.npz`` (weights and inputs
+   remade from a seed, ``pointreggpt_tpu_torch/utils/jax_parity.py``): a
+   baked bf16 DiffusionUNet forward at batch 2, an fp32 MaskUNet forward
+   at batch 4 and one ``Generator.step`` (10 DDIM steps, eta 0, DDNM,
+   mask net, memory 2^18); each gap within twice the port's CPU gap plus
+   the kernels' gap to their plain versions on the card, and a planted
+   fault (a shuffled head) at least 5 times the forward gate;
+16. ``gt_path``: ``pointreggpt_tpu_torch.cli.generate_gt.main`` on the
+   dataset ``main_path`` wrote (the ``gt.log`` contract, seconds per
+   pair), then ``generate_gt`` on 4 synthetic pairs of known overlap, card
+   against the CPU;
+17. ``tester_path``: ``pointreggpt_tpu_torch.cli.
+   test_successive_ddnm_diffusion.main`` at ``ModelConfig()`` width with
+   its defaults (4 scenes x 4 samples, 32 DDIM steps, eta 1) on seeded
+   weights: the JAX Tester's file contract and 1,024 K1 and 128 K2
+   launches; ``Tester.generate`` (4 scenes x 3 samples, memory 2^18); the
+   ancestral chain through the CLI (1,000 steps, 8,000 K1, 1,000 K2).
+
 The last three lines are the kernel table (one JSON object: K1-K3's
-launch counts from the three main paths, K4's from its op's drive, K5's
+launch counts from the four main paths, K4's from its op's drive, K5's
 and K6's from their tools' entry points; K1's and K3's ``plain_routes``,
 the calls routed to the plain version by shape, must be 0 on each path), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -100,6 +120,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pickle
@@ -921,12 +942,15 @@ def write_synthetic_tree(root: Path, n_scenes: int, seed: int):
 
 
 def write_checkpoints(torch, root: Path, seed: int):
-    """Random-weight checkpoints in the reference layout: the diffusion
-    state dict holds the U-Net under ``model.``, the EMA wraps it again."""
+    """Checkpoints of seeded weights (``utils/seeded_weights.py``: the
+    MaskUNet's keep probability far above 0.99, so the generated frames
+    keep their pixels and ``gt_path`` scores real clouds) in the reference
+    layout: the diffusion state dict holds the U-Net under ``model.``, the
+    EMA wraps it again."""
     from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.utils.seeded_weights import fill_seeded
 
-    torch.manual_seed(seed)
-    unet = C.build_diffusion_unet(C.ModelConfig())
+    unet = fill_seeded(C.build_diffusion_unet(C.ModelConfig()), seed)
     sd = {f"model.{k}": v for k, v in unet.state_dict().items()}
     ema = {f"ema_model.{k}": v for k, v in sd.items()}
     ema.update({f"online_model.{k}": v for k, v in sd.items()})
@@ -935,7 +959,7 @@ def write_checkpoints(torch, root: Path, seed: int):
     (root / "results").mkdir()
     torch.save({"step": 0, "model": sd, "ema": ema},
                root / "results" / "model-1.pt")
-    mask = C.build_mask_unet(C.MaskModelConfig())
+    mask = fill_seeded(C.build_mask_unet(C.MaskModelConfig()), seed + 1)
     (root / "depth_correction_results").mkdir()
     torch.save({"epoch": 0, "model": mask.state_dict()},
                root / "depth_correction_results" / "model-best.pt")
@@ -1226,7 +1250,10 @@ def phase_mask_train_path(torch, K1, K2, seed: int, tmp: Path,
     return res
 
 
-def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
+def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
+                    root: Path):
+    """``generate_dataset.main`` under ``root`` (its dataset stays there
+    for ``gt_path``)."""
     from pointreggpt_tpu_torch.cli import generate_dataset
     from pointreggpt_tpu_torch.core import plyio
     from pointreggpt_tpu_torch.generate import generator as gen_mod
@@ -1245,62 +1272,61 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int):
         step_ms.append((e0, e1))
         return out
 
-    with tempfile.TemporaryDirectory(prefix="prgpt_smoke_") as tmp:
-        root = Path(tmp)
-        rgbd, indoor, info = write_synthetic_tree(root, batch, seed)
-        write_checkpoints(torch, root, seed)
-        cwd = os.getcwd()
-        os.chdir(root)
-        gen_mod.Generator.step = timed_step
-        reset_counts(K1, K2)
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            generate_dataset.main([
-                "--resume", "1", "--data", str(rgbd),
-                "--train_info_path", str(info), "--data_root", str(indoor),
-                "--results_folder", str(root / "results"),
-                "-start", "0", "-stop", str(batch),
-                "--batch_size", str(batch),
-                "--num_samples", str(num_samples),
-                "--image_size", str(image_size), "--seed", str(seed)])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            gen_mod.Generator.step = orig_step
-            os.chdir(cwd)
-        k1_n, k3_n, k2_n, routes = counts(K1, K2)
-        want = (2016 * num_samples, 0, 252 * num_samples)
-        if (k1_n, k3_n, k2_n) != want:
-            raise AssertionError(
-                f"kernel launches on the main path: K1, K3, K2 = "
-                f"{(k1_n, k3_n, k2_n)}, want {want}")
-        check_no_routes("main_path", routes)
+    root.mkdir(parents=True)
+    rgbd, indoor, info = write_synthetic_tree(root, batch, seed)
+    write_checkpoints(torch, root, seed)
+    cwd = os.getcwd()
+    os.chdir(root)
+    gen_mod.Generator.step = timed_step
+    reset_counts(K1, K2)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_dataset.main([
+            "--resume", "1", "--data", str(rgbd),
+            "--train_info_path", str(info), "--data_root", str(indoor),
+            "--results_folder", str(root / "results"),
+            "-start", "0", "-stop", str(batch),
+            "--batch_size", str(batch),
+            "--num_samples", str(num_samples),
+            "--image_size", str(image_size), "--seed", str(seed)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gen_mod.Generator.step = orig_step
+        os.chdir(cwd)
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    want = (2016 * num_samples, 0, 252 * num_samples)
+    if (k1_n, k3_n, k2_n) != want:
+        raise AssertionError(
+            f"kernel launches on the main path: K1, K3, K2 = "
+            f"{(k1_n, k3_n, k2_n)}, want {want}")
+    check_no_routes("main_path", routes)
 
-        out = root / "generated_dataset" / "data"
-        for s in range(batch):
-            scene = out / f"scene-{s:06d}"
-            for f in ("camera-intrinsics.txt", "sample-000000.image.png",
-                      "sample-000000.cloud.ply", "reprojected.image.png",
-                      "corrected.image.png",
-                      *(f"sample-{i:06d}.{ext}"
-                        for i in range(1, num_samples + 1)
-                        for ext in ("pose.txt", "image.png", "depth.png")),
-                      "sample-000001.cloud.ply"):
-                if not (scene / f).is_file():
-                    raise AssertionError(f"missing output {scene / f}")
-            pose = np.loadtxt(scene / "sample-000001.pose.txt")
-            from PIL import Image
-            depth = np.asarray(Image.open(scene / "sample-000001.depth.png"))
-            cloud = plyio.read_ply(scene / "sample-000001.cloud.ply")
-            if pose.shape != (4, 4) or not np.all(np.isfinite(pose)) or \
-                    not np.allclose(pose[3], [0, 0, 0, 1], atol=1e-6):
-                raise AssertionError(f"bad pose in {scene}")
-            if depth.shape != (image_size, image_size):
-                raise AssertionError(f"bad depth PNG shape {depth.shape}")
-            if cloud.ndim != 2 or cloud.shape[1] != 3 or \
-                    not np.all(np.isfinite(cloud)):
-                raise AssertionError(f"bad cloud in {scene}")
+    out = root / "generated_dataset" / "data"
+    for s in range(batch):
+        scene = out / f"scene-{s:06d}"
+        for f in ("camera-intrinsics.txt", "sample-000000.image.png",
+                  "sample-000000.cloud.ply", "reprojected.image.png",
+                  "corrected.image.png",
+                  *(f"sample-{i:06d}.{ext}"
+                    for i in range(1, num_samples + 1)
+                    for ext in ("pose.txt", "image.png", "depth.png")),
+                  "sample-000001.cloud.ply"):
+            if not (scene / f).is_file():
+                raise AssertionError(f"missing output {scene / f}")
+        pose = np.loadtxt(scene / "sample-000001.pose.txt")
+        from PIL import Image
+        depth = np.asarray(Image.open(scene / "sample-000001.depth.png"))
+        cloud = plyio.read_ply(scene / "sample-000001.cloud.ply")
+        if pose.shape != (4, 4) or not np.all(np.isfinite(pose)) or \
+                not np.allclose(pose[3], [0, 0, 0, 1], atol=1e-6):
+            raise AssertionError(f"bad pose in {scene}")
+        if depth.shape != (image_size, image_size):
+            raise AssertionError(f"bad depth PNG shape {depth.shape}")
+        if cloud.ndim != 2 or cloud.shape[1] != 3 or \
+                not np.all(np.isfinite(cloud)):
+            raise AssertionError(f"bad cloud in {scene}")
     steps = [a.elapsed_time(b) / 1e3 for a, b in step_ms]
     sec_per_step = steps[-1]
     res = dict(wall_s=wall, num_samples=num_samples, batch=batch,
@@ -1653,6 +1679,358 @@ def phase_train_path(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
     return res
 
 
+# ---------------------------------------------------------------------------
+# jax_parity, gt_path and tester_path
+
+JAX_REFERENCE = REPO / "tests" / "data" / "torch_port_jax_reference.npz"
+# card vs JAX: the keep mask may differ where a fused multiply-add moves a
+# splatted point across a pixel edge (the card-vs-CPU rule of
+# tests/test_torch_port_cuda.py, TestDataset: at most 0.1% of pixels)
+KEEP_SHARE = 1e-3
+# each gate is this times (the port's CPU gap to JAX, stored beside the
+# reference, + the kernels' gap to their plain versions on the card,
+# measured here): the port's plain path on the card is a second draw of
+# the CPU's rounding, not the same one
+GATE_FACTOR = 2.0
+FAULT_MARGIN = 5.0  # the planted fault misses the forward gate by this
+
+
+@contextlib.contextmanager
+def plain_attention(K1, K2):
+    """K1's and K2's plain versions in the U-Net blocks, on the card:
+    the port's path with its two kernels taken out, to measure their part
+    of a gap. Never used on a counted run."""
+    from pointreggpt_tpu_torch.models import blocks
+
+    saved = blocks.fused_linear_attention, blocks.multihead_attention
+    blocks.fused_linear_attention = K1.fused_linear_attention_plain
+    blocks.multihead_attention = K2.multihead_attention_plain
+    try:
+        yield
+    finally:
+        blocks.fused_linear_attention, blocks.multihead_attention = saved
+
+
+def jax_parity_report(torch, K1, K2, tmp: Path, cases=None) -> dict:
+    """The port's full-width outputs on the card (K1 and K2 in bf16 for
+    the DiffusionUNet, in fp32 for the MaskUNet) against the JAX
+    package's (``JAX_REFERENCE``): each gap beside its gate, built from
+    the CPU gap and the kernels' gap measured here; the launches of the
+    run; and the gap of a planted fault (a shuffled head,
+    ``jax_parity.plant_fault``) on the forward case."""
+    from pointreggpt_tpu_torch.utils import jax_parity as J
+
+    cases = J.CASES if cases is None else cases
+    ref = dict(np.load(JAX_REFERENCE))
+    nets = J.nets()
+    tmp.mkdir(parents=True, exist_ok=True)
+    reset_counts(K1, K2)
+    t0 = time.perf_counter()
+    card = J.run_port("cuda", cases=cases, nets_=nets, tmp_dir=str(tmp))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    with plain_attention(K1, K2):
+        plain = J.run_port("cuda", cases=cases, nets_=nets,
+                           tmp_dir=str(tmp))
+    card_gap, kernel_gap = J.gaps(card, ref), J.gaps(card, plain)
+    cpu_gap = {k: float(ref[f"cpu_gap_{k}"]) for k in card_gap}
+    gate = {k: GATE_FACTOR * (cpu_gap[k] + kernel_gap[k])
+            for k in card_gap}
+    if "step_keep" in gate:
+        gate["step_keep"] = KEEP_SHARE
+    fault = None
+    if "forward" in cases:
+        fault = J.gaps(J.run_port("cuda", cases=("forward",),
+                                  nets_=(J.plant_fault(nets[0]),) +
+                                  nets[1:]), ref)["forward"]
+    forwards = {"forward": 1, "mask": 1,
+                "step": J.STEP_SAMPLING_TIMESTEPS + 2}
+    n_fwd = sum(forwards[c] for c in cases)
+    return dict(cases=list(cases), seconds=seconds, card_gap=card_gap,
+                cpu_gap=cpu_gap, kernel_gap=kernel_gap,
+                plain_gap=J.gaps(plain, ref), gate=gate,
+                failed={k: v for k, v in card_gap.items()
+                        if not v <= gate[k]},
+                fault_gap=fault,
+                fault_over_gate=(fault / gate["forward"]
+                                 if fault is not None else None),
+                launches={"k1": k1_n, "k3": k3_n, "k2": k2_n},
+                want_launches={"k1": 8 * n_fwd, "k3": 0, "k2": n_fwd},
+                plain_routes=routes)
+
+
+def phase_jax_parity(torch, K1, K2, tmp: Path) -> dict:
+    """:func:`jax_parity_report` on the three cases; fails on any gap over
+    its gate, on a planted fault within ``FAULT_MARGIN`` of the forward
+    gate, and on launches other than 8 K1 and 1 K2 a forward."""
+    res = jax_parity_report(torch, K1, K2, tmp / "jax_parity")
+    emit("jax_parity", card=card_line(), **res)
+    if res["failed"]:
+        raise AssertionError(f"jax_parity: card vs JAX over the gate "
+                             f"{res['failed']} (gates {res['gate']})")
+    if not res["fault_over_gate"] >= FAULT_MARGIN:
+        raise AssertionError(f"jax_parity: the planted fault reads "
+                             f"{res['fault_gap']}, under {FAULT_MARGIN} x "
+                             f"the forward gate {res['gate']['forward']}")
+    if res["launches"] != res["want_launches"]:
+        raise AssertionError(f"jax_parity: launches {res['launches']}, "
+                             f"want {res['want_launches']}")
+    check_no_routes("jax_parity", res["plain_routes"])
+    return res
+
+
+GT_PAIRS = 4  # synthetic scenes of two frames each, for gt_path (b)
+# gt.log prints ratios to 4 decimals: two half-unit roundings apart
+GT_PRINT = 1e-4
+
+
+def write_overlap_tree(data: Path, n_pairs: int, seed: int) -> None:
+    """``n_pairs`` scenes of two clouds with known overlap: the two depth
+    frames of ``tools/synthetic_3dmatch.py``'s pairs (480x640, a wall and
+    a floating plate seen from camera poses 2-5 degrees and 5-15 cm
+    apart), back-projected into the world frame."""
+    from PIL import Image
+
+    from pointreggpt_tpu_torch.core import geometry as G
+    from pointreggpt_tpu_torch.core import plyio
+    from pointreggpt_tpu_torch.tools import synthetic_3dmatch as syn
+
+    rgbd, _, _, _ = syn.write_motion_tree(data.parent / "frames", n_pairs,
+                                          seed)
+    for s in range(n_pairs):
+        scene = data / f"scene-{s:06d}"
+        scene.mkdir(parents=True)
+        for f in range(2):
+            seq = rgbd / f"scene-{s}" / "seq-01"
+            depth = np.asarray(Image.open(seq / f"frame-{f:06d}.depth.png"),
+                               np.float32) / 1000.0
+            pose = np.loadtxt(seq / f"frame-{f:06d}.pose.txt")
+            pc = G.point_cloud_np(depth, syn.K, clip=(0.0, 10.0))
+            world = pc @ pose[:3, :3].T + pose[:3, 3]
+            plyio.write_ply(scene / f"sample-{f:06d}.cloud.ply",
+                            world.astype(np.float32))
+
+
+def read_gt_lines(path: Path):
+    return [line.split("\t") for line in path.read_text().splitlines()]
+
+
+def phase_gt_path(torch, seed: int, main_root: Path, tmp: Path) -> dict:
+    """The port's ``generate_gt`` CLI (a) on the dataset ``main_path``
+    wrote (8 scenes of 256^2 frames, ``num_samples`` 2): a ``gt.log`` in
+    each scene, ``metadata/gt.log`` their concatenation, every line parsed
+    by ``parse_gt_log``, and the seconds per scored pair; (b) on
+    ``write_overlap_tree``'s scenes, card against the same functions on
+    the CPU: the same pair lines, each ratio within one point of its
+    downsampled cloud (1 / n) and the print's rounding."""
+    import shutil
+
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.cli import generate_gt
+    from pointreggpt_tpu_torch.core import plyio
+    from pointreggpt_tpu_torch.core import pointops as P
+    from pointreggpt_tpu_torch.generate import gt
+
+    cfg = C.GtLogConfig()
+    n_scenes = 8
+    data = main_root / cfg.dataset_name / "data"
+    sizes = [[len(plyio.read_ply(data / f"scene-{s:06d}" /
+                                 f"sample-{i:06d}.cloud.ply"))
+              for i in range(cfg.num_samples)] for s in range(n_scenes)]
+    scored = sum(min(z) >= cfg.min_points for z in sizes)
+    cwd = os.getcwd()
+    os.chdir(main_root)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_gt.main(["-start", "0", "-stop", str(n_scenes),
+                          "--disable_tqdm"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    logs = [(data / f"scene-{s:06d}" / "gt.log").read_text()
+            for s in range(n_scenes)]
+    meta = main_root / cfg.dataset_name / "metadata" / "gt.log"
+    if meta.read_text() != "".join(logs):
+        raise AssertionError("gt_path: metadata/gt.log is not the "
+                             "concatenation of the scenes' gt.log")
+    records = gt.parse_gt_log(meta)
+    if not scored:
+        raise AssertionError(f"gt_path: no scene of main_path has two "
+                             f"clouds of {cfg.min_points} points {sizes}")
+    if len(records) != sum(len(x.splitlines()) for x in logs) or any(
+            not (0.0 <= r["overlap_src"] <= 1.0 and
+                 0.0 <= r["overlap_tgt"] <= 1.0) for r in records):
+        raise AssertionError(f"gt_path: gt.log records {records}")
+
+    root = tmp / "gt_overlap"
+    write_overlap_tree(root / "cuda" / "data", GT_PAIRS, seed)
+    shutil.copytree(root / "cuda" / "data", root / "cpu" / "data")
+    walls = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gt.generate_gt("syn", 0, GT_PAIRS, 2, root=str(root / dev / "data"),
+                       verbose=False, device=dev)
+        torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t0
+        gt.gather_gt("syn", 0, GT_PAIRS, root=str(root / dev / "data"),
+                     metadata=str(root / dev / "metadata" / "gt.log"))
+    got = read_gt_lines(root / "cuda" / "metadata" / "gt.log")
+    want = read_gt_lines(root / "cpu" / "metadata" / "gt.log")
+    if [g[:3] for g in got] != [w[:3] for w in want] or \
+            len(got) != GT_PAIRS:
+        raise AssertionError(f"gt_path: card pairs {got}, CPU {want}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        scene = root / "cpu" / "data" / g[0]
+        for k in range(2):
+            pts = torch.from_numpy(plyio.read_ply(
+                scene / f"sample-{k:06d}.cloud.ply").astype(np.float32))
+            n = int(P.voxel_downsample(pts, torch.ones(len(pts), dtype=bool),
+                                       cfg.voxel_size)[1].sum())
+            d = abs(float(g[3 + k]) - float(w[3 + k]))
+            worst = max(worst, d * n)
+            if not d <= 1.0 / n + GT_PRINT:
+                raise AssertionError(f"gt_path: {g} on the card, {w} on "
+                                     f"the CPU: past 1 / {n}")
+    res = dict(scenes=n_scenes, cloud_points=sizes, pairs_scored=scored,
+               lines=len(records), cli_wall_s=wall,
+               s_per_pair=wall / max(scored, 1),
+               overlap_pairs=GT_PAIRS,
+               overlap_ratios=[[float(x) for x in g[3:]] for g in got],
+               overlap_card_s=walls["cuda"], overlap_cpu_s=walls["cpu"],
+               overlap_worst_points=worst)
+    emit("gt_path", card=card_line(), **res)
+    return res
+
+
+TESTER_SCENES, TESTER_SAMPLES, TESTER_BATCH = 4, 4, 4  # the CLI's defaults
+
+
+def phase_tester_path(torch, K1, K2, seed: int, tmp: Path) -> dict:
+    """The Tester at ``ModelConfig()`` width (dim 64, (1, 2, 4, 8), 256^2,
+    bf16) on a ``model-1.pt`` of seeded weights: (1) the CLI
+    ``test_successive_ddnm_diffusion.main`` with its defaults (4 scenes x
+    4 samples, batch 4, 32 DDIM steps, eta 1): the JAX Tester's file
+    names and PNG sizes, 4 sample calls x 32 forwards = 1,024 K1 and 128
+    K2 launches, no K3, no plain route, the device time of each sample
+    call; (2) ``Tester.generate`` at 4 scenes x 3 samples, voxel 0.005,
+    memory 2^18: ``scene-{sid}.ply`` and ``-memory.ply``; (3) the
+    ancestral chain through the CLI, ``--sampling_timesteps 1000``, 1
+    scene x 1 sample at batch 1: 8,000 K1 and 1,000 K2."""
+    from PIL import Image
+
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.cli import test_successive_ddnm_diffusion as tc
+    from pointreggpt_tpu_torch.core import plyio
+    from pointreggpt_tpu_torch.diffusion import gaussian
+    from pointreggpt_tpu_torch.generate.tester import Tester
+    from pointreggpt_tpu_torch.utils.seeded_weights import fill_seeded
+
+    root = tmp / "tester"
+    (root / "results").mkdir(parents=True)
+    unet = fill_seeded(C.build_diffusion_unet(C.ModelConfig()), seed)
+    sd = {f"model.{k}": v for k, v in unet.state_dict().items()}
+    torch.save({"step": 1, "model": sd,
+                "ema": {f"ema_model.{k}": v for k, v in sd.items()}},
+               root / "results" / "model-1.pt")
+    calls = []
+    orig = gaussian.GaussianDiffusion.sample
+
+    def timed_sample(self, *a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig(self, *a, **kw)
+        e1.record()
+        calls.append((e0, e1))
+        return out
+
+    def run(fn, want):
+        calls.clear()
+        reset_counts(K1, K2)
+        gaussian.GaussianDiffusion.sample = timed_sample
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            gaussian.GaussianDiffusion.sample = orig
+        k1_n, k3_n, k2_n, routes = counts(K1, K2)
+        if (k1_n, k3_n, k2_n) != want:
+            raise AssertionError(f"tester_path: K1, K3, K2 = "
+                                 f"{(k1_n, k3_n, k2_n)}, want {want}")
+        check_no_routes("tester_path", routes)
+        return dict(wall_s=wall, k1=k1_n, k3=k3_n, k2=k2_n,
+                    sample_call_s=[a.elapsed_time(b) / 1e3
+                                   for a, b in calls])
+
+    steps = tc.TEST_DIFFUSION.sampling_timesteps
+    cli_args = ["--resume", "1", "--results_folder", str(root / "results")]
+    n_calls = -(-TESTER_SCENES // TESTER_BATCH) * TESTER_SAMPLES
+    cli = run(lambda: tc.main(cli_args + ["--samples_folder",
+                                          str(root / "sample")]),
+              (8 * steps * n_calls, 0, steps * n_calls))
+    out = root / "sample"
+    h = C.DiffusionConfig().image_size
+    for sid in range(TESTER_SCENES):
+        for k in range(TESTER_SAMPLES):
+            with Image.open(out / f"scene-{sid}-sample-{k}.png") as im:
+                if im.size != (3 * h, h):
+                    raise AssertionError(f"tester_path: {im.size} PNG")
+            cloud = plyio.read_ply(out / f"scene-{sid}-sample-{k}.ply")
+            if cloud.ndim != 2 or not np.all(np.isfinite(cloud)):
+                raise AssertionError("tester_path: bad PLY")
+        if np.loadtxt(out / f"scene-{sid}-camera-intrinsics.txt"
+                      ).shape != (3, 3):
+            raise AssertionError("tester_path: bad intrinsics")
+    with Image.open(out / "overview.png") as im:
+        if im.size != (TESTER_SAMPLES * 3 * h, TESTER_SCENES * h):
+            raise AssertionError(f"tester_path: overview {im.size}")
+
+    gen_samples = 3
+    tester = Tester(C.build_diffusion_unet(C.ModelConfig()),
+                    C.build_diffusion(tc.TEST_DIFFUSION),
+                    batch_size=TESTER_BATCH,
+                    results_folder=str(root / "results"),
+                    samples_folder=str(root / "generate"))
+    tester.load(1)
+    n_gen = gen_samples * -(-TESTER_SCENES // TESTER_BATCH)
+    generate = run(lambda: tester.generate(
+        TESTER_SCENES, gen_samples, voxel_size=0.005,
+        memory_capacity=1 << 18), (8 * steps * n_gen, 0, steps * n_gen))
+    clouds = {}
+    for sid in range(TESTER_SCENES):
+        for name in (f"scene-{sid}.ply", f"scene-{sid}-memory.ply"):
+            pts = plyio.read_ply(root / "generate" / name)
+            if len(pts) == 0 or not np.all(np.isfinite(pts)):
+                raise AssertionError(f"tester_path: {name} {pts.shape}")
+            clouds[name] = len(pts)
+    del tester
+    torch.cuda.empty_cache()
+
+    t = C.DiffusionConfig().timesteps
+    ancestral = run(lambda: tc.main(cli_args + [
+        "--samples_folder", str(root / "ancestral"),
+        "--sampling_timesteps", str(t), "--num_scenes", "1",
+        "--num_samples", "1", "--batch_size", "1"]), (8 * t, 0, t))
+    with Image.open(root / "ancestral" / "scene-0-sample-0.png") as im:
+        if im.size != (3 * h, h):
+            raise AssertionError(f"tester_path: ancestral {im.size}")
+
+    res = dict(cli=cli, cli_sample_calls=n_calls,
+               s_per_sample_call=float(np.median(cli["sample_call_s"])),
+               generate=generate, generate_clouds=clouds,
+               ancestral=ancestral, ancestral_forwards=t)
+    emit("tester_path", card=card_line(), **res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1704,27 +2082,39 @@ def main(argv=None) -> int:
         folder, gt_log = write_training_tree(tmp, 64, args.seed)
         phase_train_step(torch, K1, K2, folder, gt_log, tmp)
         main_res = phase_main_path(torch, K1, K2, args.seed,
-                                   args.num_samples)
+                                   args.num_samples, tmp / "main")
         train_res = phase_train_path(torch, K1, K2, folder, gt_log, tmp)
         mask_res = phase_mask_train_path(torch, K1, K2, args.seed, tmp,
                                          fwd_bwd)
+        phase_jax_parity(torch, K1, K2, tmp)
+        phase_gt_path(torch, args.seed, tmp / "main", tmp)
+        tester_res = phase_tester_path(torch, K1, K2, args.seed, tmp)
     sample_steps = main_res["num_samples"]
 
-    # launches: the three main paths (generation, diffusion training,
-    # depth-correction training), each counted from 0 just before its
-    # entry point runs; per sample step of generation, per optimizer step
-    # of diffusion training (its milestone grid counted apart) and per
-    # optimizer step of the MaskTrainer (its validation counted apart)
+    # launches: the four main paths (generation, diffusion training,
+    # depth-correction training, the Tester's three runs), each counted
+    # from 0 just before its entry point runs; per sample step of
+    # generation, per optimizer step of diffusion training (its milestone
+    # grid counted apart), per optimizer step of the MaskTrainer (its
+    # validation counted apart) and per sample call of the Tester's CLI
     def launches(i, key):
         mask_key = ("k1_per_step", "k3_per_step", "k2_per_step")[i]
-        return dict(launches=main_res[key] + train_res[key] + mask_res[key],
+        tester = [tester_res[run][("k1", "k3", "k2")[i]]
+                  for run in ("cli", "generate", "ancestral")]
+        return dict(launches=main_res[key] + train_res[key] +
+                    mask_res[key] + sum(tester),
                     launches_generate=main_res[key],
                     launches_train=train_res[key],
                     launches_mask_train=mask_res[key],
+                    launches_tester=tester[0],
+                    launches_tester_generate=tester[1],
+                    launches_tester_ancestral=tester[2],
                     per_sample_step=main_res[key] / sample_steps,
                     per_optimizer_step=train_res["per_optimizer_step"][i],
                     launches_train_grid=train_res["grid_launches"][i],
-                    per_mask_optimizer_step=mask_res[mask_key])
+                    per_mask_optimizer_step=mask_res[mask_key],
+                    per_tester_sample_call=tester[0] /
+                    tester_res["cli_sample_calls"])
 
     csrc = "pointreggpt_tpu_torch/ops/csrc/"
     KV_HEADER, TC_HEADER, BWD_TC_HEADER, CONV_HEADER, TF32_HEADER = (

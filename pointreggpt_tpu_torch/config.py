@@ -1,8 +1,9 @@
 """Dataclass configs with CLI overrides, and the builders of live objects.
 
-Own copy of the generation, diffusion-training and mask-training configs of
-``pointreggpt_tpu/config.py`` (same fields and defaults, so the port's CLIs
-take the same flags), with builders that make the port's torch modules.
+Own copy of the generation, diffusion-training, mask-training and gt.log
+configs of ``pointreggpt_tpu/config.py`` (same fields and defaults, so the
+port's CLIs take the same flags), with builders that make the port's torch
+modules.
 """
 
 from __future__ import annotations
@@ -117,6 +118,18 @@ class GenerateConfig:
     data_root: str = "./dataset/indoor/data"
     results_folder: str = "./successive_ddnm_diffusion_results"
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class GtLogConfig:
+    """gt.log overlap-metadata constants (generate_gt.py)."""
+
+    dataset_name: str = "generated_dataset"
+    num_samples: int = 2
+    min_points: int = 1000
+    min_overlap: float = 0.1
+    voxel_size: float = 0.025
+    overlap_factor: float = 1.5
 
 
 def _parse_bool(s: str) -> bool:

@@ -205,6 +205,23 @@ def min_pool(depth: torch.Tensor, *, window: int = 3,
     return -F.max_pool2d(-depth[:, None], window, stride, pad)[:, 0]
 
 
+def occlusion_filter(depth_rpj: torch.Tensor, mask_rpj: torch.Tensor, *,
+                     threshold: float = 0.0375
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Suppress see-through speckle after re-projection: a pixel more than
+    ``threshold`` above the minimum of its valid 3x3 neighbourhood takes
+    that minimum. The mask passes through unchanged.
+
+    Args:
+        depth_rpj: (b, h, w) meters.  mask_rpj: (b, h, w) bool.
+    """
+    depth_pre = torch.where(mask_rpj, depth_rpj,
+                            torch.full_like(depth_rpj, float("inf")))
+    min_neighbors = min_pool(depth_pre, window=3, stride=1)
+    keep = (depth_rpj - min_neighbors) < threshold
+    return torch.where(keep, depth_rpj, min_neighbors), mask_rpj
+
+
 def normalize_to_neg_one_to_one(img: torch.Tensor) -> torch.Tensor:
     return img * 2.0 - 1.0
 

@@ -1,6 +1,8 @@
-"""Voxel downsampling and the scene-memory update on torch tensors.
+"""Voxel downsampling, the scene-memory update, the nearest-to-origin bound
+and the radius overlap on torch tensors.
 
-Port of ``voxel_downsample`` and ``memory_voxel_update`` from
+Port of ``voxel_downsample`` (and its batched form), ``memory_voxel_update``,
+``keep_nearest``, ``any_within_radius`` and ``overlap_ratio`` from
 ``pointreggpt_tpu/core/pointops.py``. The JAX package built them
 scatter-free for the TPU (packed-key sort + segmented scan); on the GPU the
 plain route is a sort and ``index_add_`` sums:
@@ -93,6 +95,59 @@ def voxel_downsample(points: Tensor, valid: Tensor, voxel_size: float
     return centroid[0], seg_ok[0]
 
 
+def voxel_downsample_batched(points: Tensor, valid: Tensor,
+                             voxel_size: float) -> Tuple[Tensor, Tensor]:
+    """:func:`voxel_downsample` of each row, origin per row.
+
+    Args:
+        points: (b, n, 3).  valid: (b, n) bool.
+
+    Returns:
+        (b, n, 3) centroids, each row's occupied voxels a leading prefix in
+        voxel-key order; (b, n) validity mask.
+    """
+    centroid, seg_ok, _ = _voxel_segments(points, valid, voxel_size)
+    return centroid, seg_ok
+
+
+def keep_nearest(points: Tensor, valid: Tensor, capacity: int
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Bound a padded cloud to ``capacity`` points, keeping the valid ones
+    nearest the origin.
+
+    The output is sorted by squared distance to the origin (invalid points
+    last), ties broken by index with a stable sort, as ``lax.top_k`` breaks
+    them in the JAX package. The JAX package skips the sort when no row
+    overflows and keeps the valid points in their input order instead: the
+    same points, in another order. When ``capacity >= n`` the cloud is only
+    padded, as there.
+
+    Args:
+        points: (..., n, 3).  valid: (..., n) bool.
+
+    Returns:
+        (..., capacity, 3) points, (..., capacity) bool, and (...,) int64
+        overflow: the number of valid points dropped.
+    """
+    n = points.shape[-2]
+    occupied = valid.sum(dim=-1)
+    if capacity >= n:
+        pad = capacity - n
+        points = torch.cat(
+            [points, points.new_zeros(points.shape[:-2] + (pad, 3))], dim=-2)
+        valid = torch.cat(
+            [valid, valid.new_zeros(valid.shape[:-1] + (pad,))], dim=-1)
+        return points, valid, torch.zeros_like(occupied)
+    d2 = (points * points).sum(dim=-1)
+    d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
+    _, order = torch.sort(d2, dim=-1, stable=True)
+    order = order[..., :capacity]
+    out = torch.gather(points, -2,
+                       order[..., None].expand(order.shape + (3,)))
+    return (out, torch.gather(valid, -1, order),
+            (occupied - capacity).clamp(min=0))
+
+
 def memory_voxel_update(
     mem_pts: Tensor,
     mem_valid: Tensor,
@@ -134,3 +189,76 @@ def memory_voxel_update(
     out_valid = torch.isfinite(key_s[:, :capacity])
     out = torch.where(out_valid[..., None], out, torch.zeros_like(out))
     return out, out_valid, (nseg - capacity).clamp(min=0)
+
+
+def _sq_norm(p: Tensor) -> Tensor:
+    """|p|^2 over the last axis of (..., 3), summed x, y, z in order."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    return x * x + y * y + z * z
+
+
+def any_within_radius(src: Tensor, src_valid: Tensor, tgt: Tensor,
+                      tgt_valid: Tensor, radius: float, *,
+                      block: int = 512) -> Tensor:
+    """For each valid src point: does any valid tgt point lie within
+    ``radius``?
+
+    The JAX package's blocked formula: ``|s|^2 + |t|^2 - 2 s.t <= r^2`` in
+    fp32 over target blocks of ``block`` points, so a point at the radius
+    edge falls on the same side. The product is ``torch.matmul``, which is
+    fp32 only while TF32 is off (``torch.backends.cuda.matmul.allow_tf32``):
+    the entry points turn it off.
+
+    Args:
+        src: (..., n, 3); src_valid: (..., n) bool; tgt: (..., m, 3);
+        tgt_valid: (..., m) bool, the same leading shape.
+
+    Returns:
+        (..., n) bool hit mask, False for invalid src points.
+    """
+    src, tgt = src.float(), tgt.float()
+    r_sq = float(torch.tensor(radius * radius, dtype=torch.float32))
+    s_sq = _sq_norm(src)[..., None]
+    hit = torch.zeros_like(src_valid)
+    for j in range(0, tgt.shape[-2], block):
+        t = tgt[..., j:j + block, :]
+        d_sq = (s_sq + _sq_norm(t)[..., None, :] -
+                2.0 * torch.matmul(src, t.transpose(-1, -2)))
+        ok = (d_sq <= r_sq) & tgt_valid[..., None, j:j + block]
+        hit = hit | ok.any(dim=-1)
+    return hit & src_valid
+
+
+def _downsample_rows(points: Tensor, valid: Tensor, voxel_size: float
+                     ) -> Tuple[Tensor, Tensor]:
+    """:func:`voxel_downsample_batched` over any leading shape."""
+    out, ok = voxel_downsample_batched(
+        points.reshape((-1,) + points.shape[-2:]),
+        valid.reshape(-1, valid.shape[-1]), voxel_size)
+    return out.reshape(points.shape), ok.reshape(valid.shape)
+
+
+def overlap_ratio(pc1: Tensor, valid1: Tensor, pc2: Tensor, valid2: Tensor,
+                  *, voxel_size: float = 0.025, overlap_factor: float = 1.5,
+                  downsample: bool = True) -> Tuple[Tensor, Tensor]:
+    """Bidirectional overlap ratios of padded clouds: voxel-downsample
+    each (unless ``downsample`` is False), then the share of each cloud's
+    points with a point of the other within ``voxel_size *
+    overlap_factor``. An empty cloud gives NaN (0 / 0), as in the JAX
+    package.
+
+    Args:
+        pc1: (..., n, 3); valid1: (..., n); pc2: (..., m, 3); valid2:
+            (..., m), the same leading shape.
+
+    Returns:
+        (overlap_1, overlap_2), fp32 of the leading shape.
+    """
+    if downsample:
+        pc1, valid1 = _downsample_rows(pc1, valid1, voxel_size)
+        pc2, valid2 = _downsample_rows(pc2, valid2, voxel_size)
+    radius = voxel_size * overlap_factor
+    hits1 = any_within_radius(pc1, valid1, pc2, valid2, radius)
+    hits2 = any_within_radius(pc2, valid2, pc1, valid1, radius)
+    n1, n2 = valid1.float().sum(dim=-1), valid2.float().sum(dim=-1)
+    return hits1.float().sum(dim=-1) / n1, hits2.float().sum(dim=-1) / n2

@@ -76,6 +76,43 @@ def _se3(rotation: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def transform_uniforms(generator: Optional[torch.Generator],
+                       batch_size: int, *, device=None) -> torch.Tensor:
+    """The (3, b) uniform draws of :func:`random_sample_transform`."""
+    if device is None:
+        device = generator.device if generator is not None else "cpu"
+    return torch.rand((3, batch_size), generator=generator, device=device,
+                      dtype=torch.float32)
+
+
+def transform_from_uniforms(u: torch.Tensor, intrinsic: torch.Tensor,
+                            image_size: int = 256) -> torch.Tensor:
+    """FoV-bounded rotation from (3, b) uniforms in [0, 1): pitch and yaw
+    bounded so the principal ray stays in the frustum (the atan of the
+    principal-point offsets over the focal lengths), full-range roll, no
+    translation. Returns (b, 4, 4)."""
+    h = w = image_size
+    fx, fy = intrinsic[:, 0, 0], intrinsic[:, 1, 1]
+    cx, cy = intrinsic[:, 0, 2], intrinsic[:, 1, 2]
+    theta_min, theta_max = -torch.atan((h - cy) / fy), torch.atan(cy / fy)
+    phi_min, phi_max = -torch.atan(cx / fx), torch.atan((w - cx) / fx)
+    theta = u[0] * (theta_max - theta_min) + theta_min
+    phi = u[1] * (phi_max - phi_min) + phi_min
+    psi = u[2] * 2 * math.pi - math.pi
+    rot = euler_xyz_intrinsic_to_matrix(torch.stack([theta, phi, psi], -1))
+    return _se3(rot, torch.zeros_like(rot[:, :, 0]))
+
+
+def random_sample_transform(generator: Optional[torch.Generator],
+                            intrinsic: torch.Tensor,
+                            image_size: int = 256) -> torch.Tensor:
+    """(b, 4, 4) FoV-bounded random rotations for the (b, 3, 3)
+    ``intrinsic`` (the Tester's view augmentation)."""
+    u = transform_uniforms(generator, intrinsic.shape[0],
+                           device=intrinsic.device)
+    return transform_from_uniforms(u, intrinsic.float(), image_size)
+
+
 def random_sample_pose(generator: Optional[torch.Generator],
                        batch_size: int,
                        center: Sequence[float] = (0.0, 0.0, 3.0),

@@ -1,11 +1,11 @@
 """GaussianDiffusion: the training loss and the DDIM + DDNM sampling chain
 on torch.
 
-Port of ``pointreggpt_tpu/diffusion/gaussian.py`` (ancestral sampling,
-``denoise`` and ``interpolate`` are not ported yet).
-The JAX ``lax.scan`` over timestep pairs is a Python loop here; nothing in
-it reads a value back to the host, so the whole chain queues on the stream
-without a sync.
+Port of ``pointreggpt_tpu/diffusion/gaussian.py`` (``denoise`` and
+``interpolate`` are not ported yet). The JAX ``lax.scan`` over timesteps
+(DDIM pairs, or all ``timesteps`` of the ancestral chain) is a Python loop
+here; nothing in it reads a value back to the host, so the whole chain
+queues on the stream without a sync.
 
 Images are NHWC ``(b, h, w, c)`` at the public functions, like the JAX
 package; the network sees the NCHW view (channels_last memory, no copy).
@@ -19,7 +19,7 @@ Deterministic scalar coefficients are computed on the host in float32.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -272,19 +272,67 @@ class GaussianDiffusion:
             img = torch.where(mask, x_start, img)
         return unnormalize_to_zero_to_one(img)
 
+    # -- ancestral sampling -------------------------------------------------
+
+    def _p_sample_step(self, model: nn.Module, x: Tensor, t: int,
+                       param_cond: Tensor, img_cond: Optional[Tensor],
+                       generator: Optional[torch.Generator],
+                       noise: Optional[Callable[[int], Tensor]], *,
+                       is_ban_ddnm: bool = False) -> Tensor:
+        """One step of the posterior chain: x_{t-1} from x_t (the posterior
+        mean at t = 0, where the noise is zero)."""
+        _, x_start = self.model_predictions(
+            model, x, t, param_cond, img_cond, generator=generator,
+            is_ban_ddnm=is_ban_ddnm)
+        x_start = x_start.clamp(-1.0, 1.0)
+        mean = (self._coef("posterior_mean_coef1", t) * x_start +
+                self._coef("posterior_mean_coef2", t) * x)
+        if t == 0:
+            return mean
+        std = float(np.exp(np.float32(0.5) *
+                           self.tables.posterior_log_variance_clipped[t]))
+        z = (torch.randn(x.shape, generator=generator, device=x.device)
+             if noise is None else noise(t).to(x.device, torch.float32))
+        return mean + std * z
+
+    @torch.inference_mode()
+    def p_sample_loop(self, model: nn.Module, param_cond: Tensor,
+                      img_cond: Optional[Tensor], shape: Sequence[int], *,
+                      generator: Optional[torch.Generator] = None,
+                      has_refine_step: bool = False,
+                      x_init: Optional[Tensor] = None,
+                      noise: Optional[Callable[[int], Tensor]] = None
+                      ) -> Tensor:
+        """Ancestral chain over all ``timesteps``; returns (b, h, w, c) in
+        [0, 1].
+
+        ``x_init`` injects the x_T draw and ``noise(t)`` the noise of step
+        t (tests); otherwise both are drawn from ``generator``.
+        """
+        device = param_cond.device
+        img = (torch.randn(tuple(shape), generator=generator, device=device)
+               if x_init is None else x_init.to(device, torch.float32))
+        for t in range(self.timesteps - 1, -1, -1):
+            img = self._p_sample_step(model, img, t, param_cond, img_cond,
+                                      generator, noise)
+        if has_refine_step and img_cond is not None:
+            refined = self._p_sample_step(model, img, 0, param_cond,
+                                          img_cond, generator, noise,
+                                          is_ban_ddnm=True)
+            mask = mask_from_image_condition(img_cond)[..., None]
+            img = torch.where(mask, refined, img)
+        return unnormalize_to_zero_to_one(img)
+
     def sample(self, model: nn.Module, *, param_cond: Tensor,
                img_cond: Optional[Tensor] = None,
                generator: Optional[torch.Generator] = None,
                has_refine_step: bool = False,
                x_init: Optional[Tensor] = None) -> Tensor:
-        """Sample (b, h, w, c) images in [0, 1] with the DDIM chain."""
-        if not self.is_ddim_sampling:
-            raise NotImplementedError(
-                "ancestral sampling (sampling_timesteps == timesteps) is not "
-                "ported yet; use DDIM (sampling_timesteps < timesteps)")
+        """Sample (b, h, w, c) images in [0, 1]: the DDIM chain when
+        ``sampling_timesteps < timesteps``, else the ancestral chain."""
         b = param_cond.shape[0]
         shape = (b, self.image_size, self.image_size, self.channels)
-        return self.ddim_sample(model, param_cond, img_cond, shape,
-                                generator=generator,
-                                has_refine_step=has_refine_step,
-                                x_init=x_init)
+        chain = (self.ddim_sample if self.is_ddim_sampling
+                 else self.p_sample_loop)
+        return chain(model, param_cond, img_cond, shape, generator=generator,
+                     has_refine_step=has_refine_step, x_init=x_init)

@@ -69,6 +69,27 @@ def voxel_downsample_host(pts_np: np.ndarray, voxel: float) -> np.ndarray:
     return out[ok].numpy()
 
 
+def load_ema_unet(model, path) -> None:
+    """Load the EMA U-Net of a diffusion checkpoint ({step, model, ema},
+    the reference layout: the EMA wraps the GaussianDiffusion, whose
+    ``model`` is the U-Net, so its keys sit under ``ema_model.model.``; a
+    bare ``ema_model.`` U-Net loads too) into ``model``."""
+    data = load_reference_checkpoint(path)
+    sd = strip_prefix(data["ema"], "ema_model.")
+    if any(k.startswith("model.") for k in sd):
+        sd = strip_prefix(sd, "model.")
+    model.load_state_dict(sd)
+    if data.get("version"):
+        print(f"loading from version {data['version']}")
+
+
+def place_for_inference(model, device):
+    """``model`` baked for its compute dtype, channels-last on ``device``,
+    in eval mode."""
+    model = bake_inference(model.eval(), model.dtype)
+    return model.to(device, memory_format=torch.channels_last).eval()
+
+
 class Generator:
     """Batched scene generator.
 
@@ -115,20 +136,12 @@ class Generator:
 
     # ------------------------------------------------------------------
     def load(self, milestone) -> None:
-        """Load the EMA weights of ``model-{milestone}.pt`` ({step, model,
-        ema}, the reference layout: the EMA wraps the GaussianDiffusion,
-        whose ``model`` is the U-Net, so its keys sit under
-        ``ema_model.model.``; a bare ``ema_model.`` U-Net loads too)."""
-        data = load_reference_checkpoint(
-            self.results_folder / f"model-{milestone}.pt")
-        sd = strip_prefix(data["ema"], "ema_model.")
-        if any(k.startswith("model.") for k in sd):
-            sd = strip_prefix(sd, "model.")
-        self.model.load_state_dict(sd)
+        """Load the EMA weights of ``model-{milestone}.pt`` (see
+        :func:`load_ema_unet`)."""
+        load_ema_unet(self.model, self.results_folder /
+                      f"model-{milestone}.pt")
         self._loaded = True
         self._device_models = None
-        if data.get("version"):
-            print(f"loading from version {data['version']}")
 
     def _load_depth_correction(self) -> None:
         """Load ``model-best.pt`` ({epoch, model}); cached on the file's
@@ -149,14 +162,11 @@ class Generator:
         """(diffusion net, mask net or None), baked and on the device;
         built once and reused until a load invalidates it."""
         if self._device_models is None:
-            def place(m):
-                m = bake_inference(m.eval(), m.dtype)
-                return m.to(self.device,
-                            memory_format=torch.channels_last).eval()
-
             dc = self.depth_correction_model
-            self._device_models = (place(self.model),
-                                   place(dc) if dc is not None else None)
+            self._device_models = (
+                place_for_inference(self.model, self.device),
+                place_for_inference(dc, self.device)
+                if dc is not None else None)
         return self._device_models
 
     # ------------------------------------------------------------------

@@ -1040,3 +1040,146 @@ def test_test_dataset_item_on_the_card_matches_the_cpu(cuda, tmp_path):
         off = np.abs(got[k] - want[k]) > 1e-6
         assert off.mean() <= 1e-3, (k, off.mean())
     assert (got["input_img"] > 0).mean() > 0.5
+
+
+# ---------------------------------------------------------------------------
+# the port against JAX output, gt.log and the Tester on the card
+
+
+@pytest.fixture
+def fp32_exact(monkeypatch):
+    """fp32 products in fp32, as the entry points set them (cuBLAS and
+    cuDNN would otherwise run them in TF32)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("case", ["forward", "mask", "step"])
+def test_jax_parity_on_the_card(cuda, fp32_exact, tmp_path, case):
+    """``chip_smoke.py``'s ``jax_parity`` check on one case: the port on
+    the card (K1 and K2 bf16 in the DiffusionUNet, fp32 in the MaskUNet)
+    against ``tests/data/torch_port_jax_reference.npz``."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    res = chip_smoke.jax_parity_report(torch, K1, K2, tmp_path,
+                                       cases=(case,))
+    assert not res["failed"], res
+    assert res["launches"] == res["want_launches"], res
+    assert not any(res["plain_routes"].values()), res
+    if case == "forward":
+        assert res["fault_over_gate"] >= chip_smoke.FAULT_MARGIN, res
+
+
+def test_overlap_ratio_on_the_card_matches_the_cpu(cuda, fp32_exact):
+    from pointreggpt_tpu_torch.core import pointops as P
+
+    rng = np.random.default_rng(0)
+    s = rng.uniform(-1, 1, (3, 4000, 3)).astype(np.float32)
+    t = s + rng.normal(0, 0.05, s.shape).astype(np.float32)
+    t[:, :1500] += 0.8
+    sv = rng.uniform(size=s.shape[:2]) < 0.9
+    tv = rng.uniform(size=t.shape[:2]) < 0.9
+    sv[2] = False  # an empty cloud: NaN on both
+    args = [torch.from_numpy(a) for a in (s, sv, t, tv)]
+    got = [o.cpu().numpy() for o in P.overlap_ratio(
+        *(a.to(cuda) for a in args), voxel_size=0.05)]
+    want = [o.numpy() for o in P.overlap_ratio(*args, voxel_size=0.05)]
+    # a point within rounding of the radius may land on the other side:
+    # one point of its downsampled cloud (1 / n)
+    for g, w, (pts, ok) in zip(got, want, ((s, sv), (t, tv))):
+        n = np.array([int(P.voxel_downsample(torch.from_numpy(p),
+                                             torch.from_numpy(v), 0.05)[1]
+                          .sum()) for p, v in zip(pts, ok)])
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        fin = ~np.isnan(w)
+        assert (np.abs(g - w)[fin] <= 1.0 / np.maximum(n, 1)[fin]).all()
+    assert np.isnan(got[0][2]) and 0.3 < got[0][0] < 0.9
+
+
+def _small_tester(device, tmp, **kw):
+    from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
+    from pointreggpt_tpu_torch.generate.generator import place_for_inference
+    from pointreggpt_tpu_torch.generate.tester import Tester
+    from pointreggpt_tpu_torch.utils.seeded_weights import fill_seeded
+
+    net = fill_seeded(DiffusionUNet(dim=8, dim_mults=(1, 2)), 0)
+    diffusion = GaussianDiffusion(image_size=32, timesteps=8,
+                                  objective="pred_x0",
+                                  beta_schedule="sigmoid", **kw)
+    tester = Tester(net, diffusion, batch_size=2, device=device,
+                    samples_folder=str(tmp / str(device)))
+    tester.ema_model = place_for_inference(net, tester.device)
+    return tester
+
+
+# fp32 dim-8 net, card (K1 and K2 fp32, cuDNN fp32) vs CPU (plain
+# versions): the chain bound of the CPU tests against JAX
+CHAIN_ATOL, CHAIN_RTOL = 5e-4, 1e-3
+
+
+def test_tester_step_on_the_card_matches_the_cpu(cuda, fp32_exact,
+                                                 tmp_path):
+    rng = np.random.default_rng(1)
+    b, h = 2, 32
+    intr = np.zeros((b, 3, 3), np.float32)
+    intr[:, 0, 0] = intr[:, 1, 1] = 36.0
+    intr[:, 0, 2] = intr[:, 1, 2] = h / 2
+    intr[:, 2, 2] = 1.0
+    pc = intr[:, [0, 1, 0, 1], [0, 1, 2, 2]]
+    images = rng.uniform(0.15, 0.3, (b, h, h, 1)).astype(np.float32)
+    pose = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+    pose[:, :3, 3] = [0.0, 0.0, 0.5]
+    x_init = rng.normal(size=(b, h, h, 1)).astype(np.float32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        tester = _small_tester(dev, tmp_path, sampling_timesteps=4,
+                               ddim_sampling_eta=0.0)
+        before = K1.fused_linear_attention.launches
+        out = tester.step(*(torch.from_numpy(a).to(dev)
+                            for a in (images, intr, pc, pose)), True,
+                          x_init=torch.from_numpy(x_init).to(dev))
+        outs.append([o.cpu().numpy() for o in out])
+        if dev == "cuda":
+            assert K1.fused_linear_attention.launches == before + 4 * 4
+    (d_gpu, c_gpu, i_gpu), (d_cpu, c_cpu, i_cpu) = outs
+    # the splat may move a point across a pixel edge (a fused
+    # multiply-add): at most 0.1% of pixels, as TestDataset's rule
+    off = np.abs(d_gpu - d_cpu) > 1e-5
+    assert off.mean() <= 1e-3, off.mean()
+    same = ~off.any(axis=0, keepdims=True).repeat(b, 0)
+    np.testing.assert_allclose(i_gpu[..., 0][same], i_cpu[..., 0][same],
+                               atol=CHAIN_ATOL, rtol=CHAIN_RTOL)
+    assert (c_cpu[..., 1] > 0).mean() > 0.3
+
+
+def test_p_sample_loop_on_the_card_matches_the_cpu(cuda, fp32_exact,
+                                                   tmp_path):
+    rng = np.random.default_rng(2)
+    b, h, t = 2, 32, 8
+    x_init = rng.normal(size=(b, h, h, 1)).astype(np.float32)
+    noise = rng.normal(size=(t, b, h, h, 1)).astype(np.float32)
+    pc = np.array([[40.0, 40.0, 16.0, 16.0], [35.0, 36.0, 16.0, 16.0]],
+                  np.float32)
+    mask = (rng.uniform(size=(b, h, h)) > 0.5).astype(np.float32)
+    depth = rng.uniform(0.1, 0.4, (b, h, h)).astype(np.float32)
+    cond = (np.stack([depth, mask], -1) * 2.0 - 1.0).astype(np.float32)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        tester = _small_tester(dev, tmp_path, sampling_timesteps=t)
+        assert not tester.diffusion.is_ddim_sampling
+        before = K2.multihead_attention.launches
+        out = tester.diffusion.p_sample_loop(
+            tester.ema_model, torch.from_numpy(pc).to(dev),
+            torch.from_numpy(cond).to(dev), (b, h, h, 1),
+            has_refine_step=True, x_init=torch.from_numpy(x_init).to(dev),
+            noise=lambda s: torch.from_numpy(noise[s]))
+        outs.append(out.cpu().numpy())
+        if dev == "cuda":
+            # t chain steps and the refine step, one K2 each
+            assert K2.multihead_attention.launches == before + t + 1
+    np.testing.assert_allclose(outs[0], outs[1], atol=CHAIN_ATOL,
+                               rtol=CHAIN_RTOL)

@@ -104,6 +104,16 @@ def test_q_sample_matches(chain):
 def test_sampling_config_guards():
     with pytest.raises(ValueError):
         GaussianDiffusion(image_size=8, timesteps=16, sampling_timesteps=0)
+    # sampling_timesteps == timesteps selects the ancestral chain: one
+    # forward a timestep, from T - 1 down to 0
     td = GaussianDiffusion(image_size=8, timesteps=16, sampling_timesteps=16)
-    with pytest.raises(NotImplementedError):
-        td.sample(None, param_cond=torch.zeros(1, 4))
+    assert not td.is_ddim_sampling
+    seen = []
+
+    def model(x, t, pc):
+        seen.append(int(t[0]))
+        return torch.zeros_like(x)
+
+    out = td.sample(model, param_cond=torch.zeros(1, 4))
+    assert out.shape == (1, 8, 8, 1) and bool(torch.isfinite(out).all())
+    assert seen == list(range(15, -1, -1))

@@ -312,13 +312,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'pointreggpt_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'pointreggpt_tpu',\n"
+        "              'matplotlib'))\n"
         "print('MODULES', len([n for n in sys.modules\n"
         "      if n.startswith('pointreggpt_tpu_torch')]))\n"
         "print('TRAIN', all(m in sys.modules for m in (\n"
         "    'pointreggpt_tpu_torch.train.trainer',\n"
         "    'pointreggpt_tpu_torch.data.datasets',\n"
         "    'pointreggpt_tpu_torch.cli.train_successive_ddnm_diffusion')))\n"
+        "print('TESTER', all(m in sys.modules for m in (\n"
+        "    'pointreggpt_tpu_torch.generate.gt',\n"
+        "    'pointreggpt_tpu_torch.generate.tester',\n"
+        "    'pointreggpt_tpu_torch.cli.generate_gt',\n"
+        "    'pointreggpt_tpu_torch.cli.test_successive_ddnm_diffusion')))\n"
         "print('BAD', bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
@@ -326,4 +332,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert r.returncode == 0, r.stderr[-2000:]
     assert "BAD []" in r.stdout, r.stdout
     assert "TRAIN True" in r.stdout, r.stdout
+    assert "TESTER True" in r.stdout, r.stdout
     assert int(r.stdout.split("MODULES ")[1].split()[0]) >= 25
