@@ -108,13 +108,37 @@ Phases, each printing one JSON line:
    its defaults (4 scenes x 4 samples, 32 DDIM steps, eta 1) on seeded
    weights: the JAX Tester's file contract and 1,024 K1 and 128 K2
    launches; ``Tester.generate`` (4 scenes x 3 samples, memory 2^18); the
-   ancestral chain through the CLI (1,000 steps, 8,000 K1, 1,000 K2).
+   ancestral chain through the CLI (1,000 steps, 8,000 K1, 1,000 K2);
+18. ``fid_path``: the training CLI with ``--calculate_fid`` to one
+   milestone (2 production steps, the 25-image EMA grid) on seeded
+   Inception weights written as a ``.pth`` and reached through
+   ``$PRGPT_INCEPTION_WEIGHTS``: a finite ``fid_score`` line; then
+   ``InceptionFeatures`` at 299^2 on 32 seeded images against the port on
+   the CPU and the JAX features committed in
+   ``tests/data/torch_port_fid_import_reference.npz`` (gated as
+   ``jax_parity``), ``fid_pools`` flipped as a planted fault (at least 10x
+   the gate), the FID of two seeded sets card vs CPU (1e-2 relative),
+   features a second and the milestone's FID seconds;
+19. ``import_path``: the importer CLI on full-width reference-layout
+   ``.pt`` files of seeded weights, then one ``Generator.step`` from its
+   output equal bit for bit to the step from the un-imported nets; on the
+   committed small-width JAX ``.ckpt`` pair, the imported nets' forwards
+   against the JAX forwards; ``train_depth_correction --resume`` from the
+   imported ``.ckpt``: one step, its Adam count the JAX count + 1;
+20. ``mixture_path``: every item of both registration loaders
+   (``MixtureDataset``, max_points 30000; ``MixturePairDataset`` with its
+   correspondences) over ``main_path``'s generated tree (the gt.log
+   ``gt_path`` wrote) and ``gt_path``'s synthetic pairs, card vs CPU: the
+   fields bit for bit, the correspondences but for pairs within 1e-5 of
+   the radius (counted); items a second.
 
-The last three lines are the kernel table (one JSON object: K1-K3's
-launch counts from the four main paths, K4's from its op's drive, K5's
-and K6's from their tools' entry points; K1's and K3's ``plain_routes``,
-the calls routed to the plain version by shape, must be 0 on each path), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+A ``phase_seconds`` line gives each phase's wall seconds and the total
+from the build on. The last three lines are the kernel table (one JSON
+object: K1-K3's launch counts from the main paths, K4's from its op's
+drive, K5's and K6's from their tools' entry points; K1's and K3's
+``plain_routes``, the calls routed to the plain version by shape, must be
+0 on each path), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2031,6 +2055,438 @@ def phase_tester_path(torch, K1, K2, seed: int, tmp: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# fid_path, import_path and mixture_path
+
+FID_REFERENCE = REPO / "tests" / "data" / "torch_port_fid_import_reference.npz"
+FID_FAULT_MARGIN = 10.0  # the flipped pools miss the features gate by this
+# card vs CPU fid_score, relative: feature noise of 3e-7 (the port's CPU
+# gap to JAX) moves the score by 0.6-1.7e-4 on the CPU
+FID_SCORE_RTOL = 1e-2
+FID_STEPS = 2  # optimizer steps of fid_path's training run, one milestone
+MIXTURE_EDGE = 1e-5  # a pair within this of the radius may flip in fp32
+
+
+def fid_features_report(torch) -> dict:
+    """``InceptionFeatures`` at 299^2 on ``jax_parity.fid_images()`` (32
+    images, one chunk of 32) on the card, against the port on the CPU and
+    the JAX features in ``FID_REFERENCE``: the gap to JAX beside its gate
+    (``GATE_FACTOR`` x (the CPU gap stored with the reference + the card's
+    gap to the CPU)), the gap of a planted fault (``fid_pools`` flipped in
+    the port's module), the features a second, the ``fid_score`` of two
+    seeded sets on the card and on the CPU."""
+    from pointreggpt_tpu_torch.eval import fid, inception
+    from pointreggpt_tpu_torch.utils import jax_parity as J
+
+    ref = np.load(FID_REFERENCE)
+    sd = inception.init_random_params(J.INCEPTION_SEED)
+    imgs, other = J.fid_images(), J.fid_images(J.SEED + 1)
+    card = fid.InceptionFeatures(state_dict=sd, device="cuda")
+    cpu = fid.InceptionFeatures(state_dict=sd, device="cpu")
+    got, plain = card(imgs), cpu(imgs)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card(imgs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    want = ref["fid_features"]
+    card_gap = float(np.abs(got - want).max())
+    kernel_gap = float(np.abs(got - plain).max())
+    cpu_gap = float(ref["cpu_gap_fid_features"])
+    gate = GATE_FACTOR * (cpu_gap + kernel_gap)
+    card.model.fid_pools = not card.model.fid_pools
+    fault_gap = float(np.abs(card(imgs) - want).max())
+    card.model.fid_pools = not card.model.fid_pools
+    t0 = time.perf_counter()
+    score = fid.fid_score(imgs, other, card)
+    score_s = time.perf_counter() - t0
+    score_cpu = fid.fid_score(imgs, other, cpu)
+    return dict(images=list(imgs.shape), chunk=card.chunk,
+                card_gap=card_gap, cpu_gap=cpu_gap, kernel_gap=kernel_gap,
+                gate=gate, fault_gap=fault_gap,
+                fault_over_gate=fault_gap / gate if gate else float("inf"),
+                feature_spread=float(np.abs(got[0] - got[1]).max()),
+                features_per_s=len(imgs) / float(np.median(walls)),
+                chunk_wall_s=walls, fid_score=score, fid_score_cpu=score_cpu,
+                fid_score_rel=abs(score - score_cpu) / abs(score_cpu),
+                fid_score_s=score_s)
+
+
+def phase_fid_path(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
+    """FID on the card: (a) the training CLI with ``--calculate_fid`` to
+    one milestone (``FID_STEPS`` production steps, the default 25-image
+    EMA grid) on ``inception.init_random_params(0)`` weights written as a
+    ``.pth`` and reached through ``$PRGPT_INCEPTION_WEIGHTS``: a finite
+    ``fid_score`` line in its log, the launches; (b)-(d)
+    :func:`fid_features_report`: the features within their gate of JAX's,
+    the flipped pools at least ``FID_FAULT_MARGIN`` x the gate, the score
+    within ``FID_SCORE_RTOL`` of the CPU's."""
+    from pointreggpt_tpu_torch.cli import train_successive_ddnm_diffusion
+    from pointreggpt_tpu_torch.eval import fid, inception
+    from pointreggpt_tpu_torch.train import metrics
+
+    weights = tmp / "fid" / "inception.pth"
+    weights.parent.mkdir(parents=True)
+    torch.save(inception.init_random_params(0), weights)
+    logged, fid_s = [], []
+    orig_info, orig_score = metrics.Logger.info, fid.fid_score
+
+    def info(self, message):
+        logged.append(message)
+        orig_info(self, message)
+
+    def timed_score(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_score(*a, **kw)
+        fid_s.append(time.perf_counter() - t0)
+        return out
+
+    saved_env = os.environ.get("PRGPT_INCEPTION_WEIGHTS")
+    os.environ["PRGPT_INCEPTION_WEIGHTS"] = str(weights)
+    metrics.Logger.info, fid.fid_score = info, timed_score
+    try:
+        torch.cuda.synchronize()
+        reset_counts(K1, K2)
+        t0 = time.perf_counter()
+        train_successive_ddnm_diffusion.main([
+            "--data", folder, "--gt_log", gt_log, "--calculate_fid", "true",
+            "--results_folder", str(tmp / "fid" / "results"),
+            "--samples_folder", str(tmp / "fid" / "samples"),
+            "--train_num_steps", str(FID_STEPS),
+            "--save_and_sample_every", str(FID_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        *launched, routes = counts(K1, K2)
+    finally:
+        metrics.Logger.info, fid.fid_score = orig_info, orig_score
+        if saved_env is None:
+            del os.environ["PRGPT_INCEPTION_WEIGHTS"]
+        else:
+            os.environ["PRGPT_INCEPTION_WEIGHTS"] = saved_env
+    scores = [float(m.split(": ", 1)[1]) for m in logged
+              if m.startswith("fid_score: ")]
+    if len(scores) != 1 or not np.isfinite(scores[0]):
+        raise AssertionError(f"fid_path: fid_score lines {scores}, want "
+                             "one finite")
+    want = (16 * FID_STEPS + 2000, 16 * FID_STEPS, 2 * FID_STEPS + 250)
+    if tuple(launched) != want:
+        raise AssertionError(f"fid_path launches K1, K3, K2 = {launched}, "
+                             f"want {want}")
+    check_no_routes("fid_path", routes)
+
+    rep = fid_features_report(torch)
+    res = dict(train_wall_s=wall, train_fid_score=scores[0],
+               milestone_fid_s=fid_s[0], k1_launches=launched[0],
+               k3_launches=launched[1], k2_launches=launched[2],
+               plain_routes=routes, fid_score_rtol=FID_SCORE_RTOL, **rep)
+    emit("fid_path", card=card_line(), **res)
+    if not rep["card_gap"] <= rep["gate"]:
+        raise AssertionError(f"fid_path: features {rep['card_gap']} from "
+                             f"JAX's, over the gate {rep['gate']}")
+    if not rep["fault_over_gate"] >= FID_FAULT_MARGIN:
+        raise AssertionError(f"fid_path: the flipped pools read "
+                             f"{rep['fault_gap']}, under {FID_FAULT_MARGIN} "
+                             f"x the gate {rep['gate']}")
+    if not rep["fid_score_rel"] <= FID_SCORE_RTOL:
+        raise AssertionError(f"fid_path: fid_score {rep['fid_score']} on "
+                             f"the card, {rep['fid_score_cpu']} on the CPU")
+    return res
+
+
+def write_reference_pts(torch, root: Path) -> None:
+    """Full-width reference-layout checkpoints of seeded weights, with the
+    reference's extra keys: ``model-official.pt`` (the EMA U-Net is
+    ``jax_parity``'s bf16 net, the online one another seed) and
+    ``model-best.pt`` (``jax_parity``'s step MaskUNet)."""
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.utils import jax_parity as J
+    from pointreggpt_tpu_torch.utils.seeded_weights import fill_seeded
+
+    ema, _, mask = J.nets()
+    online = fill_seeded(C.build_diffusion_unet(C.ModelConfig()), J.SEED + 7)
+    root.mkdir(parents=True)
+    torch.save({
+        "step": 1000,
+        "model": {**{f"model.{k}": v for k, v in online.state_dict().items()},
+                  "betas": torch.zeros(1000)},
+        "opt": {"state": {}, "param_groups": []},
+        "ema": {"initted": torch.tensor(True), "step": torch.tensor(990),
+                **{f"ema_model.model.{k}": v
+                   for k, v in ema.state_dict().items()},
+                "ema_model.betas": torch.zeros(1000)},
+        "scaler": {"scale": 65536.0}}, root / "model-official.pt")
+    torch.save({"epoch": 99, "model": mask.state_dict(),
+                "opt": {"state": {}, "param_groups": []},
+                "scheduler": {"last_epoch": 99}, "scaler": None,
+                "loss_hist": [0.5, 0.25],
+                "metrics": {"best": {"SAE": torch.tensor(0.125)}}},
+               root / "model-best.pt")
+
+
+def import_step_report(torch, K1, K2, tmp: Path) -> dict:
+    """The importer CLI on :func:`write_reference_pts`'s files, then one
+    ``Generator.step`` (``jax_parity``'s step case) from the nets the
+    Generator's loaders fill from its output, against the same step from
+    the un-imported nets: equal bit for bit (same weights, same seed).
+    The launches are those of the imported run."""
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.cli import import_torch_checkpoint
+    from pointreggpt_tpu_torch.generate.generator import load_ema_unet
+    from pointreggpt_tpu_torch.utils import jax_parity as J
+    from pointreggpt_tpu_torch.utils.jax_params import \
+        load_reference_checkpoint
+
+    src, out = tmp / "reference", tmp / "imported"
+    write_reference_pts(torch, src)
+    import_torch_checkpoint.main([
+        "--diffusion", str(src / "model-official.pt"),
+        "--depth_correction", str(src / "model-best.pt"),
+        "--diffusion_out", str(out / "results"),
+        "--dc_out", str(out / "dc")])
+    unet = C.build_diffusion_unet(C.ModelConfig())
+    load_ema_unet(unet, out / "results" / "model-official.pt")
+    mask = C.build_mask_unet(C.MaskModelConfig())
+    mask.load_state_dict(load_reference_checkpoint(
+        out / "dc" / "model-best.pt")["model"])
+    reset_counts(K1, K2)
+    got = J.run_port("cuda", cases=("step",), nets_=(unet, None, mask),
+                     tmp_dir=str(tmp))
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    ema, _, mask0 = J.nets()
+    want = J.run_port("cuda", cases=("step",), nets_=(ema, None, mask0),
+                      tmp_dir=str(tmp))
+    differ = sorted(k for k in want if not np.array_equal(got[k], want[k]))
+    return dict(differ=differ, k1_launches=k1_n, k3_launches=k3_n,
+                k2_launches=k2_n, plain_routes=routes,
+                # 10 DDIM forwards and 2 MaskUNet forwards, 8 K1 and 1 K2
+                # each (jax_parity_report's count)
+                want_launches=[8 * (J.STEP_SAMPLING_TIMESTEPS + 2), 0,
+                               J.STEP_SAMPLING_TIMESTEPS + 2])
+
+
+def write_mask_pairs(root: Path, n_train: int, n_val: int, size: int,
+                     seed: int) -> str:
+    """A depth-correction pair root (``data/*.depth.png``,
+    ``metadata/{train,val}.json``) of uint16 mm frames, each label the
+    input plus a few mm of noise and large offsets on some pixels."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    (root / "data").mkdir(parents=True)
+    (root / "metadata").mkdir()
+    for subset, count in (("train", n_train), ("val", n_val)):
+        entries = []
+        for i in range(count):
+            base = rng.integers(500, 9000, (size, size))
+            label = base + rng.integers(0, 30, base.shape)
+            off = rng.uniform(size=base.shape) < 0.3
+            label[off] += rng.integers(60, 2000, int(off.sum()))
+            names = (f"{subset}-{i:06d}-input.depth.png",
+                     f"{subset}-{i:06d}-label.depth.png")
+            for name, a in zip(names, (base, label)):
+                Image.fromarray(a.astype(np.uint16)).save(root / "data" /
+                                                          name)
+            entries.append({"input_path": names[0], "label_path": names[1]})
+        (root / "metadata" / f"{subset}.json").write_text(
+            json.dumps(entries))
+    return str(root)
+
+
+def phase_import_path(torch, K1, K2, tmp: Path) -> dict:
+    """The importer CLI on the card's machine: (1)
+    :func:`import_step_report` at full width (``ModelConfig()``,
+    ``MaskModelConfig()``); (2) the committed JAX ``.ckpt`` pair
+    (``tests/data/torch_port_jax_*.ckpt``, dim 8): the imported nets'
+    forwards on the card against the JAX forwards in ``FID_REFERENCE``,
+    gated as ``jax_parity`` (``GATE_FACTOR`` x (CPU gap + the card's gap
+    to the port on the CPU)); (3) ``train_depth_correction --resume`` from
+    the imported MaskTrainer checkpoint: one optimizer step (4 train
+    pairs at batch 4), its Adam count the JAX count + 1."""
+    from pointreggpt_tpu_torch.cli import (import_torch_checkpoint,
+                                           train_depth_correction)
+    from pointreggpt_tpu_torch.train import checkpoint as ckpt
+    from pointreggpt_tpu_torch.utils import jax_parity as J
+
+    root = tmp / "import"
+    t0 = time.perf_counter()
+    step = import_step_report(torch, K1, K2, root)
+    step_s = time.perf_counter() - t0
+    if step["differ"]:
+        raise AssertionError(f"import_path: the imported step differs in "
+                             f"{step['differ']}")
+    got_launches = [step["k1_launches"], step["k3_launches"],
+                    step["k2_launches"]]
+    if got_launches != step["want_launches"]:
+        raise AssertionError(f"import_path: step launches K1, K3, K2 = "
+                             f"{got_launches}, want {step['want_launches']}")
+    check_no_routes("import_path", step["plain_routes"])
+
+    data = REPO / "tests" / "data"
+    out = root / "ckpt"
+    import_torch_checkpoint.main([
+        "--diffusion", str(data / "torch_port_jax_diffusion.ckpt"),
+        "--depth_correction", str(data / "torch_port_jax_mask.ckpt"),
+        "--milestone", "7", "--diffusion_out", str(out / "results"),
+        "--dc_out", str(out / "dc"), *J.SMALL_FLAGS])
+    pts = (out / "results" / "model-7.pt", out / "dc" / "model-7.pt")
+    ref = np.load(FID_REFERENCE)
+    card = J.import_forwards(*pts, "cuda")
+    plain = J.import_forwards(*pts, "cpu")
+    forwards = {}
+    for k in ("diffusion_forward", "mask_forward"):
+        gap = float(np.abs(card[k] - ref[k]).max())
+        gate = GATE_FACTOR * (float(ref[f"cpu_gap_{k}"]) +
+                              float(np.abs(card[k] - plain[k]).max()))
+        forwards[k] = dict(card_gap=gap, gate=gate)
+        if not gap <= gate:
+            raise AssertionError(f"import_path: {k} {gap} from JAX's, over "
+                                 f"the gate {gate}")
+
+    jax_count = adam_count_of(ckpt.load_checkpoint(pts[1]))
+    pairs = write_mask_pairs(root / "pairs", 4, 2, 64, 0)
+    reset_counts(K1, K2)
+    train_depth_correction.main([
+        "--data", pairs, "--resume", "7", "--results_folder",
+        str(out / "dc"), "--samples_folder", str(root / "dc_samples"),
+        "--image_size", "64", "--epochs", "3", "--num_workers", "1",
+        "--dim", "8", "--dim_mults", "1,1"])
+    torch.cuda.synchronize()
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    check_no_routes("import_path resume", routes)
+    resumed = ckpt.load_checkpoint(out / "dc" / "model-latest.pt")
+    count = adam_count_of(resumed)
+    if (jax_count, count, resumed["epoch"]) != (3, 4, 2):
+        raise AssertionError(f"import_path: Adam count {jax_count} in the "
+                             f"JAX checkpoint, {count} after the resumed "
+                             f"step (epoch {resumed['epoch']}); want 3, 4, "
+                             "epoch 2")
+    launched = [a + b for a, b in zip(got_launches, (k1_n, k3_n, k2_n))]
+    res = dict(step_s=step_s, step_differ=step["differ"],
+               step_launches=got_launches,
+               want_step_launches=step["want_launches"],
+               forwards=forwards, jax_adam_count=jax_count,
+               resumed_adam_count=count, resume_launches=[k1_n, k3_n, k2_n],
+               k1_launches=launched[0], k3_launches=launched[1],
+               k2_launches=launched[2])
+    emit("import_path", card=card_line(), **res)
+    return res
+
+
+def adam_count_of(checkpoint: dict) -> int:
+    """The Adam step of a port checkpoint's ``opt`` (all parameters
+    together)."""
+    steps = {int(s["step"]) for s in checkpoint["opt"]["state"].values()}
+    if len(steps) != 1:
+        raise AssertionError(f"Adam steps {steps}")
+    return steps.pop()
+
+
+def pair_differences(got, want, src, tgt, transform, radius) -> int:
+    """How many (src_idx, tgt_idx) pairs one array has and the other not;
+    raises unless every one lies within ``MIXTURE_EDGE`` of ``radius``
+    (float64 distance after ``transform``)."""
+    diff = set(map(tuple, got.tolist())) ^ set(map(tuple, want.tolist()))
+    if not diff:
+        if not np.array_equal(got, want):
+            raise AssertionError("mixture_path: the same pairs in another "
+                                 "order")
+        return 0
+    i, j = np.array(sorted(diff)).T
+    s = np.asarray(src, np.float64)[i] @ np.asarray(
+        transform, np.float64)[:3, :3].T + np.asarray(transform,
+                                                      np.float64)[:3, 3]
+    d = np.linalg.norm(s - np.asarray(tgt, np.float64)[j], axis=1)
+    if not (np.abs(d - radius) < MIXTURE_EDGE).all():
+        raise AssertionError(f"mixture_path: pairs {sorted(diff)[:5]} differ "
+                             f"at distances {d[:5]} (radius {radius})")
+    return len(diff)
+
+
+def mixture_report(torch, root: Path, seed: int) -> dict:
+    """Every item of ``MixtureDataset`` (Predator's defaults, max_points
+    30000) and of ``MixturePairDataset`` (GeoTransformer's 3DMatch
+    training settings: point_limit 30000, augmentation, matching radius
+    0.05, the correspondences) over the generated tree ``root``, on the
+    card and on the CPU from one seed: every field equal bit for bit, the
+    correspondences equal but for pairs within ``MIXTURE_EDGE`` of the
+    radius (counted); the items a second on the card."""
+    from pointreggpt_tpu_torch.dataloaders import mixture
+
+    def datasets(dev):
+        return {
+            "predator": mixture.MixtureDataset(
+                {"src": [], "tgt": [], "rot": [], "trans": []},
+                extra_root=str(root), max_points=30000, seed=seed,
+                device=dev),
+            "geotransformer": mixture.MixturePairDataset(
+                str(root), point_limit=30000, use_augmentation=True,
+                return_corr_indices=True, matching_radius=0.05, seed=seed,
+                device=dev)}
+
+    out = {}
+    for name, ds in datasets("cuda").items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(len(ds))]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        plain = datasets("cpu")[name]
+        edge, points, pairs = 0, [], []
+        for i, got in enumerate(items):
+            want = plain[i]
+            if name == "predator":
+                fields = [k for k in range(10) if k != 6]
+                tsfm = np.eye(4)
+                tsfm[:3, :3], tsfm[:3, 3] = got[4], got[5][:, 0]
+                corr = (got[6], want[6], got[0], got[1], tsfm,
+                        ds.overlap_radius)
+                points.append([len(got[0]), len(got[1])])
+            else:
+                fields = [k for k in want if k != "corr_indices"]
+                corr = (got["corr_indices"][:, ::-1],
+                        want["corr_indices"][:, ::-1], got["src_points"],
+                        got["ref_points"], got["transform"],
+                        ds.matching_radius)
+                points.append([len(got["ref_points"]),
+                               len(got["src_points"])])
+            for k in fields:
+                g, w = got[k], want[k]
+                if isinstance(w, np.ndarray):
+                    same = g.dtype == w.dtype and np.array_equal(g, w)
+                else:
+                    same = g == w
+                if not same:
+                    raise AssertionError(f"mixture_path: {name} item {i} "
+                                         f"field {k} differs from the CPU")
+            edge += pair_differences(*corr)
+            pairs.append(len(corr[0]))
+        out[name] = dict(items=len(items), wall_s=wall,
+                         items_per_s=len(items) / wall if wall else None,
+                         points=points, correspondences=pairs,
+                         edge_pairs=edge)
+    return out
+
+
+def phase_mixture_path(torch, seed: int, main_root: Path,
+                       tmp: Path) -> dict:
+    """The registration loaders on the card, after ``gt_path``: (1) over
+    ``main_path``'s generated tree (12.5-15k-point clouds, the gt.log
+    ``gt_path`` wrote), (2) over ``gt_path``'s synthetic pairs of known
+    overlap (480x640 frames back-projected, capped at 30000 points):
+    :func:`mixture_report` on each."""
+    trees = {"generated": main_root / "generated_dataset",
+             "synthetic": tmp / "gt_overlap" / "cuda"}
+    res = {name: mixture_report(torch, root, seed)
+           for name, root in trees.items()}
+    if not res["generated"]["predator"]["items"]:
+        raise AssertionError("mixture_path: gt_path's gt.log lists no pair")
+    emit("mixture_path", card=card_line(), **res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2058,57 +2514,80 @@ def main(argv=None) -> int:
          nvcc=nvcc, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[_build.library_path(n).name for n in _build.SOURCES])
 
-    k1 = phase_k1(torch, K1, dev, torch.bfloat16)
-    k1_f32 = phase_k1(torch, K1, dev, torch.float32)
-    k2 = phase_k2(torch, K2, dev, torch.bfloat16)
-    k2_f32 = phase_k2(torch, K2, dev, torch.float32)
-    k3 = phase_k3(torch, K1, dev, torch.bfloat16, 32)
-    k3_f32 = phase_k3(torch, K1, dev, torch.float32, 8)
-    k4 = phase_k4(torch, K1, dev, torch.bfloat16)
-    k4_f32 = phase_k4(torch, K1, dev, torch.float32)
-    k5, k6 = phase_conv_tools(torch, dev)
-    phase_net_parity(torch, dev)
-    phase_forward_profile(torch, dev)
-    phase_grad_parity(torch, dev)
-    phase_wide_net(torch, K1, K2, dev)
-    fwd_bwd = phase_mask_fwd_bwd(torch, K1, K2, dev)
+    seconds = {}  # wall seconds of each phase, for the time limit
+
+    def timed(name, phase, *a):
+        t0 = time.perf_counter()
+        out = phase(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    k1 = timed("k1_bf16", phase_k1, torch, K1, dev, torch.bfloat16)
+    k1_f32 = timed("k1_fp32", phase_k1, torch, K1, dev, torch.float32)
+    k2 = timed("k2_bf16", phase_k2, torch, K2, dev, torch.bfloat16)
+    k2_f32 = timed("k2_fp32", phase_k2, torch, K2, dev, torch.float32)
+    k3 = timed("k3_bf16", phase_k3, torch, K1, dev, torch.bfloat16, 32)
+    k3_f32 = timed("k3_fp32", phase_k3, torch, K1, dev, torch.float32, 8)
+    k4 = timed("k4_bf16", phase_k4, torch, K1, dev, torch.bfloat16)
+    k4_f32 = timed("k4_fp32", phase_k4, torch, K1, dev, torch.float32)
+    k5, k6 = timed("conv_tools", phase_conv_tools, torch, dev)
+    timed("net_parity", phase_net_parity, torch, dev)
+    timed("forward_profile", phase_forward_profile, torch, dev)
+    timed("grad_parity", phase_grad_parity, torch, dev)
+    timed("wide_net", phase_wide_net, torch, K1, K2, dev)
+    fwd_bwd = timed("mask_fwd_bwd", phase_mask_fwd_bwd, torch, K1, K2, dev)
     with tempfile.TemporaryDirectory(prefix="prgpt_train_") as tmp:
         tmp = Path(tmp)
         folder, gt_log = write_training_tree(tmp, 64, args.seed)
-        phase_train_step(torch, K1, K2, folder, gt_log, tmp)
-        main_res = phase_main_path(torch, K1, K2, args.seed,
-                                   args.num_samples, tmp / "main")
-        train_res = phase_train_path(torch, K1, K2, folder, gt_log, tmp)
-        mask_res = phase_mask_train_path(torch, K1, K2, args.seed, tmp,
-                                         fwd_bwd)
-        phase_jax_parity(torch, K1, K2, tmp)
-        phase_gt_path(torch, args.seed, tmp / "main", tmp)
-        tester_res = phase_tester_path(torch, K1, K2, args.seed, tmp)
+        timed("train_step", phase_train_step, torch, K1, K2, folder, gt_log,
+              tmp)
+        main_res = timed("main_path", phase_main_path, torch, K1, K2,
+                         args.seed, args.num_samples, tmp / "main")
+        train_res = timed("train_path", phase_train_path, torch, K1, K2,
+                          folder, gt_log, tmp)
+        mask_res = timed("mask_train_path", phase_mask_train_path, torch,
+                         K1, K2, args.seed, tmp, fwd_bwd)
+        timed("jax_parity", phase_jax_parity, torch, K1, K2, tmp)
+        timed("gt_path", phase_gt_path, torch, args.seed, tmp / "main", tmp)
+        tester_res = timed("tester_path", phase_tester_path, torch, K1, K2,
+                           args.seed, tmp)
+        fid_res = timed("fid_path", phase_fid_path, torch, K1, K2, folder,
+                        gt_log, tmp)
+        import_res = timed("import_path", phase_import_path, torch, K1, K2,
+                           tmp)
+        timed("mixture_path", phase_mixture_path, torch, args.seed,
+              tmp / "main", tmp)
+    emit("phase_seconds", total=time.perf_counter() - t_start, **seconds)
     sample_steps = main_res["num_samples"]
 
-    # launches: the four main paths (generation, diffusion training,
-    # depth-correction training, the Tester's three runs), each counted
-    # from 0 just before its entry point runs; per sample step of
-    # generation, per optimizer step of diffusion training (its milestone
-    # grid counted apart), per optimizer step of the MaskTrainer (its
-    # validation counted apart) and per sample call of the Tester's CLI
+    # launches: the main paths (generation, diffusion training,
+    # depth-correction training, the Tester's three runs, the training
+    # run with FID, the imported checkpoints' step and resumed training),
+    # each counted from 0 just before its entry point runs; per sample
+    # step of generation, per optimizer step of diffusion training (its
+    # milestone grid counted apart), per optimizer step of the MaskTrainer
+    # (its validation counted apart) and per sample call of the Tester's
+    # CLI
     def launches(i, key):
         mask_key = ("k1_per_step", "k3_per_step", "k2_per_step")[i]
         tester = [tester_res[run][("k1", "k3", "k2")[i]]
                   for run in ("cli", "generate", "ancestral")]
         return dict(launches=main_res[key] + train_res[key] +
-                    mask_res[key] + sum(tester),
+                    mask_res[key] + sum(tester) + fid_res[key] +
+                    import_res[key],
                     launches_generate=main_res[key],
                     launches_train=train_res[key],
                     launches_mask_train=mask_res[key],
                     launches_tester=tester[0],
                     launches_tester_generate=tester[1],
                     launches_tester_ancestral=tester[2],
+                    launches_fid_train=fid_res[key],
+                    launches_import=import_res[key],
                     per_sample_step=main_res[key] / sample_steps,
                     per_optimizer_step=train_res["per_optimizer_step"][i],
                     launches_train_grid=train_res["grid_launches"][i],

@@ -1,8 +1,10 @@
 """PointRegGPT generation on PyTorch + CUDA (NVIDIA Hopper).
 
 A port of the JAX package ``pointreggpt_tpu`` beside it, which stays the
-numerical reference. This package imports torch, numpy, PIL and the standard
-library only — never JAX or any module of ``pointreggpt_tpu``.
+numerical reference. This package imports torch, numpy, PIL, the standard
+library and, where they are used, scipy (FID's matrix square root, the
+registration loaders' Euler rotations) only — never JAX or any module of
+``pointreggpt_tpu``.
 
 Entry points run on ``cuda``. The CPU is used only when the caller asks for
 it, with ``device="cpu"`` or ``PRGPT_PLATFORM=cpu`` (the variable the JAX

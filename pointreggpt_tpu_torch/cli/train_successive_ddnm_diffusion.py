@@ -13,7 +13,9 @@ grid (250 DDIM steps, eta 0) and ``model-{m}.pt`` every 1000 steps.
 
 Runs on ``cuda``; ``PRGPT_PLATFORM=cpu`` runs the plain path on the CPU.
 ``--resume m`` continues from ``{results_folder}/model-{m}.pt``.
-Multi-GPU training and FID are not ported yet and raise.
+``--calculate_fid true`` logs ``fid_score`` at each milestone (Inception
+weights from ``$PRGPT_INCEPTION_WEIGHTS``, see ``eval/fid.py``).
+Multi-GPU training is not ported yet and raises.
 """
 
 import argparse

@@ -1,11 +1,13 @@
-"""Voxel downsampling, the scene-memory update, the nearest-to-origin bound
-and the radius overlap on torch tensors.
+"""Voxel downsampling, the scene-memory update, the nearest-to-origin bound,
+the radius overlap and the registration loaders' distances on torch
+tensors.
 
-Port of ``voxel_downsample`` (and its batched form), ``memory_voxel_update``,
-``keep_nearest``, ``any_within_radius`` and ``overlap_ratio`` from
-``pointreggpt_tpu/core/pointops.py``. The JAX package built them
-scatter-free for the TPU (packed-key sort + segmented scan); on the GPU the
-plain route is a sort and ``index_add_`` sums:
+Port of ``voxel_downsample`` (and its batched form),
+``memory_voxel_update``, ``keep_nearest``, ``any_within_radius``,
+``overlap_ratio``, ``min_dist_sq`` and ``correspondences_np`` from
+``pointreggpt_tpu/core/pointops.py``. The JAX package built the voxel
+functions scatter-free for the TPU (packed-key sort + segmented scan); on
+the GPU the plain route is a sort and ``index_add_`` sums:
 
 1. quantize with the Open3D origin (per-row min bound minus half a voxel);
 2. order the points by voxel ``(qx, qy, qz)`` with three stable sorts
@@ -14,8 +16,8 @@ plain route is a sort and ``index_add_`` sums:
    return_inverse=True)`` gives, without its host sync), then
    ``index_add_`` sums of points and counts per segment.
 
-Nothing here reads a value back to the host, so a generation step stays
-asynchronous on the stream and the next step can be queued before the host
+Nothing but ``correspondences_np`` (a host-facing call of the loaders)
+reads a value back to the host, so a generation step stays asynchronous on the stream and the next step can be queued before the host
 writes the previous one.
 """
 
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -262,3 +265,74 @@ def overlap_ratio(pc1: Tensor, valid1: Tensor, pc2: Tensor, valid2: Tensor,
     hits2 = any_within_radius(pc2, valid2, pc1, valid1, radius)
     n1, n2 = valid1.float().sum(dim=-1), valid2.float().sum(dim=-1)
     return hits1.float().sum(dim=-1) / n1, hits2.float().sum(dim=-1) / n2
+
+
+def min_dist_sq(src: Tensor, src_valid: Tensor, tgt: Tensor,
+                tgt_valid: Tensor, *, block: int = 512) -> Tensor:
+    """Least squared distance from each src point to the valid tgt set.
+
+    The JAX package's blocked formula, ``|s|^2 + |t|^2 - 2 s.t`` in fp32
+    over target blocks of ``block`` points, with ``torch.matmul`` (fp32
+    only while TF32 is off). +inf for invalid src points and where no tgt
+    point is valid.
+
+    Args:
+        src: (n, 3); src_valid: (n,) bool; tgt: (m, 3); tgt_valid: (m,)
+            bool.
+
+    Returns:
+        (n,) fp32.
+    """
+    src, tgt = src.float(), tgt.float()
+    s_sq = _sq_norm(src)[:, None]
+    inf = torch.tensor(float("inf"), device=src.device)
+    best = torch.full((src.shape[0],), float("inf"), device=src.device)
+    for j in range(0, tgt.shape[0], block):
+        t = tgt[j:j + block]
+        d_sq = s_sq + _sq_norm(t)[None, :] - 2.0 * torch.matmul(src, t.T)
+        d_sq = torch.where(tgt_valid[None, j:j + block], d_sq, inf)
+        best = torch.minimum(best, d_sq.amin(dim=1))
+    return torch.where(src_valid, best, inf)
+
+
+def correspondences_np(src: np.ndarray, tgt: np.ndarray,
+                       transform: np.ndarray, radius: float, *,
+                       block: int = 2048, device=None) -> np.ndarray:
+    """Every (src, tgt) index pair within ``radius`` once ``transform`` is
+    applied to src: the registration loaders' ``get_correspondences``.
+
+    src is transformed in float64 on the host and cast to fp32; distances
+    are the blocked formula of :func:`min_dist_sq` on ``device``, ``d^2 <=
+    r^2`` in fp32, a block of ``block`` src rows against all of tgt. The
+    JAX package pads both clouds to power-of-two buckets of far-apart
+    sentinels, only so that XLA compiles a handful of shapes; eager torch
+    compiles nothing, so nothing is padded here.
+
+    Args:
+        src: (n, 3); tgt: (m, 3); transform: (4, 4).
+        device: where the distances are computed (``cuda`` unless asked
+            otherwise, see ``resolve_device``).
+
+    Returns:
+        (k, 2) int64 ``[src_idx, tgt_idx]``, src-major then tgt in order;
+        (0, 2) when either cloud is empty.
+    """
+    from pointreggpt_tpu_torch import resolve_device
+
+    n, m = src.shape[0], tgt.shape[0]
+    if n == 0 or m == 0:
+        return np.zeros((0, 2), dtype=np.int64)
+    dev = resolve_device(device)
+    src_t = (src @ transform[:3, :3].T + transform[:3, 3]).astype(np.float32)
+    s_all = torch.from_numpy(src_t).to(dev)
+    t = torch.from_numpy(np.ascontiguousarray(tgt, np.float32)).to(dev)
+    t_sq = _sq_norm(t)[None, :]
+    r_sq = float(np.float32(radius * radius))
+    pairs = []
+    for start in range(0, n, block):
+        s = s_all[start:start + block]
+        d_sq = _sq_norm(s)[:, None] + t_sq - 2.0 * torch.matmul(s, t.T)
+        ij = torch.nonzero(d_sq <= r_sq)
+        ij[:, 0] += start
+        pairs.append(ij)
+    return torch.cat(pairs).cpu().numpy().astype(np.int64)

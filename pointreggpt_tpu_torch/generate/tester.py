@@ -15,8 +15,11 @@ Port of ``pointreggpt_tpu/generate/tester.py``:
 The device work of a step (reproject or splat, occlusion filter, condition
 image, sampling chain, memory update) queues on the card; the host writes
 PNG and PLY files. The PNGs go through PIL and the colormap tables of
-:mod:`pointreggpt_tpu_torch.core.colormaps`. The FID helpers and the
-multi-GPU split of the scene batch are not ported yet.
+:mod:`pointreggpt_tpu_torch.core.colormaps`. The FID helpers
+(``compute_inception_features``, ``calculate_activation_statistics``,
+``fid_score``) run the port's InceptionV3 on the same device
+(:mod:`pointreggpt_tpu_torch.eval.fid`). The multi-GPU split of the scene
+batch is not ported yet.
 """
 
 from __future__ import annotations
@@ -91,6 +94,7 @@ class Tester:
         self.samples_folder.mkdir(parents=True, exist_ok=True)
         self.seed = seed
         self.ema_model = None  # baked, on the device
+        self._inception = None  # built on the first FID call
 
     # ------------------------------------------------------------------
     def load(self, milestone) -> None:
@@ -100,6 +104,34 @@ class Tester:
                       f"model-{milestone}.pt")
         self.ema_model = place_for_inference(self.model, self.device)
 
+    # ------------------------------------------------------------------
+    # FID helpers (the reference Tester's)
+    def compute_inception_features(self, samples01: np.ndarray
+                                   ) -> np.ndarray:
+        """(n, h, w, 1|3) [0, 1] images -> (n, 2048) activations."""
+        from pointreggpt_tpu_torch.eval.fid import InceptionFeatures
+
+        if self._inception is None:
+            self._inception = InceptionFeatures(device=self.device)
+        return self._inception(np.asarray(samples01))
+
+    @staticmethod
+    def calculate_activation_statistics(features: np.ndarray):
+        """(n, d) activations -> (mu, sigma)."""
+        from pointreggpt_tpu_torch.eval.fid import activation_statistics
+
+        return activation_statistics(features)
+
+    def fid_score(self, real_features: np.ndarray,
+                  fake_features: np.ndarray) -> float:
+        """FID between two activation sets."""
+        from pointreggpt_tpu_torch.eval.fid import calculate_frechet_distance
+
+        m1, s1 = self.calculate_activation_statistics(real_features)
+        m2, s2 = self.calculate_activation_statistics(fake_features)
+        return calculate_frechet_distance(m1, s1, m2, s2)
+
+    # ------------------------------------------------------------------
     def _ema(self):
         if self.ema_model is None:
             raise RuntimeError("call load() first")

@@ -2,14 +2,16 @@
 
 Port of ``pointreggpt_tpu/train/trainer.py``: gradient accumulation over
 microbatches, global-norm clipping, Adam, an EMA tick, and at every
-milestone an EMA sample grid and a checkpoint. The JAX package runs the
-whole optimizer step as one jitted program; here it is eager PyTorch whose
-host loop never waits for the card inside a step: the step counter lives on
-the host, losses stay on the device until a log line reads them, and
-batches go up from pinned memory without blocking.
+milestone an EMA sample grid, with ``calculate_fid`` its FID against the
+last training batch (``fid_score: <value>`` in the log), and a checkpoint.
+The JAX package runs the whole optimizer step as one jitted program; here
+it is eager PyTorch whose host loop never waits for the card inside a
+step: the step counter lives on the host, losses stay on the device until
+a log line reads them, and batches go up from pinned memory without
+blocking.
 
 Not ported yet, and refused rather than skipped: multi-GPU data parallel
-(a ``WORLD_SIZE`` above 1) and FID (``calculate_fid``).
+(a ``WORLD_SIZE`` above 1).
 """
 
 from __future__ import annotations
@@ -103,9 +105,6 @@ class Trainer:
                  track_losses: bool = False,
                  seed: int = 0,
                  device=None):
-        if calculate_fid:
-            raise NotImplementedError(
-                "calculate_fid: FID is not ported yet to the PyTorch package")
         if int(os.environ.get("WORLD_SIZE", "1")) > 1:
             raise NotImplementedError(
                 "multi-GPU data-parallel training is not ported yet: run "
@@ -132,6 +131,15 @@ class Trainer:
         # once, when train() returns (off in production: 2M steps)
         self.track_losses = track_losses
         self.loss_hist: List[float] = []
+        # FID (off by default, as in the reference): the extractor is
+        # built once; the last batch's images are the real set
+        self.calculate_fid = calculate_fid
+        self._fid_extractor = None
+        if calculate_fid:
+            from pointreggpt_tpu_torch.eval.fid import InceptionFeatures
+
+            self._fid_extractor = InceptionFeatures(device=self.device)
+        self._last_batch = None
 
         self.ds = DepthDataset(folder, self.image_size, gt_log=gt_log,
                                augment_horizontal_flip=augment_horizontal_flip,
@@ -203,7 +211,10 @@ class Trainer:
         device_losses = []
         t0 = time.time()
         while self.step < self.train_num_steps:
-            img, intrinsic = self._upload(next(self.dl))
+            batch = next(self.dl)
+            if self.calculate_fid:
+                self._last_batch = batch
+            img, intrinsic = self._upload(batch)
             loss = self.train_step(img, intrinsic, generator)
             if self.track_losses:
                 device_losses.append(loss)
@@ -232,6 +243,13 @@ class Trainer:
             save_image_grid(images,
                             self.results_folder / f"sample-{milestone}.png",
                             nrow=int(math.isqrt(self.num_samples)))
+            if self._fid_extractor is not None and \
+                    self._last_batch is not None:
+                from pointreggpt_tpu_torch.eval.fid import fid_score
+
+                score = fid_score(self._last_batch["img"], images,
+                                  self._fid_extractor)
+                self.logger.info(f"fid_score: {score}")
         # milestone floored to hundreds, like the reference
         self.save(milestone // 100 * 100)
 

@@ -15,6 +15,12 @@ steps) carry an optax ``chain(clip_by_global_norm, adam)`` state into a
 torch Adam ``state_dict``, so a JAX training state continues in the port.
 Gradient trees map through ``diffusion_unet_from_jax`` like params.
 
+``diffusion_parts_from_jax`` and ``mask_parts_from_jax`` take a JAX
+``.ckpt`` state apart into those pieces (the importer CLI's ``.ckpt``
+path); an optax state may come as its tuples or in the state-dict form
+flax restores with no target (``{'0': ..., '1': ...}``, a NamedTuple as a
+dict of its fields).
+
 ``load_reference_checkpoint`` reads a reference ``.pt`` checkpoint.
 """
 
@@ -198,30 +204,52 @@ def strip_prefix(state_dict: Mapping, prefix: str) -> Dict:
     return {k[n:]: v for k, v in state_dict.items() if k.startswith(prefix)}
 
 
+_ADAM_FIELDS = ("count", "mu", "nu")
+
+
+def _children(node: Any) -> list:
+    """The members of an optax state node: a tuple's items, or those of
+    its state-dict form (a dict keyed ``'0'``, ``'1'``, ..., as flax's
+    ``load_checkpoint`` with no target returns a tuple); else none."""
+    if isinstance(node, tuple):
+        return list(node)
+    if isinstance(node, Mapping) and all(
+            isinstance(k, str) and k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return []
+
+
+def _fields(node: Any) -> dict:
+    """The fields of a NamedTuple state, or of its state-dict form (a
+    dict of its fields)."""
+    if isinstance(node, Mapping):
+        return dict(node)
+    return {f: getattr(node, f) for f in getattr(node, "_fields", ())}
+
+
 def _adam_moments(node: Any):
     """The ``(count, mu, nu)`` of the first Adam state (a
-    ``ScaleByAdamState`` with numpy leaves) inside an optax state's nested
-    tuples, or None."""
-    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
-        return node.count, node.mu, node.nu
-    if isinstance(node, tuple):
-        for child in node:
-            found = _adam_moments(child)
-            if found is not None:
-                return found
+    ``ScaleByAdamState`` with numpy leaves, or its dict form) inside an
+    optax state, or None."""
+    fields = _fields(node)
+    if all(f in fields for f in _ADAM_FIELDS):
+        return tuple(fields[f] for f in _ADAM_FIELDS)
+    for child in _children(node):
+        found = _adam_moments(child)
+        if found is not None:
+            return found
     return None
 
 
 def _schedule_counts(node: Any) -> list:
     """The ``count`` of every optax state inside ``node`` that is not an
     Adam state (``ScaleByScheduleState``: the schedule's clock)."""
-    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+    fields = _fields(node)
+    if all(f in fields for f in _ADAM_FIELDS):
         return []
-    if "count" in getattr(node, "_fields", ()):  # not tuple.count
-        return [int(np.asarray(node.count))]
-    if isinstance(node, tuple):
-        return [c for child in node for c in _schedule_counts(child)]
-    return []
+    if "count" in fields:
+        return [int(np.asarray(fields["count"]))]
+    return [c for child in _children(node) for c in _schedule_counts(child)]
 
 
 def _adam_state(opt_state_np: Any, model: torch.nn.Module, convert, *,
@@ -283,3 +311,44 @@ def mask_adam_state_from_jax(opt_state_np: Any, model: torch.nn.Module, *,
             raise ValueError(f"mask_adam_state_from_jax: the schedule's "
                              f"count {c} differs from Adam's {count}")
     return sd
+
+
+def diffusion_parts_from_jax(state: Mapping, model: torch.nn.Module, *,
+                             lr: float = 8e-5,
+                             betas: Tuple[float, float] = (0.9, 0.99),
+                             eps: float = 1e-8) -> Dict[str, Any]:
+    """A diffusion Trainer ``.ckpt`` state of the JAX package (``{step,
+    params, opt_state, ema: {params, step, initted}}``, as
+    ``train/checkpoint.py::load_jax_checkpoint`` returns it) taken apart
+    for the port: ``step``, ``model`` and ``ema_model`` (state dicts for
+    ``model``'s DiffusionUNet), ``ema_step``, ``ema_initted`` and ``opt``
+    (a ``torch.optim.Adam`` state dict carrying optax's moments and
+    count)."""
+    ema = state["ema"]
+    return dict(
+        step=int(np.asarray(state["step"])),
+        model=diffusion_unet_from_jax(state["params"], model),
+        ema_model=diffusion_unet_from_jax(ema["params"], model),
+        ema_step=int(np.asarray(ema["step"])),
+        ema_initted=bool(np.asarray(ema["initted"])),
+        opt=adam_state_from_jax(state["opt_state"], model, lr=lr,
+                                betas=betas, eps=eps))
+
+
+def mask_parts_from_jax(state: Mapping, meta: Mapping,
+                        model: torch.nn.Module, *, lr: float = 4e-5,
+                        betas: Tuple[float, float] = (0.9, 0.99),
+                        eps: float = 1e-8) -> Dict[str, Any]:
+    """A MaskTrainer ``.ckpt`` of the JAX package (state ``{epoch, params,
+    opt_state}``, meta ``{loss_hist, best_metrics}``) taken apart for the
+    port: ``epoch``, ``model`` (a MaskUNet state dict), ``opt`` (Adam with
+    optax's moments; its step is the learning-rate schedule's clock),
+    ``loss_hist`` and ``best_metrics``."""
+    return dict(
+        epoch=int(np.asarray(state["epoch"])),
+        model=mask_unet_from_jax(state["params"], model),
+        opt=mask_adam_state_from_jax(state["opt_state"], model, lr=lr,
+                                     betas=betas, eps=eps),
+        loss_hist=[float(x) for x in meta.get("loss_hist") or []],
+        best_metrics={k: float(v)
+                      for k, v in (meta.get("best_metrics") or {}).items()})

@@ -16,6 +16,14 @@ any device and is held to that file:
   back-projected synthetic frame, the pose and x_T injected), summarized
   as its images, its keep mask, its overflow, and per row the count of
   valid memory voxels and the sum of their centroids.
+
+A second file, ``tests/data/torch_port_fid_import_reference.npz`` (written
+by ``tests/make_torch_port_fid_import_reference.py``), holds the JAX
+InceptionV3 features of :func:`fid_images` (``fid_features``) and, beside
+the JAX package's two small-width ``.ckpt`` files in ``tests/data/``, the
+JAX forwards of their weights on :func:`small_inputs`
+(``diffusion_forward``, ``mask_forward``); :func:`import_forwards` is the
+port's side, from the checkpoints the importer CLI wrote.
 """
 
 from __future__ import annotations
@@ -221,3 +229,65 @@ def gaps(got: Dict[str, np.ndarray], ref) -> Dict[str, float]:
         out["step_keep"] = float((got["step_keep"] !=
                                   ref["step_keep"]).mean())
     return out
+
+
+# ---------------------------------------------------------------------------
+# FID features and imported small-width checkpoints
+
+FID_BATCH = 32  # InceptionFeatures' chunk
+FID_IMAGE = 256  # the Trainer's images, resized up to 299
+INCEPTION_SEED = 0
+SMALL_H, SMALL_BATCH = 64, 2
+SMALL_MODEL = C.ModelConfig(dim=8, dim_mults=(1, 1), bf16=False)
+SMALL_MASK = C.MaskModelConfig(dim=8, dim_mults=(1, 1))
+# the importer CLI's flags for the two small nets
+SMALL_FLAGS = ["--dim", "8", "--dim_mults", "1,1", "--bf16", "false",
+               "--dc_dim", "8", "--dc_dim_mults", "1,1"]
+
+
+def fid_images(seed: int = SEED) -> np.ndarray:
+    """(32, 256, 256, 1) images in [0, 1]: a smooth field per image plus
+    uniform noise."""
+    rng = np.random.default_rng(seed + 1)
+    yy, xx = np.mgrid[0:FID_IMAGE, 0:FID_IMAGE] / FID_IMAGE
+    out = np.empty((FID_BATCH, FID_IMAGE, FID_IMAGE, 1), np.float32)
+    for i in range(FID_BATCH):
+        fx, fy, ph = rng.uniform(1, 6), rng.uniform(1, 6), rng.uniform(0, 6)
+        field = 0.5 + 0.35 * np.sin(fx * 6.28 * xx + ph) * np.cos(
+            fy * 6.28 * yy)
+        out[i, ..., 0] = field + 0.1 * rng.uniform(-1, 1, field.shape)
+    return np.clip(out, 0.0, 1.0)
+
+
+def small_inputs(seed: int = SEED) -> Dict[str, np.ndarray]:
+    """The inputs of the two small-width forwards, NHWC."""
+    rng = np.random.default_rng(seed + 2)
+    b, h = SMALL_BATCH, SMALL_H
+    return dict(
+        x=rng.standard_normal((b, h, h, 1)).astype(np.float32),
+        t=rng.integers(0, 1000, b).astype(np.float32),
+        param_cond=rng.uniform(0.5, 1.5, (b, 4)).astype(np.float32),
+        mask_x=rng.uniform(0.0, 1.0, (b, h, h, 1)).astype(np.float32))
+
+
+@torch.inference_mode()
+def import_forwards(diffusion_pt, mask_pt, device) -> Dict[str, np.ndarray]:
+    """Forwards of the online U-Net of a port diffusion checkpoint and of
+    the MaskUNet of a port depth-correction checkpoint (the importer's
+    outputs, at ``SMALL_MODEL`` / ``SMALL_MASK``) on :func:`small_inputs`,
+    on ``device``, as NHWC numpy."""
+    from pointreggpt_tpu_torch.utils.jax_params import (
+        load_reference_checkpoint, strip_prefix)
+
+    device = torch.device(device)
+    x = {k: torch.from_numpy(v).to(device) for k, v in small_inputs().items()}
+    unet = C.build_diffusion_unet(SMALL_MODEL)
+    unet.load_state_dict(strip_prefix(
+        load_reference_checkpoint(diffusion_pt)["model"], "model."))
+    mask = C.build_mask_unet(SMALL_MASK)
+    mask.load_state_dict(load_reference_checkpoint(mask_pt)["model"])
+    unet, mask = unet.to(device).eval(), mask.to(device).eval()
+    y = unet(x["x"].permute(0, 3, 1, 2), x["t"], x["param_cond"])
+    m = mask(x["mask_x"].permute(0, 3, 1, 2))
+    return {"diffusion_forward": y.permute(0, 2, 3, 1).float().cpu().numpy(),
+            "mask_forward": m.permute(0, 2, 3, 1).float().cpu().numpy()}

@@ -1183,3 +1183,69 @@ def test_p_sample_loop_on_the_card_matches_the_cpu(cuda, fp32_exact,
             assert K2.multihead_attention.launches == before + t + 1
     np.testing.assert_allclose(outs[0], outs[1], atol=CHAIN_ATOL,
                                rtol=CHAIN_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# FID, the checkpoint importer and the registration loaders on the card
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_inception_features_on_the_card_match_the_cpu_and_jax(cuda,
+                                                              fp32_exact):
+    """``chip_smoke.py``'s ``fid_path`` checks (b)-(d): InceptionFeatures
+    at 299^2 on the card against the port on the CPU and the committed JAX
+    features, the flipped pools as a planted fault, and the FID of two
+    seeded sets card vs CPU."""
+    cs = _chip_smoke()
+    res = cs.fid_features_report(torch)
+    assert res["card_gap"] <= res["gate"], res
+    assert res["fault_over_gate"] >= cs.FID_FAULT_MARGIN, res
+    assert res["fid_score_rel"] <= cs.FID_SCORE_RTOL, res
+
+
+def test_correspondences_on_the_card_match_the_cpu(cuda, fp32_exact):
+    from pointreggpt_tpu_torch.core import pointops as P
+    from pointreggpt_tpu_torch.dataloaders.mixture import (
+        uniform_sample_rotation)
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(0)
+    tgt = rng.uniform(0, 2, (20000, 3)).astype(np.float32)
+    tsfm = np.eye(4)
+    tsfm[:3, :3] = uniform_sample_rotation(rng)
+    tsfm[:3, 3] = rng.normal(size=3)
+    src = (tgt[:15000] + rng.normal(0, 0.01, (15000, 3)) - tsfm[:3, 3]) @ \
+        tsfm[:3, :3]
+    got = P.correspondences_np(src, tgt, tsfm, 0.0375, device="cuda")
+    want = P.correspondences_np(src, tgt, tsfm, 0.0375, device="cpu")
+    assert len(want) > 15000
+    # only pairs within 1e-5 of the radius may differ
+    cs.pair_differences(got, want, src, tgt, tsfm, 0.0375)
+    args = [torch.from_numpy(a) for a in (
+        src.astype(np.float32), np.ones(15000, bool), tgt,
+        rng.uniform(size=20000) > 0.2)]
+    d_gpu = P.min_dist_sq(*(a.to(cuda) for a in args)).cpu()
+    torch.testing.assert_close(d_gpu, P.min_dist_sq(*args), rtol=0,
+                               atol=2e-6)
+
+
+def test_imported_checkpoint_drives_a_generator_step_on_the_card(
+        cuda, fp32_exact, tmp_path):
+    """``chip_smoke.py``'s ``import_path`` (1): reference-layout ``.pt``
+    files at full width through the importer, then one ``Generator.step``
+    from them equal bit for bit to the step from the un-imported nets."""
+    cs = _chip_smoke()
+    res = cs.import_step_report(torch, K1, K2, tmp_path)
+    assert not res["differ"], res
+    assert [res["k1_launches"], res["k3_launches"], res["k2_launches"]] == \
+        res["want_launches"], res
+    assert not any(res["plain_routes"].values()), res

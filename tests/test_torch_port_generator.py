@@ -313,7 +313,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'pointreggpt_tpu',\n"
-        "              'matplotlib'))\n"
+        "              'matplotlib', 'msgpack', 'torchvision',\n"
+        "              'pytorch_fid'))\n"
         "print('MODULES', len([n for n in sys.modules\n"
         "      if n.startswith('pointreggpt_tpu_torch')]))\n"
         "print('TRAIN', all(m in sys.modules for m in (\n"
@@ -325,6 +326,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    'pointreggpt_tpu_torch.generate.tester',\n"
         "    'pointreggpt_tpu_torch.cli.generate_gt',\n"
         "    'pointreggpt_tpu_torch.cli.test_successive_ddnm_diffusion')))\n"
+        "print('LOADERS', all(m in sys.modules for m in (\n"
+        "    'pointreggpt_tpu_torch.eval.fid',\n"
+        "    'pointreggpt_tpu_torch.eval.inception',\n"
+        "    'pointreggpt_tpu_torch.dataloaders.mixture',\n"
+        "    'pointreggpt_tpu_torch.cli.import_torch_checkpoint')))\n"
         "print('BAD', bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
@@ -333,4 +339,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "BAD []" in r.stdout, r.stdout
     assert "TRAIN True" in r.stdout, r.stdout
     assert "TESTER True" in r.stdout, r.stdout
+    assert "LOADERS True" in r.stdout, r.stdout
     assert int(r.stdout.split("MODULES ")[1].split()[0]) >= 25

@@ -4,6 +4,7 @@ step, the EMA, the data loader, the Trainer's checkpoints and resume, and
 the training entry point."""
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -459,7 +460,12 @@ def test_trainer_loss_falls_on_four_fixed_images(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     folder, gt_log = write_depth_tree(tmp_path, n_scenes=1, n_frames=4)
-    with pytest.raises(NotImplementedError, match="FID"):
+    # FID is ported: with no Inception weights to read it is refused at
+    # start-up, not at the first milestone
+    monkeypatch.delenv("PRGPT_INCEPTION_WEIGHTS", raising=False)
+    monkeypatch.setitem(sys.modules, "pytorch_fid", None)
+    monkeypatch.setitem(sys.modules, "torchvision", None)
+    with pytest.raises(ImportError, match="PRGPT_INCEPTION_WEIGHTS"):
         _trainer(tmp_path, folder, gt_log, calculate_fid=True)
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
