@@ -131,6 +131,37 @@ Phases, each printing one JSON line:
    ``gt_path`` wrote) and ``gt_path``'s synthetic pairs, card vs CPU: the
    fields bit for bit, the correspondences but for pairs within 1e-5 of
    the radius (counted); items a second.
+21. ``dist_path``: data parallelism through the port's entry points on the
+   one card. (a) The Trainer at ``ModelConfig()`` width (microbatch 8, 2
+   steps) in a process group of one over NCCL, launched as torchrun
+   launches it, bit for bit against the same run with no group (cuDNN's
+   deterministic algorithms in both), and the all-reduce's time a step.
+   (b) Two processes sharing ``cuda:0`` over gloo (NCCL takes one process
+   per card; the backend is named in the output):
+   ``tools/dryrun_multiprocess`` at full width, then in both processes
+   the Trainer (global microbatch 8, 4 a process, 2 steps: replicas
+   bit-identical after each step, the averaged gradient within 1e-2
+   relative of one process's on the same global batch, the division by
+   the process count skipped at least 10 times the gate, rank 1 on rank
+   0's rows past it), the MaskTrainer (fp32, 2 a process against one
+   process at 4: gradient within 1e-4, validation metrics within 1e-6,
+   rank 0's checkpoints alone), ``generate_dataset -start 0 -stop 4
+   --num_samples 2`` (250 steps: scenes by stride, rank 0's files bit for
+   bit those of one process given [0, 2], rank 1's own poses) and the
+   Tester's entry point in fp32 (4 scenes x 2 samples, 32 steps, 2 a
+   process against one process at 4: each image's mean difference within
+   1e-2, stated from the batch-composition gap measured in one process,
+   a slice swap 10 times past it, one overview); K1, K3 and K2 launched
+   on every process
+   with no plain route. Two processes on one card check correctness, not
+   scaling: their times are a record only. NCCL across cards is not
+   exercised on a one-card machine;
+22. ``profile_path``: ``PRGPT_PROFILE`` on the card: the Trainer (6 steps)
+   and ``Generator.generate`` (3 sample steps of a 25-step chain, the
+   production widths) print the JAX stage names
+   and write Chrome traces holding device kernels; one MaskTrainer step
+   under ``profiling.trace``, its device time by kernel category beside
+   ``mask_fwd_bwd``'s.
 
 A ``phase_seconds`` line gives each phase's wall seconds and the total
 from the build on. The last three lines are the kernel table (one JSON
@@ -145,6 +176,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import pickle
@@ -920,6 +952,7 @@ def phase_mask_fwd_bwd(torch, K1, K2, dev):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = timed_step()
+    fwd_bwd = device_time(torch, prof)
     emit("mask_fwd_bwd", card=card_line(), batch=MASK_BATCH, image=256,
          warmup_ms=warm, step_ms=float(np.median(times)),
          step_ms_min=min(times), step_ms_max=max(times), step_ms_all=times,
@@ -927,11 +960,11 @@ def phase_mask_fwd_bwd(torch, K1, K2, dev):
          k1_per_step=k1_n / MASK_STEPS, k3_per_step=k3_n / MASK_STEPS,
          k2_per_step=k2_n / MASK_STEPS, plain_routes=routes,
          grad_parity_batch=MASK_PARITY_BATCH, grad_max_rel_err=worst,
-         grad_worst=worst_name, grad_rtol=GRAD_RTOL,
-         fwd_bwd=device_time(torch, prof))
+         grad_worst=worst_name, grad_rtol=GRAD_RTOL, fwd_bwd=fwd_bwd)
     del gpu_net, depth, target, prof
     torch.cuda.empty_cache()
-    return {"step_ms": float(np.median(times)), "step_ms_all": times}
+    return {"step_ms": float(np.median(times)), "step_ms_all": times,
+            "fwd_bwd": fwd_bwd}
 
 
 def write_synthetic_tree(root: Path, n_scenes: int, seed: int):
@@ -2487,6 +2520,661 @@ def phase_mixture_path(torch, seed: int, main_root: Path,
     return res
 
 
+# ---------------------------------------------------------------------------
+# dist_path and profile_path: more than one process (one card here)
+
+DIST_LAUNCH_S = 600  # wall-clock limit of each launch of dist_path
+DIST_TRAIN_BATCH = 8  # the global microbatch: 4 rows a process in (b)
+DIST_TRAIN_STEPS = 2
+# (b)'s averaged bf16 gradient against one process's on the same global
+# batch: the U-Net's bf16 products of a microbatch of 4 and of 8 round
+# apart (cuDNN may pick another algorithm by batch), ~1e-3 relative
+DIST_GRAD_RTOL = 1e-2
+DIST_MASK_RTOL = 1e-4  # fp32 MaskUNet, batch 2 per process against 4
+DIST_METRIC_RTOL = 1e-6  # validation metrics, summed over the processes
+DIST_FAULT_MARGIN = 10.0  # each planted fault misses its gate by this
+DIST_MASK_PAIRS = (4, 5)  # train, val: one step of 4, val batches of 3
+DIST_SCENES = 4  # generate_dataset -start 0 -stop 4, and the Tester's
+DIST_SAMPLES = 2
+# the Tester's images, fp32, two processes at 2 against one at 4: the
+# largest mean |difference| of an image. The batch-composition gap (the
+# same blocks of 2 run in one process against a batch of 4) measured
+# 2.76e-3 on an H100 80GB HBM3, 700 W (this script's dist_path): rounding
+# that moves a reprojected point across a pixel edge flips that pixel's
+# DDNM condition, and the pixel then differs by the whole depth range, so
+# the largest difference is no gate (1.0 seen). A swapped slice: 0.46
+TESTER_MEAN_GATE = 1e-2
+PNG_LEVEL = 1.0 / 255  # one level of the 8-bit PNGs the Tester writes
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms and no TF32 for the block: (a)
+    compares parameters bit for bit across two processes."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _port_kernels():
+    from pointreggpt_tpu_torch.ops import attention as K2
+    from pointreggpt_tpu_torch.ops import linear_attention as K1
+    return K1, K2
+
+
+def _counted(K1, K2, fn):
+    """``fn()``'s result and the K1, K3, K2 launches and plain routes it
+    made."""
+    reset_counts(K1, K2)
+    out = fn()
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    return out, dict(k1=k1_n, k3=k3_n, k2=k2_n, plain_routes=routes)
+
+
+def _rel_to(torch, got, ref_path) -> float:
+    """|got - ref| / |ref| in fp64, ``ref`` a saved flat gradient."""
+    ref = torch.load(ref_path).to(got.device, torch.float64)
+    return (torch.linalg.vector_norm(got.double() - ref) /
+            torch.linalg.vector_norm(ref)).item()
+
+
+def dist_trainer_part(root: str, results: str, ref: str = None) -> dict:
+    """``DIST_TRAIN_STEPS`` Trainer steps at ``ModelConfig()`` width on the
+    global microbatch, in this process's group (or none): the parameter
+    and EMA digest after each step, each step's and each all-reduce's
+    device time, launches; the gradient step 1 hands the clip is saved to
+    ``ref`` (the one-process run) or held against it, with the
+    process's own gradient before the all-reduce (rank 1 given rank 0's
+    rows would average to rank 0's alone)."""
+    import torch
+
+    from pointreggpt_tpu_torch.parallel import mesh as M
+    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
+    from pointreggpt_tpu_torch.train import trainer as T
+
+    K1, K2 = _port_kernels()
+    grads, digests, step_ev, reduce_ev = {}, [], [], []
+    clip, reduce = T.clip_by_global_norm_, M.all_reduce_mean_
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def spy_clip(gs, max_norm):
+        grads.setdefault("averaged",
+                         torch.cat([g.reshape(-1) for g in gs]).clone())
+        return clip(gs, max_norm)
+
+    def spy_reduce(tensors):
+        tensors = list(tensors)
+        grads.setdefault("local", torch.cat(
+            [t.reshape(-1) for t in tensors[:-1]]).clone())
+        ev = events()
+        ev[0].record()
+        reduce(tensors)
+        ev[1].record()
+        reduce_ev.append(ev)
+
+    T.clip_by_global_norm_, M.all_reduce_mean_ = spy_clip, spy_reduce
+    try:
+        with deterministic_cudnn(torch):
+            tr = DR.build_trainer(str(Path(root) / "rgbd"),
+                                  str(Path(root) / "gt.log"), results,
+                                  full_width=True,
+                                  global_batch=DIST_TRAIN_BATCH,
+                                  steps=DIST_TRAIN_STEPS)
+            step = tr.train_step
+
+            def recorded(*a):
+                ev = events()
+                ev[0].record()
+                loss = step(*a)
+                ev[1].record()
+                step_ev.append(ev)
+                digests.append(DR.digest(tr.ema))
+                return loss
+
+            tr.train_step = recorded
+            _, launched = _counted(K1, K2, lambda: tr.train(log_every=1))
+            torch.cuda.synchronize()
+    finally:
+        T.clip_by_global_norm_, M.all_reduce_mean_ = clip, reduce
+    out = dict(digests=digests, launched=launched,
+               rows=list(tr.rows),
+               step_ms=[a.elapsed_time(b) for a, b in step_ev],
+               all_reduce_ms=[a.elapsed_time(b) for a, b in reduce_ev],
+               grad_sha=hashlib.sha256(grads["averaged"].cpu().numpy()
+                                          .tobytes()).hexdigest())
+    if ref is not None and not Path(ref).exists():
+        torch.save(grads["averaged"].cpu(), ref)
+    elif ref is not None:
+        out.update(grad_rel=_rel_to(torch, grads["averaged"], ref),
+                   rows_swapped_rel=_rel_to(torch, grads["local"], ref),
+                   no_division_rel=_rel_to(
+                       torch, grads["averaged"] * M.process_count(), ref))
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_mask_part(folder: str, results: str, rank_batch: int,
+                   ref: str) -> dict:
+    """The MaskTrainer at ``MaskModelConfig`` width, fp32, 256^2: the
+    validation metrics of the initial weights, then one epoch (one step of
+    the batch, validation, checkpoints); the gradient step 1 hands the
+    clip saved to ``ref`` or held against it."""
+    import torch
+
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.train import mask_trainer as MT
+
+    K1, K2 = _port_kernels()
+    grads = {}
+    clip = MT.clip_by_global_norm_
+
+    def spy_clip(gs, max_norm):
+        grads.setdefault("averaged",
+                         torch.cat([g.reshape(-1) for g in gs]).clone())
+        return clip(gs, max_norm)
+
+    MT.clip_by_global_norm_ = spy_clip
+    try:
+        with deterministic_cudnn(torch):
+            torch.manual_seed(0)
+            tr = MT.MaskTrainer(
+                C.build_mask_unet(C.MaskModelConfig()), folder,
+                image_size=256, train_batch_size=rank_batch, train_lr=4e-5,
+                epochs=1, results_folder=results, samples_folder=results,
+                num_workers=2, val_batch_size=3)
+            tr.eval_one_epoch()
+            metrics = {k: float(v) for k, v in tr.metrics["current"].items()}
+            _, launched = _counted(K1, K2, tr.train_and_eval)
+    finally:
+        MT.clip_by_global_norm_ = clip
+    out = dict(batch=tr.batch_size, metrics=metrics, launched=launched,
+               losses=tr.loss_hist,
+               wrote=sorted(p.name for p in Path(results).glob("*.pt")))
+    if Path(ref).exists():
+        out["grad_rel"] = _rel_to(torch, grads["averaged"], ref)
+    else:
+        torch.save(grads["averaged"].cpu(), ref)
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_generate_part(root: str, argv: list) -> dict:
+    """``generate_dataset.main(argv)`` from ``root``: the chunks of scenes
+    this process set up, and its launches."""
+    import torch
+
+    from pointreggpt_tpu_torch.cli import generate_dataset
+    from pointreggpt_tpu_torch.generate import generator as G
+
+    K1, K2 = _port_kernels()
+    chunks, setup = [], G.Generator._setup_chunk
+
+    def spy(self, chunk, *a):
+        chunks.append(list(chunk))
+        return setup(self, chunk, *a)
+
+    cwd = os.getcwd()
+    G.Generator._setup_chunk = spy
+    os.chdir(root)
+    try:
+        _, launched = _counted(K1, K2, lambda: generate_dataset.main(argv))
+    finally:
+        G.Generator._setup_chunk = setup
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return dict(chunks=chunks, launched=launched)
+
+
+def dist_tester_part(argv: list) -> dict:
+    """The Tester's entry point: each triptych's new image by file name,
+    the overviews this process wrote, its launches."""
+    from pointreggpt_tpu_torch.cli import test_successive_ddnm_diffusion
+    from pointreggpt_tpu_torch.generate import tester as TS
+
+    K1, K2 = _port_kernels()
+    images, overviews = {}, []
+    triptych, imsave = TS.save_triptych, TS._imsave
+
+    def spy_triptych(path, prev, rpj, new, cmap="gray"):
+        images[Path(path).name] = np.array(new)
+        return triptych(path, prev, rpj, new, cmap)
+
+    def spy_imsave(path, vis, cmap):
+        if Path(path).name == "overview.png":
+            overviews.append(list(vis.shape))
+        return imsave(path, vis, cmap)
+
+    TS.save_triptych, TS._imsave = spy_triptych, spy_imsave
+    try:
+        _, launched = _counted(
+            K1, K2, lambda: test_successive_ddnm_diffusion.main(argv))
+    finally:
+        TS.save_triptych, TS._imsave = triptych, imsave
+    return dict(images=images, overviews=overviews, launched=launched)
+
+
+def dist_ws1_rank(root: str) -> dict:
+    """(a): the Trainer in a process group of one (NCCL)."""
+    import torch.distributed as dist
+
+    out = dist_trainer_part(root, str(Path(root) / "results-ws1"))
+    out["backend"] = str(dist.get_backend())
+    return out
+
+
+def dist_rank(paths: dict) -> dict:
+    """(b): one of two processes sharing the card over gloo: the Trainer,
+    the MaskTrainer, generate_dataset and the Tester in turn."""
+    import torch.distributed as dist
+
+    from pointreggpt_tpu_torch.parallel import mesh as M
+
+    rank = M.process_index()
+    out = dict(rank=rank, backend=str(dist.get_backend()), part_s={})
+    parts = dict(
+        trainer=lambda: dist_trainer_part(
+            paths["train"], str(Path(paths["train"]) / f"results-{rank}"),
+            paths["train_ref"]),
+        mask=lambda: dist_mask_part(
+            paths["pairs"],
+            str(Path(paths["pairs"]).parent / f"mask-{rank}"),
+            paths["mask_rank_batch"], paths["mask_ref"]),
+        generate=lambda: dist_generate_part(paths["gen_root"],
+                                            paths["gen_argv"]),
+        tester=lambda: dist_tester_part(paths["tester_argv"]))
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        out[name] = part()
+        out["part_s"][name] = time.perf_counter() - t0
+    return out
+
+
+def _image_gap(got: dict, want: dict, pairs) -> dict:
+    """Over image pairs: the largest mean |difference| of a pair, the
+    largest |difference|, and the largest share of a pair's pixels more
+    than one PNG level apart."""
+    diffs = [np.abs(got[a] - want[b]) for a, b in pairs]
+    return dict(mean_abs=max(float(d.mean()) for d in diffs),
+                max_abs=max(float(d.max()) for d in diffs),
+                share_past_level=max(float((d > PNG_LEVEL).mean())
+                                     for d in diffs))
+
+
+def phase_dist_path(torch, K1, K2, seed: int, tmp: Path) -> dict:
+    """Data parallelism through the port's entry points, on the one card:
+    (a) the Trainer in a process group of one over NCCL, bit for bit
+    against the same run with no group, and the all-reduce's time; (b)
+    two processes sharing ``cuda:0`` over gloo (NCCL takes one process
+    per card): ``tools/dryrun_multiprocess`` at full width, then the
+    Trainer (replicas bit-identical after each step, the averaged
+    gradient against one process's on the same global batch, two planted
+    faults), the MaskTrainer (gradient, validation metrics, rank 0's
+    checkpoints), ``generate_dataset -start 0 -stop 4`` (the scenes by
+    stride, rank 0's files bit for bit those of one process given [0, 2],
+    rank 1's own poses) and the Tester's entry point (each scene against
+    one process, a planted slice swap, one overview); K1, K3 and K2 on
+    every process with no plain route. Two processes on one card check
+    correctness, not scaling: their times are a record only."""
+    from pointreggpt_tpu_torch.cli import generate_dataset
+    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
+
+    root = tmp / "dist"
+    train_root = root / "train"
+    train_root.mkdir(parents=True)
+    DR.write_depth_tree(train_root, n_frames=2 * DIST_TRAIN_BATCH)
+    pairs = write_mask_pairs(root / "pairs", *DIST_MASK_PAIRS, 256, seed)
+    gen_root, ref_root = root / "gen", root / "gen_ref"
+    gen_root.mkdir()
+    rgbd, indoor, info = write_synthetic_tree(gen_root, DIST_SCENES, seed)
+    write_checkpoints(torch, gen_root, seed)
+    ref_root.mkdir()
+    for d in ("results", "depth_correction_results"):
+        (ref_root / d).symlink_to(gen_root / d)
+    gen_argv = ["--resume", "1", "--data", str(rgbd), "--train_info_path",
+                str(info), "--data_root", str(indoor), "--results_folder",
+                str(gen_root / "results"), "-start", "0", "-stop",
+                str(DIST_SCENES), "--num_samples", str(DIST_SAMPLES),
+                "--seed", str(seed)]
+    # the Tester in fp32: with seeded (untrained) weights the bf16 chain
+    # turns the rounding of a batch of 2 against one of 4 into other
+    # images (mean gap 0.30 on the card), where fp32 keeps it small
+    tester_argv = ["--resume", "1", "--results_folder",
+                   str(gen_root / "results"), "--num_scenes",
+                   str(DIST_SCENES), "--num_samples", str(DIST_SAMPLES),
+                   "--bf16", "false"]
+    paths = dict(train=str(train_root),
+                 train_ref=str(root / "train_g1.pt"), pairs=pairs,
+                 mask_rank_batch=2, mask_ref=str(root / "mask_g1.pt"),
+                 gen_root=str(gen_root), gen_argv=gen_argv,
+                 tester_argv=tester_argv + [
+                     "--batch_size", "2", "--samples_folder",
+                     str(root / "tester_dist")])
+
+    # the one-process runs: no group, this process
+    one_s = {}
+    t0 = time.perf_counter()
+    one_train = dist_trainer_part(paths["train"],
+                                  str(train_root / "results-one"),
+                                  paths["train_ref"])
+    one_s["trainer"] = time.perf_counter() - t0
+    one_mask = dist_mask_part(pairs, str(root / "mask-one"), 4,
+                              paths["mask_ref"])
+    one_s["mask"] = time.perf_counter() - t0 - sum(one_s.values())
+    cwd = os.getcwd()
+    os.chdir(ref_root)  # the entry point's folders are relative
+    try:
+        gen, cfg = generate_dataset.build_generator(
+            generate_dataset.build_parser().parse_args(gen_argv))
+        gen.load(1)
+        _, one_gen = _counted(K1, K2, lambda: gen.generate(
+            0, DIST_SCENES, cfg.num_samples,
+            memory_voxel_size=cfg.memory_voxel_size,
+            save_voxel_size=cfg.save_voxel_size,
+            has_refine_step=cfg.has_refine_step, scene_indices=[0, 2],
+            verbose=False))
+    finally:
+        os.chdir(cwd)
+    del gen
+    one_s["generate"] = time.perf_counter() - t0 - sum(one_s.values())
+    one_tester = dist_tester_part(tester_argv + [
+        "--batch_size", "4", "--samples_folder", str(root / "tester_one")])
+    names = sorted(one_tester["images"])
+    one_s["tester"] = time.perf_counter() - t0 - sum(one_s.values())
+
+    # (a): one process in a group of one, NCCL
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (ws1,) = DR.launch(dist_ws1_rank, 1, args=(str(train_root),),
+                       timeout_s=DIST_LAUNCH_S, threads=None)
+    ws1_s = time.perf_counter() - t0
+    if ws1["digests"] != one_train["digests"]:
+        raise AssertionError("dist_path (a): the Trainer in a group of one "
+                             "differs from the run with no group: "
+                             f"{ws1['digests']} != {one_train['digests']}")
+    if ws1["grad_sha"] != one_train["grad_sha"]:
+        raise AssertionError("dist_path (a): step 1's gradient differs")
+
+    # (b): two processes on cuda:0 over gloo
+    t0 = time.perf_counter()
+    dry = DR.dryrun(2, full_width=True, local_ranks=[0, 0], backend="gloo",
+                    timeout_s=DIST_LAUNCH_S)
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # a rank may run a part ahead of the other by tens of seconds before
+    # their next collective: a longer collective timeout than the default
+    ranks = DR.launch(dist_rank, 2, args=(paths,), local_ranks=[0, 0],
+                      backend="gloo", timeout_s=DIST_LAUNCH_S,
+                      collective_timeout_s=DIST_LAUNCH_S / 2, threads=4)
+    ranks_s = time.perf_counter() - t0
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        raise AssertionError(f"dist_path (b): backends {ranks}")
+
+    tr = [r["trainer"] for r in ranks]
+    if tr[0]["digests"] != tr[1]["digests"] or \
+            len(tr[0]["digests"]) != DIST_TRAIN_STEPS:
+        raise AssertionError("dist_path (b): the Trainer's replicas differ")
+    if tr[0]["grad_sha"] != tr[1]["grad_sha"]:
+        raise AssertionError("dist_path (b): the averaged gradients differ")
+    if tr[0]["grad_rel"] > DIST_GRAD_RTOL:
+        raise AssertionError(f"dist_path (b): gradient {tr[0]['grad_rel']} "
+                             f"from one process's, gate {DIST_GRAD_RTOL}")
+    # planted faults: the division by the process count skipped must miss
+    # the gate tenfold; rank 1 given rank 0's rows must miss it too (a
+    # half batch's gradient is near the whole batch's: 6.5% apart in the
+    # CPU rehearsal at dim 8)
+    faults = dict(no_division=tr[0]["no_division_rel"],
+                  rows_swapped=tr[0]["rows_swapped_rel"])
+    if faults["no_division"] < DIST_FAULT_MARGIN * DIST_GRAD_RTOL or \
+            faults["rows_swapped"] <= DIST_GRAD_RTOL:
+        raise AssertionError(f"dist_path (b): planted faults {faults}, gate "
+                             f"{DIST_GRAD_RTOL}")
+
+    mk = [r["mask"] for r in ranks]
+    for m in mk:
+        if m["batch"] != one_mask["batch"] or \
+                m["grad_rel"] > DIST_MASK_RTOL:
+            raise AssertionError(f"dist_path (b): MaskTrainer batch "
+                                 f"{m['batch']}, gradient {m['grad_rel']}")
+        for k, v in one_mask["metrics"].items():
+            if abs(m["metrics"][k] - v) > DIST_METRIC_RTOL * max(abs(v),
+                                                                1e-30):
+                raise AssertionError(f"dist_path (b): metric {k} "
+                                     f"{m['metrics'][k]} != {v}")
+    if [m["wrote"] for m in mk] != [["model-best.pt", "model-latest.pt"],
+                                    []]:
+        raise AssertionError(f"dist_path (b): MaskTrainer checkpoints by "
+                             f"rank {[m['wrote'] for m in mk]}")
+
+    gn = [r["generate"] for r in ranks]
+    if [g["chunks"] for g in gn] != [[[0, 2]], [[1, 3]]]:
+        raise AssertionError(f"dist_path (b): scene chunks "
+                             f"{[g['chunks'] for g in gn]}")
+    out = gen_root / "generated_dataset" / "data"
+    scenes = sorted(p.name for p in out.iterdir())
+    if scenes != [f"scene-{s:06d}" for s in range(DIST_SCENES)]:
+        raise AssertionError(f"dist_path (b): scenes written {scenes}")
+    ref = ref_root / "generated_dataset" / "data"
+    for s in (0, 2):
+        name = f"scene-{s:06d}"
+        got = {p.relative_to(out / name): p.read_bytes()
+               for p in sorted((out / name).rglob("*")) if p.is_file()}
+        want = {p.relative_to(ref / name): p.read_bytes()
+                for p in sorted((ref / name).rglob("*")) if p.is_file()}
+        if got != want:
+            raise AssertionError(f"dist_path (b): rank 0's {name} differs "
+                                 "from one process's")
+    poses = [np.loadtxt(out / f"scene-{s:06d}" / "sample-000001.pose.txt")
+             for s in (0, 1)]
+    if np.allclose(*poses):
+        raise AssertionError("dist_path (b): rank 1 drew rank 0's poses")
+
+    ts = [r["tester"] for r in ranks]
+    got = {**ts[0]["images"], **ts[1]["images"]}
+    if sorted(got) != names:
+        raise AssertionError(f"dist_path (b): Tester files {sorted(got)}")
+    tester = dict(gap=_image_gap(got, one_tester["images"],
+                                 [(n, n) for n in names]),
+                  gate=TESTER_MEAN_GATE,
+                  swapped=_image_gap(got, one_tester["images"], [
+                      (f"scene-{s - 2}-sample-{k}.png",
+                       f"scene-{s}-sample-{k}.png")
+                      for s in (2, 3) for k in range(DIST_SAMPLES)]))
+    tester_ok = (tester["gap"]["mean_abs"] <= TESTER_MEAN_GATE and
+                 tester["swapped"]["mean_abs"] >=
+                 DIST_FAULT_MARGIN * TESTER_MEAN_GATE)
+    if [len(t["overviews"]) for t in ts] != [1, 0] or \
+            ts[0]["overviews"] != one_tester["overviews"]:
+        raise AssertionError(f"dist_path (b): overviews "
+                             f"{[t['overviews'] for t in ts]}")
+
+    # launches: each process runs the kernels; no plain route anywhere
+    parts = dict(trainer=one_train["launched"], mask=one_mask["launched"],
+                 generate=one_gen, tester=one_tester["launched"])
+    launches = {}
+    for part, one in parts.items():
+        per_rank = [r[part]["launched"] for r in ranks]
+        for c in per_rank + [one]:
+            check_no_routes(f"dist_path {part}", c["plain_routes"])
+        if min(c[k] for c in per_rank for k in ("k1", "k2")) == 0:
+            raise AssertionError(f"dist_path {part}: a process launched no "
+                                 f"K1 or K2 {per_rank}")
+        if part in ("trainer", "generate", "tester") and \
+                any({k: c[k] for k in ("k1", "k3", "k2")} !=
+                    {k: one[k] for k in ("k1", "k3", "k2")}
+                    for c in per_rank):
+            # each process does one process's work on its share
+            raise AssertionError(f"dist_path {part}: launches {per_rank}, "
+                                 f"one process {one}")
+        if part == "mask" and any(c["k3"] != one["k3"] for c in per_rank):
+            raise AssertionError(f"dist_path mask: K3 {per_rank} {one}")
+        launches[part] = dict(
+            ranks=[{k: c[k] for k in ("k1", "k3", "k2")} for c in per_rank],
+            one_process={k: one[k] for k in ("k1", "k3", "k2")})
+    ws1_l = ws1["launched"]
+    res = dict(
+        card=card_line(),
+        a=dict(backend=ws1["backend"], bit_identical=True,
+               all_reduce_ms=ws1["all_reduce_ms"],
+               step_ms=ws1["step_ms"], no_group_step_ms=one_train["step_ms"],
+               launched={k: ws1_l[k] for k in ("k1", "k3", "k2")},
+               wall_s=ws1_s),
+        b=dict(backend="gloo, both processes on cuda:0", dryrun=dry,
+               dryrun_s=dry_s, wall_s=ranks_s,
+               rank_part_s=[r["part_s"] for r in ranks],
+               trainer=dict(grad_rel=tr[0]["grad_rel"],
+                            gate=DIST_GRAD_RTOL, faults=faults,
+                            step_ms=[t["step_ms"] for t in tr],
+                            all_reduce_ms=[t["all_reduce_ms"] for t in tr],
+                            one_process_step_ms=one_train["step_ms"]),
+               mask=dict(grad_rel=[m["grad_rel"] for m in mk],
+                         gate=DIST_MASK_RTOL, metrics=mk[0]["metrics"],
+                         one_process_metrics=one_mask["metrics"],
+                         losses=[m["losses"] for m in mk],
+                         one_process_losses=one_mask["losses"]),
+               generate=dict(chunks=[g["chunks"] for g in gn],
+                             scenes=scenes, rank0_bit_equal=True),
+               tester=tester,
+               launches=launches),
+        one_process_s=one_s)
+    emit("dist_path", **res)
+    if not tester_ok:
+        raise AssertionError(f"dist_path (b): Tester {tester}")
+    totals = {k: sum(r[p]["launched"][k] for r in ranks for p in parts) +
+              ws1_l[k] for k in ("k1", "k3", "k2")}
+    return dict(k1_launches=totals["k1"], k3_launches=totals["k3"],
+                k2_launches=totals["k2"])
+
+
+PROFILE_DDIM_STEPS = 25  # profile_path's chain: the stages, not its depth
+
+
+def phase_profile_path(torch, tmp: Path, fwd_bwd: dict) -> dict:
+    """``PRGPT_PROFILE`` on the card: the Trainer (``ModelConfig()``
+    width, microbatch 8) for 6 steps and ``Generator.generate`` (the
+    production widths, 2 scenes, a 25-step chain) for 3 sample steps, each
+    with the
+    JAX stage names and a Chrome trace holding device kernels; then one
+    MaskTrainer step (``MaskModelConfig``, batch 4, 256^2) under
+    ``profiling.trace``, its device time by kernel category and largest
+    kernels beside ``mask_fwd_bwd``'s bare forward + backward."""
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.cli import generate_dataset
+    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
+    from pointreggpt_tpu_torch.train import mask_trainer as MT
+    from pointreggpt_tpu_torch.utils import profiling
+
+    root = tmp / "profile"
+    made = []
+    loop_profile = profiling.loop_profile
+
+    def spy(*a):
+        made.append(loop_profile(*a))
+        return made[-1]
+
+    def trace_kernels(folder: Path) -> int:
+        files = sorted(folder.rglob("*.pt.trace.json"))
+        if not files:
+            raise AssertionError(f"profile_path: no trace under {folder}")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        return sum(1 for e in events if e.get("cat") == "kernel")
+
+    res = {}
+    profiling.loop_profile = spy
+    try:
+        os.environ["PRGPT_PROFILE"] = str(root / "train")
+        tr = DR.build_trainer(str(tmp / "dist" / "train" / "rgbd"),
+                              str(tmp / "dist" / "train" / "gt.log"),
+                              str(root / "train_results"), full_width=True,
+                              global_batch=DIST_TRAIN_BATCH, steps=6)
+        tr.save_and_sample_every, tr.sample_on_save = 6, False
+        t0 = time.perf_counter()
+        tr.train(log_every=1)
+        res["train"] = dict(wall_s=time.perf_counter() - t0,
+                            stages_s=made[-1].timer.totals(),
+                            trace_kernels=trace_kernels(root / "train"))
+        del tr
+        os.environ["PRGPT_PROFILE"] = str(root / "generate")
+        gen_root = tmp / "dist" / "gen"
+        argv = ["--resume", "1", "--data", str(gen_root / "rgbd"),
+                "--train_info_path", str(gen_root / "train_info.pkl"),
+                "--data_root", str(gen_root / "indoor"), "--results_folder",
+                str(gen_root / "results"), "--batch_size", "2",
+                "--num_samples", "3", "--dataset_name", "profiled",
+                "--sampling_timesteps", str(PROFILE_DDIM_STEPS)]
+        cwd = os.getcwd()
+        os.chdir(gen_root)  # the entry point's folders are relative
+        try:
+            gen, cfg = generate_dataset.build_generator(
+                generate_dataset.build_parser().parse_args(argv))
+            gen.load(1)
+            t0 = time.perf_counter()
+            gen.generate(0, 2, 3, memory_voxel_size=cfg.memory_voxel_size,
+                         save_voxel_size=cfg.save_voxel_size,
+                         has_refine_step=cfg.has_refine_step, verbose=False)
+        finally:
+            os.chdir(cwd)
+        res["generate"] = dict(wall_s=time.perf_counter() - t0,
+                               stages_s=made[-1].timer.totals(),
+                               trace_kernels=trace_kernels(
+                                   root / "generate"))
+        del gen
+    finally:
+        profiling.loop_profile = loop_profile
+        os.environ.pop("PRGPT_PROFILE", None)
+    want = {"train": {"load_batch", "dispatch", "loss_sync",
+                      "save_and_sample"},
+            "generate": {"scene_setup", "dispatch", "host_write"}}
+    for loop, names in want.items():
+        if set(res[loop]["stages_s"]) != names or \
+                res[loop]["trace_kernels"] == 0:
+            raise AssertionError(f"profile_path {loop}: stages "
+                                 f"{sorted(res[loop]['stages_s'])}, "
+                                 f"{res[loop]['trace_kernels']} kernels")
+
+    torch.manual_seed(0)
+    mt = MT.MaskTrainer(C.build_mask_unet(C.MaskModelConfig()),
+                        str(tmp / "dist" / "pairs"), image_size=256,
+                        train_batch_size=MASK_BATCH, train_lr=4e-5,
+                        epochs=1, results_folder=str(root / "mask"),
+                        samples_folder=str(root / "mask"), num_workers=2)
+    batch = next(iter(mt._loader(0)))
+    x, m = MT._to_device(batch, ("input_img", "mask"), mt.device)
+    for _ in range(2):  # warm-up: cuDNN's workspaces and the allocator
+        mt.train_step(x, m)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profiling.trace(str(root / "mask_step")) as prof:
+        e0.record()
+        mt.train_step(x, m)
+        e1.record()
+        torch.cuda.synchronize()
+    res["mask_step"] = dict(step_ms=e0.elapsed_time(e1),
+                            **device_time(torch, prof))
+    res["mask_fwd_bwd"] = dict(step_ms=fwd_bwd["step_ms"],
+                               **fwd_bwd["fwd_bwd"])
+    emit("profile_path", card=card_line(), **res)
+    del mt, x, m, prof
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2562,13 +3250,17 @@ def main(argv=None) -> int:
                            tmp)
         timed("mixture_path", phase_mixture_path, torch, args.seed,
               tmp / "main", tmp)
+        dist_res = timed("dist_path", phase_dist_path, torch, K1, K2,
+                         args.seed, tmp)
+        timed("profile_path", phase_profile_path, torch, tmp, fwd_bwd)
     emit("phase_seconds", total=time.perf_counter() - t_start, **seconds)
     sample_steps = main_res["num_samples"]
 
     # launches: the main paths (generation, diffusion training,
     # depth-correction training, the Tester's three runs, the training
-    # run with FID, the imported checkpoints' step and resumed training),
-    # each counted from 0 just before its entry point runs; per sample
+    # run with FID, the imported checkpoints' step and resumed training,
+    # and dist_path's processes, summed over them), each counted from 0
+    # just before its entry point runs; per sample
     # step of generation, per optimizer step of diffusion training (its
     # milestone grid counted apart), per optimizer step of the MaskTrainer
     # (its validation counted apart) and per sample call of the Tester's
@@ -2579,7 +3271,7 @@ def main(argv=None) -> int:
                   for run in ("cli", "generate", "ancestral")]
         return dict(launches=main_res[key] + train_res[key] +
                     mask_res[key] + sum(tester) + fid_res[key] +
-                    import_res[key],
+                    import_res[key] + dist_res[key],
                     launches_generate=main_res[key],
                     launches_train=train_res[key],
                     launches_mask_train=mask_res[key],
@@ -2588,6 +3280,7 @@ def main(argv=None) -> int:
                     launches_tester_ancestral=tester[2],
                     launches_fid_train=fid_res[key],
                     launches_import=import_res[key],
+                    launches_dist=dist_res[key],
                     per_sample_step=main_res[key] / sample_steps,
                     per_optimizer_step=train_res["per_optimizer_step"][i],
                     launches_train_grid=train_res["grid_launches"][i],

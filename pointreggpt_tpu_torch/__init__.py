@@ -26,8 +26,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """The device an entry point runs on.
 
     ``device`` wins when given; otherwise ``PRGPT_PLATFORM`` (``cpu`` or
-    ``cuda``/``gpu``); otherwise ``cuda``. Raises when CUDA is asked for
-    (explicitly or by default) and no GPU is visible.
+    ``cuda``/``gpu``); otherwise ``cuda``. Under torchrun (``LOCAL_RANK``
+    set) a ``cuda`` with no index is the process's own GPU,
+    ``cuda:<LOCAL_RANK>``. Raises when CUDA is asked for (explicitly or by
+    default) and no GPU is visible.
     """
     if device is None:
         platform = os.environ.get("PRGPT_PLATFORM", "").strip().lower()
@@ -38,6 +40,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "pointreggpt_tpu_torch runs on a CUDA GPU and none is visible; "
             "pass device='cpu' or set PRGPT_PLATFORM=cpu to run the plain "
             "PyTorch path on the CPU")
+    local_rank = os.environ.get("LOCAL_RANK")
+    if dev.type == "cuda" and dev.index is None and local_rank:
+        dev = torch.device("cuda", int(local_rank))
     return dev
 
 

@@ -9,8 +9,12 @@ come from ``{results_folder}/model-{resume}.pt`` ({step, model, ema}) and
         --data /path/to/3DMatch-RGBD/train -start 0 -stop 8 --num_samples 2
 
 Runs on ``cuda``; ``PRGPT_PLATFORM=cpu`` runs the plain path on the CPU.
-Multi-process scene sharding is not ported yet: one process takes the
-whole [-start, -stop) range.
+On several GPUs, one process each, every process takes its strided share
+of [-start, -stop) (``parallel.local_scene_range``) with ``--batch_size``
+scenes a step on its own GPU::
+
+    torchrun --nproc_per_node 8 -m pointreggpt_tpu_torch.cli.generate_dataset \
+        --resume 1 --data /path/to/3DMatch-RGBD/train -start 0 -stop 64
 """
 
 import argparse
@@ -18,6 +22,7 @@ import argparse
 import torch
 
 from pointreggpt_tpu_torch import config as C
+from pointreggpt_tpu_torch.parallel import mesh as M
 
 GEN_DIFFUSION = C.DiffusionConfig(ddim_sampling_eta=1.0)
 
@@ -37,7 +42,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    with M.process_group():
+        _generate(args)
 
+
+def build_generator(args):
+    """The entry point's ``(Generator, GenerateConfig)`` for parsed
+    ``args``, with TF32 off."""
     from pointreggpt_tpu_torch.generate import Generator
 
     # fp32 convs (the default fp32 MaskUNet, thresholded at 0.99) stay
@@ -52,7 +63,6 @@ def main(argv=None) -> None:
     depth_correction = C.build_mask_unet(
         C.from_args(args, C.MaskModelConfig, prefix="dc_"))
     cfg = C.from_args(args, C.GenerateConfig)
-
     generator = Generator(
         model, diffusion, cfg.data,
         batch_size=cfg.batch_size,
@@ -63,6 +73,19 @@ def main(argv=None) -> None:
         data_root=cfg.data_root,
         memory_capacity=cfg.memory_capacity,
         seed=cfg.seed)
+    return generator, cfg
+
+
+def _generate(args) -> None:
+    generator, cfg = build_generator(args)
+    scene_indices = None
+    if M.process_count() > 1:
+        scene_indices = M.local_scene_range(args.start_scene_index,
+                                            args.stop_scene_index)
+        print(f"process {M.process_index()}/{M.process_count()}: "
+              f"{len(scene_indices)} scenes of "
+              f"[{args.start_scene_index}, {args.stop_scene_index})")
+
     generator.load(args.resume)
     generator.generate(
         start_scene_index=args.start_scene_index,
@@ -70,7 +93,8 @@ def main(argv=None) -> None:
         num_samples=cfg.num_samples,
         memory_voxel_size=cfg.memory_voxel_size,
         save_voxel_size=cfg.save_voxel_size,
-        has_refine_step=cfg.has_refine_step)
+        has_refine_step=cfg.has_refine_step,
+        scene_indices=scene_indices)
 
 
 if __name__ == "__main__":

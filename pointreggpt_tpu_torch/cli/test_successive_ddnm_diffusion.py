@@ -13,6 +13,13 @@ and writes triptych PNGs, PLYs and ``overview.png`` to
 
 Runs on ``cuda``; ``PRGPT_PLATFORM=cpu`` runs the plain path on the CPU.
 ``--sampling_timesteps 1000`` (= ``--timesteps``) runs the ancestral chain.
+On several GPUs, one process each, every batch holds ``--batch_size``
+scenes per process, split in contiguous blocks; each process writes its
+scenes' files and rank 0 the overview::
+
+    torchrun --nproc_per_node 8 \
+        -m pointreggpt_tpu_torch.cli.test_successive_ddnm_diffusion \
+        --resume 1 --num_scenes 32
 """
 
 import argparse
@@ -20,6 +27,7 @@ import argparse
 import torch
 
 from pointreggpt_tpu_torch import config as C
+from pointreggpt_tpu_torch.parallel import mesh as M
 
 TEST_DIFFUSION = C.DiffusionConfig(sampling_timesteps=32,
                                    ddim_sampling_eta=1.0)
@@ -47,7 +55,11 @@ def main(argv=None) -> None:
     if args.resume is None:
         # fail fast: load(None) would surface as a missing "model-None.pt"
         parser.error("--resume is required (checkpoint milestone to load)")
+    with M.process_group():
+        _test(args)
 
+
+def _test(args) -> None:
     from pointreggpt_tpu_torch.generate.tester import Tester
 
     # fp32 stays fp32: cuDNN would otherwise run fp32 convs in TF32

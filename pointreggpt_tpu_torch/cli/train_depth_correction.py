@@ -1,4 +1,5 @@
-"""Train the depth-correction MaskUNet on one GPU (PyTorch port).
+"""Train the depth-correction MaskUNet on one GPU or data-parallel on several
+(PyTorch port).
 
 Same flags as ``pointreggpt_tpu/cli/train_depth_correction.py``: MaskUNet
 dim 64, (1, 2, 4, 8), fp32 (its keep mask is thresholded at 0.99); batch
@@ -11,6 +12,14 @@ epochs, validation batch 8. Every epoch writes ``model-latest.pt``, and
 
 Runs on ``cuda``; ``PRGPT_PLATFORM=cpu`` runs the plain path on the CPU.
 ``--resume latest`` (or ``best``) goes on at the epoch after the saved one.
+On several GPUs, one process each, every process trains on
+``--train_batch_size`` pairs of each step (the batch scales with the
+process count, as the JAX MaskTrainer's with its device count); rank 0
+writes the log and the checkpoints::
+
+    torchrun --nproc_per_node 8 \
+        -m pointreggpt_tpu_torch.cli.train_depth_correction \
+        --data ./dataset/depth_correction
 """
 
 import argparse
@@ -18,6 +27,7 @@ import argparse
 import torch
 
 from pointreggpt_tpu_torch import config as C
+from pointreggpt_tpu_torch.parallel import mesh as M
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,7 +41,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    with M.process_group():
+        _train(args)
 
+
+def _train(args) -> None:
     from pointreggpt_tpu_torch.train.mask_trainer import MaskTrainer
 
     # fp32 stays fp32: cuDNN would otherwise run fp32 convs in TF32

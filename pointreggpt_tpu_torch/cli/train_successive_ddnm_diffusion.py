@@ -1,5 +1,5 @@
-"""Train the successive-DDNM depth-inpainting diffusion model on one GPU
-(PyTorch port).
+"""Train the successive-DDNM depth-inpainting diffusion model on one GPU or
+data-parallel on several (PyTorch port).
 
 Same flags as ``pointreggpt_tpu/cli/train_successive_ddnm_diffusion.py``:
 DiffusionUNet dim 64, bf16 compute with fp32 parameters, 1000 timesteps,
@@ -15,7 +15,13 @@ Runs on ``cuda``; ``PRGPT_PLATFORM=cpu`` runs the plain path on the CPU.
 ``--resume m`` continues from ``{results_folder}/model-{m}.pt``.
 ``--calculate_fid true`` logs ``fid_score`` at each milestone (Inception
 weights from ``$PRGPT_INCEPTION_WEIGHTS``, see ``eval/fid.py``).
-Multi-GPU training is not ported yet and raises.
+On several GPUs, one process each, ``--train_batch_size`` is the global
+microbatch and divides over the processes; rank 0 writes the log, the
+grids and the checkpoints::
+
+    torchrun --nproc_per_node 8 \
+        -m pointreggpt_tpu_torch.cli.train_successive_ddnm_diffusion \
+        --data /path/to/3DMatch-RGBD/train
 """
 
 import argparse
@@ -23,6 +29,7 @@ import argparse
 import torch
 
 from pointreggpt_tpu_torch import config as C
+from pointreggpt_tpu_torch.parallel import mesh as M
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,7 +45,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    with M.process_group():
+        _train(args)
 
+
+def _train(args) -> None:
     from pointreggpt_tpu_torch.train.trainer import Trainer
 
     # fp32 stays fp32: cuDNN would otherwise run fp32 convs in TF32

@@ -18,7 +18,9 @@ from ``pointreggpt_tpu/data/datasets.py``, with the same contracts:
 - :class:`PrefetchLoader` draws a fresh permutation per epoch from
   ``default_rng([seed, epoch])``, can start at ``start_epoch``, decodes in
   worker threads ahead of the consumer, re-raises a decode error in the
-  consumer, and releases its thread when an iterator is abandoned.
+  consumer, and releases its thread when an iterator is abandoned. In a
+  data-parallel run every process walks the same batches and decodes
+  only its own positions of each (``rows``).
 
 Both packages draw with numpy, so for one seed their batches are the same
 bit for bit. Batches are dicts of stacked numpy arrays, NHWC.
@@ -229,12 +231,18 @@ class PrefetchLoader:
     Each ``__iter__`` takes the next epoch number (starting at
     ``start_epoch``); an infinite iterator walks on through the epochs
     after it.
+
+    ``rows`` (data parallel): the positions within each global batch of
+    ``batch_size`` that this process decodes, in order; every process
+    draws the same permutation, and an item's flip depends on the item,
+    not on the process that decodes it. None decodes the whole batch.
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
                  drop_last: bool = True, infinite: bool = False,
                  num_workers: Optional[int] = None, prefetch: int = 2,
-                 seed: int = 0, start_epoch: int = 0):
+                 seed: int = 0, start_epoch: int = 0,
+                 rows: Optional[Sequence[int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -244,6 +252,12 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.seed = seed
         self._epoch = int(start_epoch)
+        self.rows = None if rows is None else [int(r) for r in rows]
+        if self.rows is not None and (
+                not drop_last or
+                any(not 0 <= r < batch_size for r in self.rows)):
+            raise ValueError(f"rows {self.rows} must be positions in "
+                             f"batches of {batch_size} with drop_last")
         if drop_last and len(dataset) < batch_size:
             raise ValueError(
                 f"dataset has {len(dataset)} examples < batch_size "
@@ -264,7 +278,9 @@ class PrefetchLoader:
             stop = (len(idx) // self.batch_size * self.batch_size
                     if self.drop_last else len(idx))
             for s in range(0, stop, self.batch_size):
-                yield epoch, list(idx[s:s + self.batch_size])
+                batch = idx[s:s + self.batch_size]
+                yield epoch, list(batch if self.rows is None
+                                  else batch[self.rows])
             epoch += 1
             if not self.infinite:
                 return

@@ -7,6 +7,10 @@ Port of ``pointreggpt_tpu/diffusion/gaussian.py`` (``denoise`` and
 here; nothing in it reads a value back to the host, so the whole chain
 queues on the stream without a sync.
 
+Data parallel runs pass ``rows`` (:class:`~pointreggpt_tpu_torch.parallel.
+mesh.Rows`): each random draw is then made at the global batch's shape and
+cut to the process's rows, so N processes draw what one process draws.
+
 Images are NHWC ``(b, h, w, c)`` at the public functions, like the JAX
 package; the network sees the NCHW view (channels_last memory, no copy).
 
@@ -32,8 +36,22 @@ from pointreggpt_tpu_torch.core.geometry import (
     unnormalize_to_zero_to_one,
 )
 from pointreggpt_tpu_torch.diffusion import schedules as sched
+from pointreggpt_tpu_torch.parallel.mesh import Rows
 
 Tensor = torch.Tensor
+
+
+def _draw(fn, shape: Sequence[int], generator: Optional[torch.Generator],
+          device, rows: Optional[Rows], **kw) -> Tensor:
+    """``fn`` (``torch.randn`` or ``torch.rand``) at ``shape``; with
+    ``rows``, at the global batch's shape and then this process's rows, so
+    every process draws what one process draws for the whole batch."""
+    if rows is None:
+        return fn(tuple(shape), generator=generator, device=device, **kw)
+    if shape[0] != rows.size:
+        raise ValueError(f"batch {shape[0]} != the process's rows {rows}")
+    return rows.take(fn((rows.total,) + tuple(shape[1:]),
+                        generator=generator, device=device, **kw))
 
 
 class ModelPrediction(NamedTuple):
@@ -149,17 +167,30 @@ class GaussianDiffusion:
 
     def training_loss(self, model: nn.Module, img01: Tensor,
                       intrinsic: Tensor,
-                      generator: Optional[torch.Generator] = None) -> Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      rows: Optional[Rows] = None) -> Tensor:
         """The training forward: draw t, then the noise, from ``generator``.
 
         Args:
             img01: (b, h, w, c) depth in [0, 1] model units.
             intrinsic: (b, 3, 3).
+            rows: this process's rows of the global microbatch (data
+                parallel; None: the whole batch): t and the noise are
+                drawn for all of its rows.
         """
-        t = torch.randint(0, self.timesteps, (img01.shape[0],),
-                          generator=generator, device=img01.device)
-        return self.p_losses(model, normalize_to_neg_one_to_one(img01), t,
-                             param_vector(intrinsic), generator=generator)
+        x_start = normalize_to_neg_one_to_one(img01)
+        if rows is None:
+            rows = Rows(0, img01.shape[0], img01.shape[0])
+        if img01.shape[0] != rows.size:
+            raise ValueError(f"batch {img01.shape[0]} != the process's rows "
+                             f"{rows}")
+        t = rows.take(torch.randint(0, self.timesteps, (rows.total,),
+                                    generator=generator,
+                                    device=img01.device))
+        noise = _draw(torch.randn, x_start.shape, generator, img01.device,
+                      rows, dtype=x_start.dtype)
+        return self.p_losses(model, x_start, t, param_vector(intrinsic),
+                             noise=noise)
 
     # -- sampling -----------------------------------------------------------
 
@@ -172,7 +203,8 @@ class GaussianDiffusion:
                           generator: Optional[torch.Generator] = None,
                           clip_x_start: bool = False,
                           is_ban_ddnm: bool = False,
-                          is_denoise: bool = False) -> ModelPrediction:
+                          is_denoise: bool = False,
+                          rows: Optional[Rows] = None) -> ModelPrediction:
         """Network forward + objective conversion + DDNM projection at the
         scalar timestep ``t`` (all samples share it while sampling).
 
@@ -215,8 +247,8 @@ class GaussianDiffusion:
                     raise ValueError(
                         "model_predictions: the mask-dropout schedule is "
                         "nonzero but no generator was passed")
-                keep = torch.rand(mask.shape, generator=generator,
-                                  device=x.device) > p_drop
+                keep = _draw(torch.rand, mask.shape, generator, x.device,
+                             rows) > p_drop
                 mask = mask & keep
             # pred_noise stays the pre-projection estimate (reference)
             x_start = torch.where(mask, img_rpj, x_start)
@@ -232,7 +264,8 @@ class GaussianDiffusion:
                     clip_denoised: bool = True,
                     has_refine_step: bool = False,
                     is_denoise: bool = False,
-                    x_init: Optional[Tensor] = None) -> Tensor:
+                    x_init: Optional[Tensor] = None,
+                    rows: Optional[Rows] = None) -> Tensor:
         """DDIM chain with DDNM projection; returns (b, h, w, c) in [0, 1].
 
         ``x_init`` injects the x_T draw (tests); with eta 0 the chain then
@@ -243,12 +276,13 @@ class GaussianDiffusion:
         ac = self.tables.alphas_cumprod
         pairs = sched.ddim_time_pairs(self.timesteps,
                                       self.sampling_timesteps)
-        img = (torch.randn(tuple(shape), generator=generator, device=device)
+        img = (_draw(torch.randn, shape, generator, device, rows)
                if x_init is None else x_init.to(device, torch.float32))
         for t, t_next in pairs.tolist():
             pred_noise, x_start = self.model_predictions(
                 model, img, t, param_cond, img_cond, generator=generator,
-                clip_x_start=clip_denoised, is_denoise=is_denoise)
+                clip_x_start=clip_denoised, is_denoise=is_denoise,
+                rows=rows)
             if t_next < 0:
                 img = x_start
                 continue
@@ -260,14 +294,13 @@ class GaussianDiffusion:
                                    np.float32(0)))
             img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
             if sigma > 0:
-                noise = torch.randn(img.shape, generator=generator,
-                                    device=device)
+                noise = _draw(torch.randn, img.shape, generator, device, rows)
                 img = img + float(sigma) * noise
 
         if has_refine_step and img_cond is not None:
             _, x_start = self.model_predictions(
                 model, img, 0, param_cond, img_cond, generator=generator,
-                clip_x_start=clip_denoised, is_ban_ddnm=True)
+                clip_x_start=clip_denoised, is_ban_ddnm=True, rows=rows)
             mask = mask_from_image_condition(img_cond)[..., None]
             img = torch.where(mask, x_start, img)
         return unnormalize_to_zero_to_one(img)
@@ -278,12 +311,13 @@ class GaussianDiffusion:
                        param_cond: Tensor, img_cond: Optional[Tensor],
                        generator: Optional[torch.Generator],
                        noise: Optional[Callable[[int], Tensor]], *,
-                       is_ban_ddnm: bool = False) -> Tensor:
+                       is_ban_ddnm: bool = False,
+                       rows: Optional[Rows] = None) -> Tensor:
         """One step of the posterior chain: x_{t-1} from x_t (the posterior
         mean at t = 0, where the noise is zero)."""
         _, x_start = self.model_predictions(
             model, x, t, param_cond, img_cond, generator=generator,
-            is_ban_ddnm=is_ban_ddnm)
+            is_ban_ddnm=is_ban_ddnm, rows=rows)
         x_start = x_start.clamp(-1.0, 1.0)
         mean = (self._coef("posterior_mean_coef1", t) * x_start +
                 self._coef("posterior_mean_coef2", t) * x)
@@ -291,7 +325,7 @@ class GaussianDiffusion:
             return mean
         std = float(np.exp(np.float32(0.5) *
                            self.tables.posterior_log_variance_clipped[t]))
-        z = (torch.randn(x.shape, generator=generator, device=x.device)
+        z = (_draw(torch.randn, x.shape, generator, x.device, rows)
              if noise is None else noise(t).to(x.device, torch.float32))
         return mean + std * z
 
@@ -301,8 +335,8 @@ class GaussianDiffusion:
                       generator: Optional[torch.Generator] = None,
                       has_refine_step: bool = False,
                       x_init: Optional[Tensor] = None,
-                      noise: Optional[Callable[[int], Tensor]] = None
-                      ) -> Tensor:
+                      noise: Optional[Callable[[int], Tensor]] = None,
+                      rows: Optional[Rows] = None) -> Tensor:
         """Ancestral chain over all ``timesteps``; returns (b, h, w, c) in
         [0, 1].
 
@@ -310,15 +344,15 @@ class GaussianDiffusion:
         t (tests); otherwise both are drawn from ``generator``.
         """
         device = param_cond.device
-        img = (torch.randn(tuple(shape), generator=generator, device=device)
+        img = (_draw(torch.randn, shape, generator, device, rows)
                if x_init is None else x_init.to(device, torch.float32))
         for t in range(self.timesteps - 1, -1, -1):
             img = self._p_sample_step(model, img, t, param_cond, img_cond,
-                                      generator, noise)
+                                      generator, noise, rows=rows)
         if has_refine_step and img_cond is not None:
             refined = self._p_sample_step(model, img, 0, param_cond,
                                           img_cond, generator, noise,
-                                          is_ban_ddnm=True)
+                                          is_ban_ddnm=True, rows=rows)
             mask = mask_from_image_condition(img_cond)[..., None]
             img = torch.where(mask, refined, img)
         return unnormalize_to_zero_to_one(img)
@@ -327,12 +361,15 @@ class GaussianDiffusion:
                img_cond: Optional[Tensor] = None,
                generator: Optional[torch.Generator] = None,
                has_refine_step: bool = False,
-               x_init: Optional[Tensor] = None) -> Tensor:
+               x_init: Optional[Tensor] = None,
+               rows: Optional[Rows] = None) -> Tensor:
         """Sample (b, h, w, c) images in [0, 1]: the DDIM chain when
-        ``sampling_timesteps < timesteps``, else the ancestral chain."""
+        ``sampling_timesteps < timesteps``, else the ancestral chain.
+        ``rows``: this process's rows of a global batch."""
         b = param_cond.shape[0]
         shape = (b, self.image_size, self.image_size, self.channels)
         chain = (self.ddim_sample if self.is_ddim_sampling
                  else self.p_sample_loop)
         return chain(model, param_cond, img_cond, shape, generator=generator,
-                     has_refine_step=has_refine_step, x_init=x_init)
+                     has_refine_step=has_refine_step, x_init=x_init,
+                     rows=rows)

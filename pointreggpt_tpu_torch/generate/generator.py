@@ -14,6 +14,10 @@ Step k + 1 is queued before the host writes step k; step k's outputs reach
 the host through pinned buffers and an event, so the PNG/PLY encoding
 overlaps step k + 1 on the card.
 
+Under torchrun each process generates its own scenes
+(``parallel.local_scene_range``, passed by the CLI as ``scene_indices``),
+with ``batch_size`` scenes a step on its GPU and a pose stream of its own.
+
 Output contract (unchanged): ``scene-%06d/{camera-intrinsics.txt,
 sample-%06d.pose.txt, sample-%06d.image.png, sample-%06d.depth.png,
 sample-%06d.cloud.ply}`` plus the ``reprojected.image.png`` /
@@ -39,6 +43,8 @@ from pointreggpt_tpu_torch.core import sampling as S
 from pointreggpt_tpu_torch.data.datasets import resolve_frame_record
 from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
 from pointreggpt_tpu_torch.models.bake import bake_inference
+from pointreggpt_tpu_torch.parallel import mesh as M
+from pointreggpt_tpu_torch.utils import profiling
 from pointreggpt_tpu_torch.utils.jax_params import (load_reference_checkpoint,
                                                     strip_prefix)
 
@@ -99,6 +105,8 @@ class Generator:
         diffusion: the sampling process (250-step DDIM + DDNM in
             production).
         folder: 3DMatch-RGBD train root (scene dirs with intrinsics).
+        batch_size: scenes a step, on this process's GPU (the JAX
+            package's is per host, split over its chips).
         depth_correction_model: optional MaskUNet.
         memory_capacity: padded scene-memory size per scene.
         device: ``cuda`` unless asked otherwise (see ``resolve_device``).
@@ -246,6 +254,16 @@ class Generator:
         event.record()
         return tuple(host), event
 
+    def _generator_seed(self, start_scene_index: int) -> int:
+        """The seed of the pose and noise stream: rank 0's (and a single
+        process's) is ``seed + start``; every other process folds its rank
+        in, so the processes draw distinct poses."""
+        base = self.seed + start_scene_index
+        rank = M.process_index()
+        if rank == 0:
+            return base
+        return int(np.random.SeedSequence([base, rank]).generate_state(1)[0])
+
     # ------------------------------------------------------------------
     def generate(self, start_scene_index: int, stop_scene_index: int,
                  num_samples: int, *,
@@ -255,16 +273,33 @@ class Generator:
                  info_train: Optional[Dict] = None,
                  scene_indices: Optional[Sequence[int]] = None,
                  verbose: bool = True) -> None:
-        """Generate scenes [start, stop) with ``num_samples`` frames each."""
+        """Generate scenes [start, stop) with ``num_samples`` frames each.
+
+        Args:
+            scene_indices: the scenes to generate instead of [start, stop):
+                under torchrun the CLI passes this process's strided share
+                (``parallel.local_scene_range``).
+
+        ``PRGPT_PROFILE=<dir>`` (``utils/profiling.py``): the wall time of
+        ``scene_setup`` (a chunk's host set-up), ``dispatch`` (queueing a
+        sample step; the card runs it later) and ``host_write`` (waiting
+        for a step's outputs and writing them, which overlaps the next
+        step on the card), printed at the end, and a trace of the third
+        sample step, which the breakdown leaves out.
+        """
         cap = self.memory_capacity
         self._load_depth_correction()
         if not self._loaded:
             raise RuntimeError("call load() first")
+        # step 0 pays the first launches; one traced step is plenty (each
+        # is a whole DDIM chain)
+        prof = profiling.loop_profile(1, 3)
+        stage = prof.stage if prof is not None else profiling.no_stage
         if info_train is None:
             with open(self.train_info_path, "rb") as f:
                 info_train = pickle.load(f)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.seed + start_scene_index)
+        gen.manual_seed(self._generator_seed(start_scene_index))
 
         if scene_indices is None:
             scene_indices = list(range(start_scene_index, stop_scene_index))
@@ -289,8 +324,9 @@ class Generator:
             mem_valid = np.zeros((batch, cap), bool)
             fragment_clouds = [None] * batch
             fragment_poses = [None] * batch
-            self._setup_chunk(chunk, info_train, intrinsic, mem_pts,
-                              mem_valid, save_voxel_size)
+            with stage("scene_setup"):
+                self._setup_chunk(chunk, info_train, intrinsic, mem_pts,
+                                  mem_valid, save_voxel_size)
 
             mem_pts_d = torch.from_numpy(mem_pts).to(self.device)
             mem_valid_d = torch.from_numpy(mem_valid).to(self.device)
@@ -299,20 +335,28 @@ class Generator:
 
             pending = None  # (sample_idx, host outputs, event) of step k
             for sample_idx in range(num_samples):
-                outs = self.step(mem_pts_d, mem_valid_d, intr_d, param_cond,
-                                 gen, has_refine_step=has_refine_step,
-                                 memory_voxel=memory_voxel_size)
-                mem_pts_d, mem_valid_d = outs.mem_pts, outs.mem_valid
-                host = (sample_idx,) + self._to_host(outs)
+                with stage("dispatch"), profiling.annotate("generator_step"):
+                    outs = self.step(mem_pts_d, mem_valid_d, intr_d,
+                                     param_cond, gen,
+                                     has_refine_step=has_refine_step,
+                                     memory_voxel=memory_voxel_size)
+                    mem_pts_d, mem_valid_d = outs.mem_pts, outs.mem_valid
+                    host = (sample_idx,) + self._to_host(outs)
                 if pending is not None:
+                    with stage("host_write"):
+                        self._write_sample_outputs(
+                            chunk, pending, num_samples, fragment_clouds,
+                            fragment_poses, save_voxel_size, verbose)
+                pending = host
+                if prof is not None:
+                    prof.tick()
+            if pending is not None:
+                with stage("host_write"):
                     self._write_sample_outputs(
                         chunk, pending, num_samples, fragment_clouds,
                         fragment_poses, save_voxel_size, verbose)
-                pending = host
-            if pending is not None:
-                self._write_sample_outputs(
-                    chunk, pending, num_samples, fragment_clouds,
-                    fragment_poses, save_voxel_size, verbose)
+        if prof is not None:
+            print(prof.close())
 
     # ------------------------------------------------------------------
     def _setup_chunk(self, chunk, info_train, intrinsic, mem_pts, mem_valid,

@@ -18,8 +18,17 @@ PNG and PLY files. The PNGs go through PIL and the colormap tables of
 :mod:`pointreggpt_tpu_torch.core.colormaps`. The FID helpers
 (``compute_inception_features``, ``calculate_activation_statistics``,
 ``fid_score``) run the port's InceptionV3 on the same device
-(:mod:`pointreggpt_tpu_torch.eval.fid`). The multi-GPU split of the scene
-batch is not ported yet.
+(:mod:`pointreggpt_tpu_torch.eval.fid`).
+
+Under torchrun (:mod:`pointreggpt_tpu_torch.parallel.mesh`) a batch holds
+``batch_size`` scenes per process, split in contiguous blocks as
+``np.array_split`` splits them (a tail batch may leave a process idle).
+Every process makes the batch's random draws (intrinsics, x_T, the
+chain's noise, the poses) for the whole batch and keeps its rows, so N
+processes draw what one process draws; each writes its own scenes' files,
+named by global scene id, and rank 0 gathers the rows of ``overview.png``
+and writes it once. ``compute_inception_features`` splits its images the
+same way and gathers the features on rank 0.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from pointreggpt_tpu_torch.core import sampling as S
 from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
 from pointreggpt_tpu_torch.generate.generator import (load_ema_unet,
                                                       place_for_inference)
+from pointreggpt_tpu_torch.parallel import mesh as M
 
 SAVE_VOXEL = 0.025  # scene-{sid}.ply
 
@@ -75,6 +85,8 @@ class Tester:
         model: DiffusionUNet (fp32 params; baked for its compute dtype at
             :meth:`load`).
         diffusion: the sampling process (32-step DDIM, eta 1, in the CLI).
+        batch_size: scenes a batch on each process's GPU (the JAX
+            package's is per host, split over its chips).
         device: ``cuda`` unless asked otherwise (see ``resolve_device``).
     """
 
@@ -107,13 +119,18 @@ class Tester:
     # ------------------------------------------------------------------
     # FID helpers (the reference Tester's)
     def compute_inception_features(self, samples01: np.ndarray
-                                   ) -> np.ndarray:
-        """(n, h, w, 1|3) [0, 1] images -> (n, 2048) activations."""
+                                   ) -> Optional[np.ndarray]:
+        """(n, h, w, 1|3) [0, 1] images -> (n, 2048) activations. Under
+        torchrun each process computes its block of the images and rank 0
+        gets all n rows (the other processes None)."""
         from pointreggpt_tpu_torch.eval.fid import InceptionFeatures
 
         if self._inception is None:
             self._inception = InceptionFeatures(device=self.device)
-        return self._inception(np.asarray(samples01))
+        samples01 = np.asarray(samples01)
+        rows = M.rank_rows(samples01.shape[0])
+        parts = M.gather_to_main(self._inception(rows.take(samples01)))
+        return None if parts is None else np.concatenate(parts, axis=0)
 
     @staticmethod
     def calculate_activation_statistics(features: np.ndarray):
@@ -149,6 +166,13 @@ class Tester:
             intr, resize=self.image_size,
             centercrop=self.image_size).astype(np.float32)
 
+    def _batches(self, num_scenes: int):
+        """(first global scene id, this process's rows) of each batch of
+        ``batch_size`` scenes per process."""
+        per = self.batch_size * M.process_count()
+        for first in range(0, num_scenes, per):
+            yield first, M.rank_rows(min(per, num_scenes - first))
+
     @staticmethod
     def _condition(depth: torch.Tensor, mask: torch.Tensor
                    ) -> torch.Tensor:
@@ -161,11 +185,13 @@ class Tester:
              param_cond: torch.Tensor, relative_pose: torch.Tensor,
              apply_occlusion: bool,
              generator: Optional[torch.Generator] = None, *,
-             x_init: Optional[torch.Tensor] = None) -> TesterStep:
+             x_init: Optional[torch.Tensor] = None,
+             rows: Optional[M.Rows] = None) -> TesterStep:
         """One successive frame for a batch: reproject the previous frame
         ``images`` (b, h, w, 1) under ``relative_pose``, filter occlusions
         when ``apply_occlusion``, build the condition image and run the
-        chain. ``x_init`` overrides the x_T draw (tests)."""
+        chain. ``x_init`` overrides the x_T draw (tests); ``rows``: the
+        batch's rows of a global batch, whose draws the chain makes."""
         depth, mask = G.reproject(images[..., 0] * 10.0, intrinsic,
                                   relative_pose)
         if apply_occlusion:
@@ -173,24 +199,45 @@ class Tester:
         img_cond = self._condition(depth, mask)
         out = self.diffusion.sample(self._ema(), param_cond=param_cond,
                                     img_cond=img_cond, generator=generator,
-                                    x_init=x_init)
+                                    x_init=x_init, rows=rows)
         return TesterStep(depth, img_cond, out)
 
     def _sample_uncond(self, param_cond: torch.Tensor,
-                       generator: torch.Generator) -> torch.Tensor:
+                       generator: torch.Generator,
+                       rows: Optional[M.Rows] = None) -> torch.Tensor:
         return self.diffusion.sample(self._ema(), param_cond=param_cond,
-                                     generator=generator)
+                                     generator=generator, rows=rows)
+
+    def _write_overview(self, rows_here, cmap: str) -> None:
+        """Rank 0 writes every process's overview rows, in scene order."""
+        parts = M.gather_to_main(rows_here)
+        if parts is None:
+            return
+        overview_rows = [r for part in parts for r in part]
+        if overview_rows:
+            _imsave(self.samples_folder / "overview.png",
+                    np.concatenate(overview_rows, axis=0), cmap)
 
     # ------------------------------------------------------------------
-    def sample_uncondition(self, num_samples: int = 25) -> np.ndarray:
-        """An unconditional grid, ``unconditional.png``."""
+    def sample_uncondition(self, num_samples: int = 25
+                           ) -> Optional[np.ndarray]:
+        """An unconditional grid, ``unconditional.png``; returns its
+        images (under torchrun each process samples its block, and rank 0
+        writes and returns the grid; the others return None)."""
         from pointreggpt_tpu_torch.train.trainer import save_image_grid
 
         gen = self._generator()
-        intrinsic = self._random_intrinsics(gen, num_samples)
+        rows = M.rank_rows(num_samples)
+        intrinsic = rows.take(self._random_intrinsics(gen, num_samples))
         param_cond = G.param_vector(
             torch.from_numpy(intrinsic).to(self.device))
-        images = self._sample_uncond(param_cond, gen).cpu().numpy()
+        h, c = self.image_size, self.diffusion.channels
+        images = (self._sample_uncond(param_cond, gen, rows).cpu().numpy()
+                  if rows.size else np.zeros((0, h, h, c), np.float32))
+        parts = M.gather_to_main(images)
+        if parts is None:
+            return None
+        images = np.concatenate(parts, axis=0)
         save_image_grid(images, self.samples_folder / "unconditional.png",
                         nrow=int(math.isqrt(num_samples)))
         return images
@@ -199,23 +246,23 @@ class Tester:
     def sample(self, num_scenes: int, num_samples: int) -> None:
         """Successive conditional generation under a fixed forward motion."""
         gen = self._generator()
-        done = 0
-        b_idx = 0
         overview_rows = []  # one triptych strip per scene
-        while done < num_scenes:
-            batch = min(self.batch_size, num_scenes - done)
-            intrinsic = self._random_intrinsics(gen, batch)
+        for first, rows in self._batches(num_scenes):
+            batch = rows.size
+            intrinsic = rows.take(self._random_intrinsics(gen, rows.total))
+            if batch == 0:
+                continue  # an idle process in the last batch
             intr_d = torch.from_numpy(intrinsic).to(self.device)
             param_cond = G.param_vector(intr_d)
             absolute_pose = np.tile(np.eye(4, dtype=np.float32),
                                     (batch, 1, 1))
 
-            images_d = self._sample_uncond(param_cond, gen)
+            images_d = self._sample_uncond(param_cond, gen, rows)
             images = images_d.cpu().numpy()
 
             scene_rows = [[] for _ in range(batch)]
             for scene_idx in range(batch):
-                sid = b_idx * self.batch_size + scene_idx
+                sid = first + rows.start + scene_idx
                 img = images[scene_idx, ..., 0]
                 scene_rows[scene_idx].append(save_triptych(
                     self.samples_folder / f"scene-{sid}-sample-0.png",
@@ -238,14 +285,14 @@ class Tester:
 
                 out = self.step(images_d, intr_d, param_cond,
                                 torch.from_numpy(relative_pose).to(
-                                    self.device), apply_occ, gen)
+                                    self.device), apply_occ, gen, rows=rows)
                 images_rpj = out.depth_rpj.cpu().numpy() * 0.1
                 images_last = images
                 images_d = out.images
                 images = images_d.cpu().numpy()
 
                 for scene_idx in range(batch):
-                    sid = b_idx * self.batch_size + scene_idx
+                    sid = first + rows.start + scene_idx
                     scene_rows[scene_idx].append(save_triptych(
                         self.samples_folder /
                         f"scene-{sid}-sample-{sample_idx}.png",
@@ -264,12 +311,8 @@ class Tester:
 
             overview_rows += [np.concatenate(r, axis=-1)
                               for r in scene_rows]
-            done += batch
-            b_idx += 1
 
-        if overview_rows:
-            _imsave(self.samples_folder / "overview.png",
-                    np.concatenate(overview_rows, axis=0), "gray")
+        self._write_overview(overview_rows, "gray")
 
     # ------------------------------------------------------------------
     def _splat_memory(self, mem_pts, mem_valid, pose, intrinsic):
@@ -301,16 +344,18 @@ class Tester:
         """Scene-memory successive generation: each step splats the
         accumulated memory under a random FoV-bounded rotation."""
         gen = self._generator()
-        done = 0
-        b_idx = 0
         overview_rows = []  # plasma overview grid rows
-        while done < num_scenes:
-            batch = min(self.batch_size, num_scenes - done)
-            intrinsic = self._random_intrinsics(gen, batch)
-            intr_d = torch.from_numpy(intrinsic).to(self.device)
+        for first, rows in self._batches(num_scenes):
+            batch = rows.size
+            # the whole batch's intrinsics: the pose draws depend on them
+            intr_all_d = torch.from_numpy(
+                self._random_intrinsics(gen, rows.total)).to(self.device)
+            if batch == 0:
+                continue  # an idle process in the last batch
+            intr_d = rows.take(intr_all_d)
             param_cond = G.param_vector(intr_d)
 
-            images_d = self._sample_uncond(param_cond, gen)
+            images_d = self._sample_uncond(param_cond, gen, rows)
             images = images_d.cpu().numpy()
 
             mem_pts, mem_valid = G.depth_to_points(
@@ -322,7 +367,7 @@ class Tester:
 
             scene_rows = [[] for _ in range(batch)]
             for scene_idx in range(batch):
-                sid = b_idx * self.batch_size + scene_idx
+                sid = first + rows.start + scene_idx
                 img = images[scene_idx, ..., 0]
                 scene_rows[scene_idx].append(save_triptych(
                     self.samples_folder / f"scene-{sid}-sample-0.png",
@@ -330,28 +375,28 @@ class Tester:
                     cmap="plasma"))
 
             for sample_idx in range(1, num_samples):
-                pose = S.random_sample_transform(gen, intr_d,
-                                                 self.image_size)
+                pose = rows.take(S.random_sample_transform(
+                    gen, intr_all_d, self.image_size))
                 depth_rpj, img_cond = self._splat_memory(
                     mem_pts, mem_valid, pose, intr_d)
                 images_rpj = depth_rpj.cpu().numpy() * 0.1
                 images_last = images
                 images_d = self.diffusion.sample(
                     self._ema(), param_cond=param_cond, img_cond=img_cond,
-                    generator=gen)
+                    generator=gen, rows=rows)
                 images = images_d.cpu().numpy()
                 mem_pts, mem_valid, overflow = self._update_memory(
                     mem_pts, mem_valid, images_d, pose, intr_d, voxel_size,
                     memory_capacity)
                 for scene_idx, dropped in enumerate(overflow.cpu().numpy()):
                     if dropped > 0:
-                        sid = b_idx * self.batch_size + scene_idx
+                        sid = first + rows.start + scene_idx
                         print(f"WARNING: scene {sid} memory overflow: "
                               f"dropped {int(dropped)} farthest voxels "
                               f"(capacity {memory_capacity})")
 
                 for scene_idx in range(batch):
-                    sid = b_idx * self.batch_size + scene_idx
+                    sid = first + rows.start + scene_idx
                     scene_rows[scene_idx].append(save_triptych(
                         self.samples_folder /
                         f"scene-{sid}-sample-{sample_idx}.png",
@@ -367,7 +412,7 @@ class Tester:
                 save_valid.cpu().numpy()
             mem_np, memv_np = mem_pts.cpu().numpy(), mem_valid.cpu().numpy()
             for scene_idx in range(batch):
-                sid = b_idx * self.batch_size + scene_idx
+                sid = first + rows.start + scene_idx
                 plyio.write_ply(
                     self.samples_folder / f"scene-{sid}.ply",
                     save_np[scene_idx][savev_np[scene_idx]])
@@ -377,9 +422,5 @@ class Tester:
 
             overview_rows += [np.concatenate(r, axis=-1)
                               for r in scene_rows]
-            done += batch
-            b_idx += 1
 
-        if overview_rows:
-            _imsave(self.samples_folder / "overview.png",
-                    np.concatenate(overview_rows, axis=0), "plasma")
+        self._write_overview(overview_rows, "plasma")

@@ -10,7 +10,10 @@ into ``pointreggpt_tpu_torch/_build/``. The file name carries a hash of the
 sources and flags, so an edited kernel rebuilds; the library is written to a
 temporary name and moved into place with ``os.replace``, so a concurrent or
 interrupted build never leaves a torn file. :func:`build_all` starts one
-nvcc per source at once and waits for all of them.
+nvcc per source at once and waits for all of them. Under torchrun,
+``parallel.maybe_initialize_distributed`` has local rank 0 build the model
+paths' libraries while the host's other ranks wait, so a host runs one
+nvcc per source, not one per rank.
 
 Nothing here runs at import: the CPU tests import every module freely.
 """

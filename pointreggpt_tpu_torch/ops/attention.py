@@ -99,10 +99,12 @@ def _forward(q, k, v, scale: float) -> torch.Tensor:
                          "chunks and need 16-byte aligned rows, got strides "
                          f"{strides}")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    rc = _lib().prgpt_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, h, d,
-        strides[0], strides[1], float(scale), int(bf16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # the launcher reads the current device's limits: make it q's
+    with torch.cuda.device(q.device):
+        rc = _lib().prgpt_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
+            h, d, strides[0], strides[1], float(scale), int(bf16),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "multihead_attention")
     multihead_attention.launches += 1
     return out

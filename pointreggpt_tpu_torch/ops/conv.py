@@ -166,10 +166,12 @@ def _k5(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w = (w if x.dtype == torch.bfloat16 else w.permute(3, 0, 1, 2)
          ).contiguous()
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    rc = lib.prgpt_conv3x3(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h,
-                           wd, cin, cout, int(x.dtype == torch.bfloat16),
-                           _sms(x.device),
-                           torch.cuda.current_stream(x.device).cuda_stream)
+    # the launcher reads the current device's limits: make it x's
+    with torch.cuda.device(x.device):
+        rc = lib.prgpt_conv3x3(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, cin, cout,
+            int(x.dtype == torch.bfloat16), _sms(x.device),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "conv3x3")
     conv3x3.launches += 1
     return out
@@ -253,9 +255,11 @@ def conv3_igemm(x: torch.Tensor, w: torch.Tensor,
     # B = w reshaped to (9c, cout), tap-major then cin, in x.dtype
     wmat = w.reshape(9 * c, cout).to(x.dtype).contiguous()
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    rc = lib.prgpt_conv3_igemm(x.data_ptr(), wmat.data_ptr(), out.data_ptr(),
-                               b, h, wd, c, cout, rows, _sms(x.device),
-                               torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = lib.prgpt_conv3_igemm(
+            x.data_ptr(), wmat.data_ptr(), out.data_ptr(), b, h, wd, c, cout,
+            rows, _sms(x.device),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "conv3_igemm")
     conv3_igemm.launches += 1
     return out

@@ -225,11 +225,13 @@ def _forward(x, w_qkv, w_out, b_out, g_out, heads, dim_head, eps):
     scratch = torch.empty(lib.prgpt_linear_attention_scratch(b, splits),
                           dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    rc = lib.prgpt_linear_attention(
-        x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-        g_out.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, c,
-        splits, rows_per_split, float(eps), bf16,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # the launcher reads the current device's limits: make it x's
+    with torch.cuda.device(x.device):
+        rc = lib.prgpt_linear_attention(
+            x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
+            b_out.data_ptr(), g_out.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), b, n, c, splits, rows_per_split, float(eps),
+            bf16, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "fused_linear_attention")
     fused_linear_attention.launches += 1
     return out
@@ -281,13 +283,14 @@ def fused_linear_attention_bwd(x, dy, w_qkv, w_out, b_out, g_out,
     dw_qkv = torch.empty((c, 3 * HIDDEN), **f32)
     dw_out = torch.empty((HIDDEN, c), **f32)
     db_out, dg = torch.empty(c, **f32), torch.empty(c, **f32)
-    rc = lib.prgpt_linear_attention_bwd(
-        x.data_ptr(), dy.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
-        b_out.data_ptr(), g_out.data_ptr(), dx_q.data_ptr(),
-        dx_kv.data_ptr(), dw_qkv.data_ptr(), dw_out.data_ptr(),
-        db_out.data_ptr(), dg.data_ptr(), fscratch.data_ptr(),
-        tscratch.data_ptr(), b, n, c, float(eps), bf16,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        rc = lib.prgpt_linear_attention_bwd(
+            x.data_ptr(), dy.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(),
+            b_out.data_ptr(), g_out.data_ptr(), dx_q.data_ptr(),
+            dx_kv.data_ptr(), dw_qkv.data_ptr(), dw_out.data_ptr(),
+            db_out.data_ptr(), dg.data_ptr(), fscratch.data_ptr(),
+            tscratch.data_ptr(), b, n, c, float(eps), bf16,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "fused_linear_attention_bwd")
     fused_linear_attention_bwd.launches += 1
     return dx_q, dx_kv, dw_qkv, dw_out, db_out, dg
@@ -366,10 +369,11 @@ def _core_forward(qkv: torch.Tensor, heads: int, dim_head: int
     scratch = torch.empty(lib.prgpt_linear_attention_core_scratch(b, splits),
                           dtype=torch.float32, device=qkv.device)
     out = torch.empty((b, n, HIDDEN), dtype=qkv.dtype, device=qkv.device)
-    rc = lib.prgpt_linear_attention_core(
-        qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n, splits,
-        rows_per_split, bf16,
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+    with torch.cuda.device(qkv.device):
+        rc = lib.prgpt_linear_attention_core(
+            qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, n,
+            splits, rows_per_split, bf16,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(rc, "linear_attention_core")
     linear_attention_core.launches += 1
     return out

@@ -40,12 +40,14 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
-    res = chip_smoke.phase_main_path(torch, K1, K2, 0, 2)
-    out = dict(root=argv[0], card=chip_smoke.card_line(),
-               **{k: res[k] for k in ("step_device_s", "sec_per_sample_step",
-                                      "pairs_per_min")})
-    print(json.dumps(out), flush=True)
     with tempfile.TemporaryDirectory(prefix="prgpt_step_") as tmp:
+        res = chip_smoke.phase_main_path(torch, K1, K2, 0, 2,
+                                         Path(tmp) / "main")
+        out = dict(root=argv[0], card=chip_smoke.card_line(),
+                   **{k: res[k] for k in ("step_device_s",
+                                          "sec_per_sample_step",
+                                          "pairs_per_min")})
+        print(json.dumps(out), flush=True)
         folder, gt_log = chip_smoke.write_training_tree(Path(tmp), 64, 0)
         chip_smoke.phase_train_step(torch, K1, K2, folder, gt_log, Path(tmp))
     return out

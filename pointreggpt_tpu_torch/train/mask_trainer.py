@@ -1,4 +1,5 @@
-"""Depth-correction trainer and tester (MaskUNet) on one GPU.
+"""Depth-correction trainer (one GPU, or one process per GPU) and tester
+(MaskUNet).
 
 Port of ``pointreggpt_tpu/train/mask_trainer.py``: BCE epochs with
 global-norm clipping and Adam, a learning rate that falls by ``lr_gamma``
@@ -16,13 +17,18 @@ draws its batch order from ``(seed, e)``, so a resumed run sees the
 batches an uninterrupted one would (the JAX loader restarts at epoch 0's
 order).
 
-Not ported yet, and refused rather than skipped: multi-GPU data parallel
-(a ``WORLD_SIZE`` above 1).
+Under torchrun (:mod:`pointreggpt_tpu_torch.parallel.mesh`) the batch is
+``train_batch_size`` times the process count, as the JAX MaskTrainer
+scales it by its device count: each process decodes and trains on its
+``train_batch_size`` rows of every batch, and the gradients are averaged
+by one all-reduce before the clip. Each process scores its block of the
+validation pairs; the sums behind each metric are added over the
+processes and divided once. Rank 0 alone writes the log and the
+checkpoints.
 """
 
 from __future__ import annotations
 
-import os
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -37,9 +43,10 @@ from pointreggpt_tpu_torch.core import imageio16
 from pointreggpt_tpu_torch.data.datasets import (PairedDepthDataset,
                                                  PrefetchLoader, TestDataset)
 from pointreggpt_tpu_torch.models.bake import bake_inference
+from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.train import checkpoint as ckpt
-from pointreggpt_tpu_torch.train.metrics import (AverageMeter, Logger,
-                                                 mask_metrics)
+from pointreggpt_tpu_torch.train.metrics import (METRIC_NAMES, AverageMeter,
+                                                 Logger, mask_metrics)
 from pointreggpt_tpu_torch.train.trainer import clip_by_global_norm_
 
 MASK_THRESHOLD = 0.99
@@ -80,9 +87,10 @@ class MaskTrainer:
     epochs, validation batch 8.
 
     Args:
-        model: the MaskUNet (fp32 parameters); moved to ``device``.
+        model: the MaskUNet (fp32 parameters); moved to ``device`` and,
+            under torchrun, made rank 0's.
         folder: the pair root (``data/``, ``metadata/{train,val}.json``).
-        train_batch_size: images per optimizer step.
+        train_batch_size: images per optimizer step on each process.
         device: ``cuda`` unless asked otherwise (see ``resolve_device``).
     """
 
@@ -100,16 +108,15 @@ class MaskTrainer:
                  val_batch_size: int = 8,
                  seed: int = 0,
                  device=None):
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            raise NotImplementedError(
-                "multi-GPU data-parallel training is not ported yet: run "
-                "one process (WORLD_SIZE is "
-                f"{os.environ['WORLD_SIZE']})")
+        world = M.process_count()
         self.device = resolve_device(device)
         self.model = model.to(self.device, memory_format=torch.channels_last)
+        M.broadcast_module_(self.model)
         self.epochs = epochs
         self.image_size = image_size
-        self.batch_size = train_batch_size
+        # the global batch; this process's rows of it
+        self.batch_size = train_batch_size * world
+        self.rows = M.rank_rows(self.batch_size)
         self.val_batch_size = val_batch_size
         self.grad_clip = grad_clip
         self.num_workers = num_workers
@@ -131,12 +138,15 @@ class MaskTrainer:
         self.epoch = 0
         self.loss_hist: List[float] = []
         self.metrics: Dict[str, dict] = {"best": {}, "current": {}}
-        self.logger = Logger(str(self.results_folder / "train.log"))
+        main = M.is_main_process()
+        self.logger = Logger(str(self.results_folder / "train.log")
+                             if main else None, is_main=main)
 
     def _loader(self, epoch: int) -> PrefetchLoader:
         return PrefetchLoader(self.train_ds, self.batch_size, shuffle=True,
                               num_workers=self.num_workers, seed=self.seed,
-                              start_epoch=epoch)
+                              start_epoch=epoch,
+                              rows=range(self.rows.start, self.rows.stop))
 
     def lr_at(self, count: int) -> float:
         """optax's ``exponential_decay(lr, steps_per_epoch, gamma,
@@ -147,18 +157,23 @@ class MaskTrainer:
     # ------------------------------------------------------------------
     def train_step(self, input_img: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on a (b, 1, h, w) batch; returns the loss as
-        a device scalar."""
+        """One optimizer step on a (b, 1, h, w) batch (this process's
+        rows); returns the loss (over every process) as a device scalar."""
         self.model.train()
         self.opt.zero_grad(set_to_none=True)
         loss = bce_loss(self.model(input_img), mask)
         loss.backward()
-        clip_by_global_norm_([p.grad for p in self.params], self.grad_clip)
+        grads = [p.grad for p in self.params]
+        loss = loss.detach().reshape(1)
+        # before the clip, which sees the global gradient; the loss rides
+        # in the same all-reduce
+        M.all_reduce_mean_(grads + [loss])
+        clip_by_global_norm_(grads, self.grad_clip)
         for group in self.opt.param_groups:
             group["lr"] = self.lr_at(self.count)
         self.opt.step()
         self.count += 1
-        return loss.detach()
+        return loss[0]
 
     def train_one_epoch(self) -> float:
         meter = AverageMeter()
@@ -182,11 +197,16 @@ class MaskTrainer:
         """Per-item metrics over the validation pairs, averaged per item.
         The ragged last batch is padded to ``val_batch_size`` (one shape
         for every forward), and the padding is dropped before the meters
-        see it."""
+        see it. Under torchrun each process scores its contiguous block of
+        the pairs, and the meters' sums and counts are added over the
+        processes."""
         self.model.eval()
         vb = self.val_batch_size
+        val = self.val_ds
+        block = M.rank_rows(len(val))
+        val = Subset(val, range(block.start, block.stop))
         outs = []
-        for batch in PrefetchLoader(self.val_ds, vb, shuffle=False,
+        for batch in PrefetchLoader(val, vb, shuffle=False,
                                     drop_last=False, num_workers=1):
             n_real = next(iter(batch.values())).shape[0]
             if n_real < vb:
@@ -204,6 +224,8 @@ class MaskTrainer:
             meters[k] = AverageMeter()
             for row, (_, n_real) in zip(stacked, outs):
                 meters[k].update(float(row[:n_real].mean()), num=n_real)
+        if M.in_process_group():
+            meters = _meters_over_processes(meters)
         self.metrics["current"] = meters
         if meters:
             self.logger.info(
@@ -231,12 +253,15 @@ class MaskTrainer:
             if self.better_than_best_metrics():
                 self.save("best")
             self.save("latest")
+            M.barrier()  # the epoch's checkpoints are on disk
 
     # ------------------------------------------------------------------
     def save(self, milestone: str) -> None:
         """``model-{milestone}.pt`` as ``{epoch, model, opt, loss_hist,
         best_metrics}``; ``model`` holds the reference MaskUnet names,
-        which ``Generator`` reads."""
+        which ``Generator`` reads. Written by rank 0 alone."""
+        if not M.is_main_process():
+            return
         ckpt.save_checkpoint(
             self.results_folder / f"model-{milestone}.pt",
             {"epoch": self.epoch,
@@ -248,15 +273,46 @@ class MaskTrainer:
 
     def load(self, milestone: str) -> None:
         """Restore a milestone: weights, Adam state and the schedule's
-        count; training goes on at the epoch after the saved one."""
+        count; training goes on at the epoch after the saved one. Every
+        process reads the file; rank 0's weights are then broadcast."""
         data = ckpt.load_checkpoint(
             self.results_folder / f"model-{milestone}.pt")
         self.model.load_state_dict(data["model"])
+        M.broadcast_module_(self.model)
         self.opt.load_state_dict(data["opt"])
         self.count = adam_count(self.opt)
         self.epoch = int(data["epoch"]) + 1
         self.loss_hist = list(data.get("loss_hist", []))
         self.metrics["best"] = dict(data.get("best_metrics", {}))
+
+
+class Subset:
+    """Items ``indices`` of a dataset with ``getitem_at_epoch``."""
+
+    def __init__(self, dataset, indices: Sequence[int]):
+        self.dataset, self.indices = dataset, list(indices)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def getitem_at_epoch(self, index: int, epoch: int):
+        return self.dataset.getitem_at_epoch(self.indices[index], epoch)
+
+
+def _meters_over_processes(meters: Dict[str, AverageMeter]
+                           ) -> Dict[str, AverageMeter]:
+    """Each metric's sum and count added over the processes (a process
+    with no pairs adds zeros), then divided once."""
+    local = np.array([[meters[k].sum, meters[k].count] if k in meters
+                      else [0.0, 0.0] for k in METRIC_NAMES])
+    totals = M.all_reduce_sum_host(local)
+    out = {}
+    for k, (total, count) in zip(METRIC_NAMES, totals):
+        if count > 0:
+            m = out[k] = AverageMeter()
+            m.sum, m.count = float(total), int(count)
+            m.val = m.avg = m.sum / m.count
+    return out
 
 
 def adam_count(opt: torch.optim.Optimizer) -> int:

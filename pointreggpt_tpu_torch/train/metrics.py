@@ -70,6 +70,10 @@ class AverageMeter:
         return float(self.avg)
 
 
+# the keys of mask_metrics, in its order
+METRIC_NAMES = ("MSE", "MAE", "SAE", "mIoU", "PAcc", "FP")
+
+
 def mask_metrics(input_img: torch.Tensor, label_img: torch.Tensor,
                  label_mask: torch.Tensor, output_prob: torch.Tensor, *,
                  mask_threshold: float = 0.99) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""Diffusion trainer on one GPU.
+"""Data-parallel diffusion trainer: one GPU, or one process per GPU.
 
 Port of ``pointreggpt_tpu/train/trainer.py``: gradient accumulation over
 microbatches, global-norm clipping, Adam, an EMA tick, and at every
@@ -10,14 +10,18 @@ step: the step counter lives on the host, losses stay on the device until
 a log line reads them, and batches go up from pinned memory without
 blocking.
 
-Not ported yet, and refused rather than skipped: multi-GPU data parallel
-(a ``WORLD_SIZE`` above 1).
+Under torchrun (:mod:`pointreggpt_tpu_torch.parallel.mesh`) the global
+microbatch divides over the processes: each decodes its block of every
+microbatch, draws the global t and noise and keeps its rows, and the
+gradients (with the loss) are averaged by one all-reduce before the clip.
+Rank 0 alone writes logs, sample grids, FID lines and checkpoints; the
+others send it their rows of the last batch (FID's real set is the whole
+global batch) and wait for it at a barrier.
 """
 
 from __future__ import annotations
 
 import math
-import os
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -33,9 +37,11 @@ from pointreggpt_tpu_torch.core import imageio16
 from pointreggpt_tpu_torch.core import sampling as S
 from pointreggpt_tpu_torch.data.datasets import DepthDataset, PrefetchLoader
 from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
+from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.train.ema import EMA
 from pointreggpt_tpu_torch.train.metrics import Logger
+from pointreggpt_tpu_torch.utils import profiling
 
 VERSION = "pointreggpt-tpu-torch"
 
@@ -76,10 +82,13 @@ class Trainer:
     every 1000 steps.
 
     Args:
-        model: the DiffusionUNet (fp32 parameters); moved to ``device``.
+        model: the DiffusionUNet (fp32 parameters); moved to ``device``
+            and, under torchrun, made rank 0's.
         diffusion: the GaussianDiffusion process.
         folder: 3DMatch-RGBD train root, with the frames ``gt_log`` lists.
-        train_batch_size: images per microbatch.
+        train_batch_size: images per microbatch over all processes (the
+            global microbatch, as in the JAX package); the process count
+            must divide it.
         device: ``cuda`` unless asked otherwise (see ``resolve_device``).
     """
 
@@ -105,11 +114,14 @@ class Trainer:
                  track_losses: bool = False,
                  seed: int = 0,
                  device=None):
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            raise NotImplementedError(
-                "multi-GPU data-parallel training is not ported yet: run "
-                "one process (WORLD_SIZE is "
-                f"{os.environ['WORLD_SIZE']})")
+        world = M.process_count()
+        if train_batch_size % world != 0:
+            raise ValueError(
+                f"global batch {train_batch_size} must divide over "
+                f"{world} processes")
+        # this process's rows of each global microbatch (all of them with
+        # no process group)
+        self.rows = M.rank_rows(train_batch_size)
         self.device = resolve_device(device)
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.diffusion = diffusion
@@ -126,16 +138,16 @@ class Trainer:
         self.results_folder.mkdir(parents=True, exist_ok=True)
         self.samples_folder.mkdir(parents=True, exist_ok=True)
         self.seed = seed
-        self.logger = Logger()
+        self.logger = Logger(is_main=M.is_main_process())
         # losses stay on the device inside the loop and come to the host
         # once, when train() returns (off in production: 2M steps)
         self.track_losses = track_losses
         self.loss_hist: List[float] = []
         # FID (off by default, as in the reference): the extractor is
-        # built once; the last batch's images are the real set
+        # built once; the last global batch's images are the real set
         self.calculate_fid = calculate_fid
         self._fid_extractor = None
-        if calculate_fid:
+        if calculate_fid and M.is_main_process():
             from pointreggpt_tpu_torch.eval.fid import InceptionFeatures
 
             self._fid_extractor = InceptionFeatures(device=self.device)
@@ -155,13 +167,24 @@ class Trainer:
         # under ema_model.model.
         self.ema = EMA(nn.ModuleDict({"model": self.model}), beta=ema_decay,
                        update_every=ema_update_every)
+        # rank 0's weights and EMA on every process (the EMA holds both)
+        M.broadcast_module_(self.ema)
         self.step = 0
 
+    @property
+    def local_batch(self) -> int:
+        """This process's rows of each microbatch."""
+        return self.rows.size
+
     def _loader(self, start_epoch: int):
+        # the process's block of each of the accum microbatches
+        rows = [i * self.batch_size + r
+                for i in range(self.gradient_accumulate_every)
+                for r in range(self.rows.start, self.rows.stop)]
         return iter(PrefetchLoader(
             self.ds, self.batch_size * self.gradient_accumulate_every,
             shuffle=True, infinite=True, num_workers=self.num_workers,
-            seed=self.seed, start_epoch=start_epoch))
+            seed=self.seed, start_epoch=start_epoch, rows=rows))
 
     def _generator_seed(self) -> int:
         """The seed of the (t, noise) stream from ``self.step`` on: a
@@ -174,9 +197,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _upload(self, batch: Dict[str, np.ndarray]):
-        """(accum, B, h, w, 1) images and (accum, B, 3, 3) intrinsics on
-        the device; from pinned memory without a host wait on the card."""
-        a, b = self.gradient_accumulate_every, self.batch_size
+        """(accum, b, h, w, 1) images and (accum, b, 3, 3) intrinsics on
+        the device, b this process's rows; from pinned memory without a
+        host wait on the card."""
+        a, b = self.gradient_accumulate_every, self.local_batch
         out = []
         for key in ("img", "intrinsic"):
             t = torch.from_numpy(batch[key])
@@ -188,16 +212,19 @@ class Trainer:
     def train_step(self, img: torch.Tensor, intrinsic: torch.Tensor,
                    generator: torch.Generator) -> torch.Tensor:
         """One optimizer step over ``accum`` microbatches; returns the mean
-        microbatch loss as a device scalar."""
+        microbatch loss (over every process) as a device scalar."""
         self.model.train()
         self.opt.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=self.device)
         for i in range(self.gradient_accumulate_every):
-            loss = self.diffusion.training_loss(self.model, img[i],
-                                                intrinsic[i], generator)
+            loss = self.diffusion.training_loss(
+                self.model, img[i], intrinsic[i], generator, rows=self.rows)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         grads = [p.grad for p in self.params]
+        # where JAX's psum sits: before the clip, which sees the global
+        # gradient; the loss rides in the same all-reduce
+        M.all_reduce_mean_(grads + [loss_sum.reshape(1)])
         torch._foreach_div_(grads, float(self.gradient_accumulate_every))
         clip_by_global_norm_(grads, self.grad_clip)
         self.opt.step()
@@ -205,37 +232,83 @@ class Trainer:
         return loss_sum / self.gradient_accumulate_every
 
     def train(self, *, log_every: int = 50) -> None:
-        """Run the loop to ``train_num_steps``."""
+        """Run the loop to ``train_num_steps``.
+
+        ``PRGPT_PROFILE=<dir>`` (``utils/profiling.py``): the wall time of
+        the stages ``load_batch`` (waiting for the decoded batch),
+        ``dispatch`` (upload and queueing of the step; the card runs it
+        later), ``loss_sync`` (the log line's read of the loss) and
+        ``save_and_sample``, printed at the end, and a trace of steps 3-4,
+        whose steps the breakdown leaves out.
+        """
+        prof = profiling.loop_profile(2, 5)
+        stage = prof.stage if prof is not None else profiling.no_stage
         generator = torch.Generator(device=self.device).manual_seed(
             self._generator_seed())
         device_losses = []
         t0 = time.time()
         while self.step < self.train_num_steps:
-            batch = next(self.dl)
+            with stage("load_batch"):
+                batch = next(self.dl)
             if self.calculate_fid:
                 self._last_batch = batch
-            img, intrinsic = self._upload(batch)
-            loss = self.train_step(img, intrinsic, generator)
+            with stage("dispatch"), profiling.annotate("train_step"):
+                img, intrinsic = self._upload(batch)
+                loss = self.train_step(img, intrinsic, generator)
             if self.track_losses:
                 device_losses.append(loss)
             self.step += 1
             if self.step % log_every == 0:
+                with stage("loss_sync"):
+                    loss_v = loss.item()
+                # the global batch: every process's rows
                 rate = log_every * self.batch_size * \
                     self.gradient_accumulate_every / (time.time() - t0)
                 self.logger.info(
                     f"step {self.step}/{self.train_num_steps} "
-                    f"loss {loss.item():.4f} ({rate:.1f} img/s)")
+                    f"loss {loss_v:.4f} ({rate:.1f} img/s)")
                 t0 = time.time()
             if self.step % self.save_and_sample_every == 0:
-                self._save_and_sample(self.step)
+                with stage("save_and_sample"):
+                    self._save_and_sample(self.step)
                 # the milestone's sampling would deflate the next rate
                 t0 = time.time()
+            if prof is not None:
+                prof.tick()
         if device_losses:
             self.loss_hist.extend(torch.stack(device_losses).tolist())
+        if prof is not None:
+            self.logger.info(prof.close())
         self.logger.info("training complete")
 
     # ------------------------------------------------------------------
     def _save_and_sample(self, step: int) -> None:
+        """Rank 0 samples the EMA grid and writes it, the FID line and the
+        checkpoint; the other processes send it their rows of the last
+        batch (FID's real set) and wait at a barrier, which keeps the
+        milestones in step."""
+        real = None
+        if self.calculate_fid and self.sample_on_save and \
+                self._last_batch is not None:
+            real = self._global_images(self._last_batch["img"])
+        if M.is_main_process():
+            self._save_and_sample_main(step, real)
+        M.barrier()
+
+    def _global_images(self, img: np.ndarray) -> Optional[np.ndarray]:
+        """The whole global batch of ``img`` (every process's rows of each
+        microbatch, in the order one process decodes them) on rank 0;
+        None on the other processes."""
+        parts = M.gather_to_main(img)
+        if parts is None:
+            return None
+        a = self.gradient_accumulate_every
+        return np.concatenate(
+            [p.reshape((a, -1) + p.shape[1:]) for p in parts],
+            axis=1).reshape((-1,) + img.shape[1:])
+
+    def _save_and_sample_main(self, step: int,
+                              real: Optional[np.ndarray]) -> None:
         milestone = step // self.save_and_sample_every
         if self.sample_on_save:
             images = self.sample_ema(self.num_samples,
@@ -243,12 +316,10 @@ class Trainer:
             save_image_grid(images,
                             self.results_folder / f"sample-{milestone}.png",
                             nrow=int(math.isqrt(self.num_samples)))
-            if self._fid_extractor is not None and \
-                    self._last_batch is not None:
+            if real is not None:
                 from pointreggpt_tpu_torch.eval.fid import fid_score
 
-                score = fid_score(self._last_batch["img"], images,
-                                  self._fid_extractor)
+                score = fid_score(real, images, self._fid_extractor)
                 self.logger.info(f"fid_score: {score}")
         # milestone floored to hundreds, like the reference
         self.save(milestone // 100 * 100)
@@ -272,7 +343,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def save(self, milestone) -> None:
         """``model-{milestone}.pt`` as ``{step, model, opt, ema,
-        version}``, the reference layout."""
+        version}``, the reference layout; written by rank 0 alone."""
+        if not M.is_main_process():
+            return
         ckpt.save_checkpoint(
             self.results_folder / f"model-{milestone}.pt",
             {"step": self.step,
@@ -284,13 +357,15 @@ class Trainer:
 
     def load(self, milestone) -> None:
         """Restore a milestone: weights, Adam and EMA state, and the step;
-        the loader restarts at the epoch that step had reached."""
+        the loader restarts at the epoch that step had reached. Every
+        process reads the file; rank 0's weights are then broadcast."""
         data = ckpt.load_checkpoint(
             self.results_folder / f"model-{milestone}.pt")
         self.model.load_state_dict(
             {k[len("model."):]: v for k, v in data["model"].items()})
         self.opt.load_state_dict(data["opt"])
         self.ema.load_state_dict(data["ema"])
+        M.broadcast_module_(self.ema)
         self.step = int(data["step"])
         global_batch = self.batch_size * self.gradient_accumulate_every
         self.dl = self._loader(

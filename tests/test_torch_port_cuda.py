@@ -1249,3 +1249,80 @@ def test_imported_checkpoint_drives_a_generator_step_on_the_card(
     assert [res["k1_launches"], res["k3_launches"], res["k2_launches"]] == \
         res["want_launches"], res
     assert not any(res["plain_routes"].values()), res
+
+
+# ---------------------------------------------------------------------------
+# more than one process (``chip_smoke.py``'s ``dist_path`` and
+# ``profile_path`` at dim 8, 32^2, fp32)
+
+def _small_trainer_run(root: str, results: str) -> dict:
+    """Two Trainer steps at a global microbatch of 4 with cuDNN's
+    deterministic algorithms; the replica digest and the device."""
+    from pathlib import Path
+
+    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = DR.build_trainer(str(Path(root) / "rgbd"),
+                          str(Path(root) / "gt.log"), results,
+                          full_width=False, global_batch=4, steps=2)
+    tr.train(log_every=10**9)
+    return dict(digest=DR.digest(tr.ema), device=str(tr.device))
+
+
+def _group_of_one_rank(root: str) -> dict:
+    import torch.distributed as dist
+
+    return dict(backend=str(dist.get_backend()),
+                **_small_trainer_run(root, root + "/results-ws1"))
+
+
+def test_trainer_in_a_group_of_one_over_nccl_is_bit_identical(
+        cuda, tmp_path, monkeypatch):
+    """``dist_path`` (a): one process in a group of one over NCCL trains
+    bit for bit as with no group (the all-reduce of one and the division
+    by 1 are exact)."""
+    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
+
+    for flag in ("deterministic", "benchmark", "allow_tf32"):
+        monkeypatch.setattr(torch.backends.cudnn, flag,
+                            getattr(torch.backends.cudnn, flag))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    DR.write_depth_tree(tmp_path, n_frames=8)
+    one = _small_trainer_run(str(tmp_path), str(tmp_path / "results-one"))
+    (ws1,) = DR.launch(_group_of_one_rank, 1, args=(str(tmp_path),),
+                       timeout_s=300, threads=None)
+    assert "nccl" in ws1["backend"]
+    assert ws1["device"] == "cuda:0"
+    assert ws1["digest"] == one["digest"]
+
+
+def test_two_processes_share_the_card_over_gloo(cuda):
+    """``dist_path`` (b)'s dry run: two processes on ``cuda:0`` over gloo,
+    replicas identical, scenes by stride, rank 0's checkpoint alone."""
+    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
+
+    out = DR.dryrun(2, local_ranks=[0, 0], backend="gloo", timeout_s=300)
+    assert out["devices"] == ["cuda:0", "cuda:0"]
+
+
+def test_profiled_trainer_traces_device_kernels(cuda, tmp_path,
+                                                monkeypatch):
+    """``profile_path``: ``PRGPT_PROFILE`` on the card writes a trace that
+    holds the step's kernels."""
+    import json
+
+    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
+
+    folder, gt_log = DR.write_depth_tree(tmp_path, n_frames=4)
+    monkeypatch.setenv("PRGPT_PROFILE", str(tmp_path / "prof"))
+    tr = DR.build_trainer(folder, gt_log, str(tmp_path / "r"),
+                          full_width=False, global_batch=2, steps=6)
+    tr.sample_on_save = False
+    tr.train(log_every=1)
+    (trace,) = (tmp_path / "prof").rglob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
