@@ -161,7 +161,26 @@ Phases, each printing one JSON line:
    production widths) print the JAX stage names
    and write Chrome traces holding device kernels; one MaskTrainer step
    under ``profiling.trace``, its device time by kernel category beside
-   ``mask_fwd_bwd``'s.
+   ``mask_fwd_bwd``'s;
+23. ``surface_path``: the rest of the JAX surface at full width: (a)
+   ``GaussianDiffusion.denoise`` (250 DDIM steps, eta 1, DDNM on, batch
+   2, the bf16 DiffusionUNet of seeded weights) on ``image_condition`` of
+   a synthetic depth under two ``random_sample_pose`` motions, every
+   masked pixel equal to the condition, 2,000 K1 and 250 K2; (b)
+   ``interpolate`` of its outputs from t = 999 (7,992 K1, 999 K2); (c)
+   the four cases of ``tests/data/torch_port_jax_surface.npz`` (a 10-step
+   denoise, a 10-step fp32 interpolation on the JAX draws, an fp32
+   Fourier / learned-variance forward, ``image_condition``) gated as
+   ``jax_parity``, the interpolation's weights swapped as a planted fault
+   at least 5 times its gate; (d) ``Generator.load`` on a folder of the
+   committed JAX ``.ckpt`` files, its step bit for bit the step from the
+   importer's ``.pt``; (e) ``mixture.load_point_cloud`` on ascii,
+   extra-property and face-trailing PLYs; (f) the native host library
+   (g++, zlib found or not): ``load_depth_model_space`` native against
+   PIL bit for bit on 640x480 and 480x640 PNGs, flip on and off, and
+   frames a second of both routes; (g) the gradients of a dim-64 fp32
+   Fourier / learned-variance net (learned and frozen frequencies, 8 K1,
+   8 K3, 1 K2 each) card vs CPU within 2e-3; each chain's seconds.
 
 A ``phase_seconds`` line gives each phase's wall seconds and the total
 from the build on. The last three lines are the kernel table (one JSON
@@ -3175,6 +3194,406 @@ def phase_profile_path(torch, tmp: Path, fwd_bwd: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# surface_path: the rest of the JAX package's surface
+
+SURFACE_REFERENCE = REPO / "tests" / "data" / "torch_port_jax_surface.npz"
+SURFACE_BATCH = 2
+SURFACE_INTERP_T = 999  # interpolate from the top of the chain
+SURFACE_FRAMES = 48  # PNGs decoded per route for the frame rate
+
+
+def surface_parity_report(torch, K1, K2, cases=None) -> dict:
+    """The port's outputs of ``jax_surface``'s cases on the card (the bf16
+    denoise chain, the fp32 interpolation, the fp32 Fourier /
+    learned-variance forward, ``image_condition``) against the JAX
+    package's (``SURFACE_REFERENCE``), gated as ``jax_parity`` gates
+    (``GATE_FACTOR`` x (CPU gap + the kernels' gap to their plain
+    versions on the card); the condition's share of differing pixels at
+    ``KEEP_SHARE``), the launches of the counted run, and a planted fault:
+    the interpolation's weights swapped (lambda -> 1 - lambda)."""
+    from pointreggpt_tpu_torch.utils import jax_surface as JS
+
+    cases = JS.CASES if cases is None else cases
+    ref = dict(np.load(SURFACE_REFERENCE))
+    nets = JS.nets()
+    reset_counts(K1, K2)
+    t0 = time.perf_counter()
+    card = JS.run_port("cuda", ref, cases=cases, nets_=nets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    with plain_attention(K1, K2):
+        plain = JS.run_port("cuda", ref, cases=cases, nets_=nets)
+    card_gap, kernel_gap = JS.gaps(card, ref), JS.gaps(card, plain)
+    cpu_gap = {k: float(ref[f"cpu_gap_{k}"]) for k in card_gap}
+    gate = {k: GATE_FACTOR * (cpu_gap[k] + kernel_gap[k])
+            for k in card_gap}
+    if "condition" in gate:
+        gate["condition"] = KEEP_SHARE
+    fault = None
+    if "interpolate" in cases:
+        fault = JS.gaps(JS.run_port("cuda", ref, cases=("interpolate",),
+                                    nets_=nets, lam=1 - JS.INTERP_LAM),
+                        ref)["interpolate"]
+    forwards = {"condition": 0, "denoise": JS.DENOISE_STEPS,
+                "interpolate": JS.INTERP_T, "fourier": 1}
+    n_fwd = sum(forwards[c] for c in cases)
+    return dict(cases=list(cases), seconds=seconds, card_gap=card_gap,
+                cpu_gap=cpu_gap, kernel_gap=kernel_gap,
+                plain_gap=JS.gaps(plain, ref), gate=gate,
+                failed={k: v for k, v in card_gap.items()
+                        if not v <= gate[k]},
+                fault_gap=fault,
+                fault_over_gate=(fault / gate["interpolate"]
+                                 if fault is not None else None),
+                launches={"k1": k1_n, "k3": k3_n, "k2": k2_n},
+                want_launches={"k1": 8 * n_fwd, "k3": 0, "k2": n_fwd},
+                plain_routes=routes)
+
+
+def surface_chains(torch, K1, K2, seed: int) -> dict:
+    """(a) ``denoise`` at the production configuration (250 DDIM steps,
+    eta 1, DDNM on; the bf16 DiffusionUNet of seeded weights) at batch 2
+    on the condition ``image_condition`` makes of a synthetic depth under
+    two ``random_sample_pose`` motions: every masked pixel equals the
+    condition; (b) ``interpolate`` of its two outputs from t = 999. Each
+    with its seconds and its launches, counted from 0 just before."""
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.core import geometry as G
+    from pointreggpt_tpu_torch.core import sampling as S
+    from pointreggpt_tpu_torch.generate.generator import place_for_inference
+    from pointreggpt_tpu_torch.utils import jax_parity as J
+    from pointreggpt_tpu_torch.utils import jax_surface as JS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = JS.inputs(seed)
+    intr = torch.from_numpy(J._intrinsics(SURFACE_BATCH)).to(dev)
+    pose = S.random_sample_pose(gen, SURFACE_BATCH, device=dev)
+    cond = G.image_condition(torch.from_numpy(x["depth01"]).to(dev), intr,
+                             pose)
+    pc = G.param_vector(intr)
+    net = place_for_inference(J.nets(seed)[0], dev)
+    diffusion = C.build_diffusion(C.DiffusionConfig(ddim_sampling_eta=1.0),
+                                  net)
+    res = {}
+    reset_counts(K1, K2)
+    t0 = time.perf_counter()
+    out = diffusion.denoise(net, param_cond=pc, img_cond=cond,
+                            generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    mask = G.mask_from_image_condition(cond)
+    pinned = G.unnormalize_to_zero_to_one(cond[..., 0])
+    res["denoise"] = dict(
+        seconds=seconds, steps=diffusion.sampling_timesteps,
+        launches=[k1_n, k3_n, k2_n], plain_routes=routes,
+        want_launches=[8 * diffusion.sampling_timesteps, 0,
+                       diffusion.sampling_timesteps],
+        finite=bool(torch.isfinite(out).all()),
+        shape=list(out.shape), mask_share=float(mask.float().mean()),
+        masked_unequal=int((out[..., 0][mask] != pinned[mask]).sum()))
+    x0 = G.normalize_to_neg_one_to_one(out)
+    reset_counts(K1, K2)
+    t0 = time.perf_counter()
+    mid = diffusion.interpolate(net, x0, x0.flip(0), pc,
+                                t=SURFACE_INTERP_T, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    res["interpolate"] = dict(
+        seconds=seconds, t=SURFACE_INTERP_T, launches=[k1_n, k3_n, k2_n],
+        plain_routes=routes,
+        want_launches=[8 * SURFACE_INTERP_T, 0, SURFACE_INTERP_T],
+        finite=bool(torch.isfinite(mid).all()), shape=list(mid.shape))
+    return res
+
+
+SURFACE_GRAD_OPTIONS = {
+    "learned": dict(learned_sinusoidal_cond=True, learned_variance=True),
+    "frozen": dict(random_fourier_features=True, learned_variance=True)}
+
+
+def surface_fourier_grads(torch, K1, K2) -> dict:
+    """(g) The gradients of a dim-64 fp32 DiffusionUNet with the Fourier
+    time embedding (learned and frozen frequencies) and the
+    learned-variance head, at 64^2, batch 2, of a fixed weighted sum of
+    its two output channels: on the card (K1, K3, K2) against the CPU
+    (plain versions), per parameter within ``GRAD_RTOL``; the frozen
+    frequencies get no gradient on either side, the learned ones one.
+    The launches are those of the card's forwards and backwards."""
+    import copy
+
+    from pointreggpt_tpu_torch.models import DiffusionUNet
+
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.normal(size=(2, 1, 64, 64)), dtype=torch.float32)
+    t = torch.tensor([40.0, 730.0])
+    pc = torch.tensor(rng.uniform(100, 600, (2, 4)), dtype=torch.float32)
+    w = torch.tensor(rng.normal(size=(2, 2, 64, 64)), dtype=torch.float32)
+    dev = torch.device("cuda")
+    res, launched = {}, [0, 0, 0]
+    for name, kw in SURFACE_GRAD_OPTIONS.items():
+        torch.manual_seed(0)
+        net = DiffusionUNet(dim=64, **kw).to(
+            memory_format=torch.channels_last)
+        let_cores_count(torch, net, x, t, pc)
+        gpu_net = copy.deepcopy(net).to(dev,
+                                        memory_format=torch.channels_last)
+        (net(x, t, pc) * w).sum().backward()
+        reset_counts(K1, K2)
+        (gpu_net(x.to(dev), t.to(dev), pc.to(dev)) * w.to(dev)).sum() \
+            .backward()
+        torch.cuda.synchronize()
+        k1_n, k3_n, k2_n, routes = counts(K1, K2)
+        check_no_routes(f"surface_path grads {name}", routes)
+        launched = [a + b for a, b in zip(launched, (k1_n, k3_n, k2_n))]
+        worst, worst_name = 0.0, ""
+        for (pname, p), q in zip(net.named_parameters(),
+                                 gpu_net.parameters()):
+            if not p.requires_grad:
+                if p.grad is not None or q.grad is not None:
+                    raise AssertionError(f"surface_path: frozen {pname} "
+                                         "has a gradient")
+                continue
+            err = ((q.grad.cpu() - p.grad).abs().max() /
+                   p.grad.abs().max().clamp_min(1e-30)).item()
+            if not np.isfinite(err):
+                raise AssertionError(f"surface_path: gradient of {pname} "
+                                     "not finite")
+            if err > worst:
+                worst, worst_name = err, pname
+        weights = net.time_mlp[0].weights
+        res[name] = dict(max_rel_err=worst, worst=worst_name,
+                         frequencies_grad=(None if weights.grad is None else
+                                           weights.grad.abs().max().item()),
+                         launches=[k1_n, k3_n, k2_n])
+    return dict(res, rtol=GRAD_RTOL, launches=launched,
+                want_launches=[8 * len(SURFACE_GRAD_OPTIONS),
+                               8 * len(SURFACE_GRAD_OPTIONS),
+                               len(SURFACE_GRAD_OPTIONS)],
+                plain_routes={"k1": 0, "k3": 0})
+
+
+def surface_ckpt_report(torch, K1, K2, tmp: Path) -> dict:
+    """(d) A results folder holding only the committed JAX ``.ckpt``
+    files (``results/model-7.ckpt``, ``dc/model-best.ckpt``):
+    ``Generator.load`` and its depth-correction loader fill the nets, and
+    one ``Generator.step`` (``jax_parity``'s step case) from them equals
+    bit for bit the step from the nets the importer's ``.pt`` files fill.
+    The launches are those of the ``.ckpt`` run."""
+    import shutil
+
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.cli import import_torch_checkpoint
+    from pointreggpt_tpu_torch.generate import Generator
+    from pointreggpt_tpu_torch.utils import jax_parity as J
+
+    data = REPO / "tests" / "data"
+    jax_dir, pt_dir = tmp / "jax", tmp / "pt"
+    (jax_dir / "results").mkdir(parents=True)
+    (jax_dir / "dc").mkdir()
+    shutil.copy(data / "torch_port_jax_diffusion.ckpt",
+                jax_dir / "results" / "model-7.ckpt")
+    shutil.copy(data / "torch_port_jax_mask.ckpt",
+                jax_dir / "dc" / "model-best.ckpt")
+    import_torch_checkpoint.main([
+        "--diffusion", str(jax_dir / "results" / "model-7.ckpt"),
+        "--depth_correction", str(jax_dir / "dc" / "model-best.ckpt"),
+        "--diffusion_out", str(pt_dir / "results"),
+        "--dc_out", str(pt_dir / "dc"), *J.SMALL_FLAGS])
+
+    def loaded(folder):
+        gen = Generator(C.build_diffusion_unet(J.SMALL_MODEL),
+                        C.build_diffusion(C.DiffusionConfig()), str(folder),
+                        batch_size=1, results_folder=str(folder / "results"),
+                        samples_folder=str(folder / "samples"),
+                        depth_correction_model=C.build_mask_unet(
+                            J.SMALL_MASK),
+                        depth_correction_results=str(folder / "dc"),
+                        device="cuda")
+        gen.load(7)
+        gen._load_depth_correction()
+        return gen.model, None, gen.depth_correction_model
+
+    files = sorted(p.name for p in jax_dir.rglob("*") if p.is_file())
+    reset_counts(K1, K2)
+    got = J.run_port("cuda", cases=("step",), nets_=loaded(jax_dir),
+                     tmp_dir=str(tmp))
+    k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    want = J.run_port("cuda", cases=("step",), nets_=loaded(pt_dir),
+                      tmp_dir=str(tmp))
+    # 10 DDIM forwards and 2 MaskUNet forwards, each with one K1 a
+    # LinearAttention block (2 a stage: 4 at dim_mults (1, 1)) and one K2
+    forwards = J.STEP_SAMPLING_TIMESTEPS + 2
+    per_forward = 2 * len(J.SMALL_MODEL.dim_mults)
+    return dict(files=files,
+                differ=sorted(k for k in want
+                              if not np.array_equal(got[k], want[k])),
+                launches=[k1_n, k3_n, k2_n], plain_routes=routes,
+                want_launches=[per_forward * forwards, 0, forwards])
+
+
+def surface_ply_report(tmp: Path) -> dict:
+    """(e) ``mixture.load_point_cloud`` on PLY files the port's writer
+    does not make (ascii with normals and colours, binary with uchar
+    colours, ascii and binary with a trailing face element): the x/y/z
+    written, exactly."""
+    from pointreggpt_tpu_torch.dataloaders import mixture
+
+    rng = np.random.default_rng(0)
+    xyz = np.round(rng.uniform(-2, 2, (64, 3)), 4)
+    extra = rng.integers(0, 255, (64, 3))
+    tmp.mkdir(parents=True)
+    out = {}
+    for name, fmt, props, faces in (
+            ("ascii_normals_colours", "ascii",
+             ["float nx", "float ny", "float nz", "uchar red",
+              "uchar green", "uchar blue"], 0),
+            ("binary_colours", "binary_little_endian",
+             ["uchar red", "uchar green", "uchar blue"], 0),
+            ("ascii_faces", "ascii", [], 2),
+            ("binary_faces", "binary_little_endian", ["float nx"], 2)):
+        head = ["ply", f"format {fmt} 1.0", "element vertex 64",
+                "property float x", "property float y", "property float z",
+                *[f"property {p}" for p in props]]
+        if faces:
+            head += [f"element face {faces}",
+                     "property list uchar int vertex_indices"]
+        data = ("\n".join(head + ["end_header"]) + "\n").encode()
+        cols = [xyz[:, i] for i in range(3)]
+        cols += [extra[:, i % 3] for i in range(len(props))]
+        if fmt == "ascii":
+            lines = [" ".join(str(c[i]) for c in cols) for i in range(64)]
+            data += ("\n".join(lines + ["3 0 1 2"] * faces) + "\n").encode()
+            want = xyz
+        else:
+            dt = np.dtype([(f"c{i}", "<f4" if i < 3 or "float" in
+                            props[i - 3] else "u1")
+                           for i in range(len(cols))])
+            rec = np.zeros(64, dt)
+            for i, c in enumerate(cols):
+                rec[f"c{i}"] = c
+            data += rec.tobytes()
+            data += (bytes([3]) + np.array([0, 1, 2], "<i4").tobytes()) * \
+                faces
+            want = xyz.astype(np.float32).astype(np.float64)
+        path = tmp / f"{name}.ply"
+        path.write_bytes(data)
+        out[name] = bool(np.array_equal(
+            mixture.load_point_cloud(str(path)), want))
+    return out
+
+
+def surface_native_report(tmp: Path) -> dict:
+    """(f) The native host library built on the card's machine (g++ -O3,
+    zlib found or not): ``load_depth_model_space`` native against PIL, bit
+    for bit, on synthetic 16-bit PNGs of 640x480 and 480x640, flip on and
+    off, at 256^2; frames a second of both routes over
+    ``SURFACE_FRAMES`` files."""
+    from PIL import Image
+
+    from pointreggpt_tpu_torch import native
+    from pointreggpt_tpu_torch.core import imageio16
+
+    t0 = time.perf_counter()
+    available = native.is_available()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    tmp.mkdir(parents=True)
+    paths = []
+    for i in range(SURFACE_FRAMES):
+        shape = (480, 640) if i % 2 == 0 else (640, 480)
+        a = rng.integers(300, 12000, shape).astype(np.uint16)
+        a[rng.uniform(size=shape) < 0.1] = 0
+        paths.append(tmp / f"frame-{i:03d}.depth.png")
+        Image.fromarray(a).save(paths[-1])
+    unequal = []
+    for path in paths[:2]:
+        for flip in (False, True):
+            got = imageio16.load_depth_model_space(path, 256, flip=flip)
+            want = imageio16.load_depth_model_space(path, 256, flip=flip,
+                                                    use_native=False)
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                unequal.append(f"{path.name} flip={flip}")
+    rate = {}
+    for route, use_native in (("native", True), ("pil", False)):
+        t0 = time.perf_counter()
+        for path in paths:
+            imageio16.load_depth_model_space(path, 256,
+                                             use_native=use_native)
+        rate[route] = len(paths) / (time.perf_counter() - t0)
+    return dict(available=available, zlib=native.has_zlib(),
+                build_or_load_s=build_s,
+                library=native.library_path(native.has_zlib()).name,
+                unequal=unequal, frames_per_s=rate)
+
+
+def phase_surface_path(torch, K1, K2, seed: int, tmp: Path) -> dict:
+    """(a) ``denoise`` and (b) ``interpolate`` at full width
+    (:func:`surface_chains`), (c) :func:`surface_parity_report`, (g)
+    :func:`surface_fourier_grads`, (d) :func:`surface_ckpt_report`, (e)
+    :func:`surface_ply_report`, (f) :func:`surface_native_report`; fails
+    on any of them."""
+    root = tmp / "surface"
+    res = surface_chains(torch, K1, K2, seed)
+    res["jax"] = surface_parity_report(torch, K1, K2)
+    res["grads"] = surface_fourier_grads(torch, K1, K2)
+    res["ckpt"] = surface_ckpt_report(torch, K1, K2, root / "ckpt")
+    res["ply"] = surface_ply_report(root / "ply")
+    res["native"] = surface_native_report(root / "native")
+    emit("surface_path", card=card_line(), **res)
+    for part in ("denoise", "interpolate", "grads", "ckpt"):
+        r = res[part]
+        if r["launches"] != r["want_launches"]:
+            raise AssertionError(f"surface_path {part}: launches K1, K3, K2 "
+                                 f"= {r['launches']}, want "
+                                 f"{r['want_launches']}")
+        check_no_routes(f"surface_path {part}", r["plain_routes"])
+    for part in ("denoise", "interpolate"):
+        if not res[part]["finite"]:
+            raise AssertionError(f"surface_path {part}: non-finite output")
+    if res["denoise"]["masked_unequal"] or not \
+            0.2 < res["denoise"]["mask_share"] < 1.0:
+        raise AssertionError(f"surface_path denoise: {res['denoise']}")
+    jax = res["jax"]
+    if jax["failed"]:
+        raise AssertionError(f"surface_path: card vs JAX over the gate "
+                             f"{jax['failed']} (gates {jax['gate']})")
+    if not jax["fault_over_gate"] >= FAULT_MARGIN:
+        raise AssertionError(f"surface_path: the swapped interpolation "
+                             f"reads {jax['fault_gap']}, under "
+                             f"{FAULT_MARGIN} x its gate "
+                             f"{jax['gate']['interpolate']}")
+    if jax["launches"] != jax["want_launches"]:
+        raise AssertionError(f"surface_path: parity launches "
+                             f"{jax['launches']}, want "
+                             f"{jax['want_launches']}")
+    check_no_routes("surface_path jax", jax["plain_routes"])
+    grads = res["grads"]
+    if not (grads["learned"]["max_rel_err"] <= GRAD_RTOL and
+            grads["frozen"]["max_rel_err"] <= GRAD_RTOL and
+            grads["learned"]["frequencies_grad"] and
+            grads["frozen"]["frequencies_grad"] is None):
+        raise AssertionError(f"surface_path: Fourier net gradients {grads}")
+    if res["ckpt"]["differ"]:
+        raise AssertionError(f"surface_path: the .ckpt folder's step "
+                             f"differs in {res['ckpt']['differ']}")
+    if not all(res["ply"].values()):
+        raise AssertionError(f"surface_path: PLY reads {res['ply']}")
+    if not res["native"]["available"] or res["native"]["unequal"]:
+        raise AssertionError(f"surface_path: native {res['native']}")
+    # the phase's launches of each kernel, every counted run summed
+    for i, key in enumerate(("k1_launches", "k3_launches", "k2_launches")):
+        res[key] = (res["denoise"]["launches"][i] +
+                    res["interpolate"]["launches"][i] +
+                    jax["launches"][("k1", "k3", "k2")[i]] +
+                    grads["launches"][i] + res["ckpt"]["launches"][i])
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3253,13 +3672,16 @@ def main(argv=None) -> int:
         dist_res = timed("dist_path", phase_dist_path, torch, K1, K2,
                          args.seed, tmp)
         timed("profile_path", phase_profile_path, torch, tmp, fwd_bwd)
+        surface_res = timed("surface_path", phase_surface_path, torch, K1,
+                            K2, args.seed, tmp)
     emit("phase_seconds", total=time.perf_counter() - t_start, **seconds)
     sample_steps = main_res["num_samples"]
 
     # launches: the main paths (generation, diffusion training,
     # depth-correction training, the Tester's three runs, the training
     # run with FID, the imported checkpoints' step and resumed training,
-    # and dist_path's processes, summed over them), each counted from 0
+    # dist_path's processes, summed over them, and surface_path's
+    # denoise, interpolation, JAX cases and .ckpt step), each counted from 0
     # just before its entry point runs; per sample
     # step of generation, per optimizer step of diffusion training (its
     # milestone grid counted apart), per optimizer step of the MaskTrainer
@@ -3271,7 +3693,7 @@ def main(argv=None) -> int:
                   for run in ("cli", "generate", "ancestral")]
         return dict(launches=main_res[key] + train_res[key] +
                     mask_res[key] + sum(tester) + fid_res[key] +
-                    import_res[key] + dist_res[key],
+                    import_res[key] + dist_res[key] + surface_res[key],
                     launches_generate=main_res[key],
                     launches_train=train_res[key],
                     launches_mask_train=mask_res[key],
@@ -3281,6 +3703,7 @@ def main(argv=None) -> int:
                     launches_fid_train=fid_res[key],
                     launches_import=import_res[key],
                     launches_dist=dist_res[key],
+                    launches_surface=surface_res[key],
                     per_sample_step=main_res[key] / sample_steps,
                     per_optimizer_step=train_res["per_optimizer_step"][i],
                     launches_train_grid=train_res["grid_launches"][i],

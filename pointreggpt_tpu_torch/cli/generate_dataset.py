@@ -56,10 +56,9 @@ def build_generator(args):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    model_cfg = C.from_args(args, C.ModelConfig)
-    model = C.build_diffusion_unet(model_cfg)
+    model = C.build_diffusion_unet(C.from_args(args, C.ModelConfig))
     diffusion = C.build_diffusion(C.from_args(args, C.DiffusionConfig),
-                                  channels=model_cfg.channels)
+                                  model)
     depth_correction = C.build_mask_unet(
         C.from_args(args, C.MaskModelConfig, prefix="dc_"))
     cfg = C.from_args(args, C.GenerateConfig)

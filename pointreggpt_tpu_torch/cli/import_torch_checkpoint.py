@@ -18,7 +18,10 @@ Adam moments and count, so a ``--resume`` continues the JAX run's
 optimizer and learning-rate clock. Either way the weights are loaded into
 nets built from the ``ModelConfig`` / ``dc_``-prefixed ``MaskModelConfig``
 flags with ``strict=True`` before anything is written, and the checkpoint
-records ``version: "ported:<file name>"``.
+records ``version: "ported:<file name>"``. The loaders of the port read a
+JAX ``.ckpt`` directly through the same conversion
+(``train/checkpoint.py``), so this CLI is needed only to keep ``.pt``
+files.
 
 The output is what the port's Trainer / MaskTrainer save, which
 ``generate_dataset``, the Tester and both ``--resume`` flags read. The
@@ -34,8 +37,6 @@ import torch
 import torch.nn as nn
 
 from pointreggpt_tpu_torch import config as C
-
-ADAM_BETAS, ADAM_EPS = (0.9, 0.99), 1e-8
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,6 +70,8 @@ def _milestone_from(path: str, override) -> str:
 def _adam(net: nn.Module, lr: float, state=None) -> dict:
     """A torch Adam state dict for ``net``: fresh, or ``state`` checked
     against ``net``'s parameter groups."""
+    from pointreggpt_tpu_torch.train.checkpoint import ADAM_BETAS, ADAM_EPS
+
     opt = torch.optim.Adam(net.parameters(), lr=lr, betas=ADAM_BETAS,
                            eps=ADAM_EPS)
     if state is not None:
@@ -79,7 +82,7 @@ def _adam(net: nn.Module, lr: float, state=None) -> dict:
 def convert_diffusion(path: str, out_dir: str, milestone: str,
                       model_cfg: C.ModelConfig) -> Path:
     """``{step, model, opt, ema, version}`` from a reference diffusion
-    ``.pt`` or a JAX Trainer ``.ckpt``."""
+    ``.pt`` or a JAX Trainer ``.ckpt`` (as ``Trainer.load`` reads one)."""
     from pointreggpt_tpu_torch.train import checkpoint as ckpt
     from pointreggpt_tpu_torch.train.ema import EMA
     from pointreggpt_tpu_torch.utils import jax_params as JP
@@ -87,68 +90,66 @@ def convert_diffusion(path: str, out_dir: str, milestone: str,
     lr = C.TrainConfig().train_lr
     net = C.build_diffusion_unet(model_cfg)
     if path.endswith(".ckpt"):
-        state, _ = ckpt.load_jax_checkpoint(path)
-        parts = JP.diffusion_parts_from_jax(state, net, lr=lr,
-                                            betas=ADAM_BETAS, eps=ADAM_EPS)
-        step, ema_step, initted = (parts["step"], parts["ema_step"],
-                                   parts["ema_initted"])
-        model_sd, ema_sd, opt = parts["model"], parts["ema_model"], \
-            parts["opt"]
+        payload = ckpt.diffusion_payload_from_jax(path, net, lr=lr)
     else:
         data = JP.load_reference_checkpoint(path)
         step = int(data["step"])
-        model_sd = JP.strip_prefix(data["model"], "model.")
         ref_ema = data["ema"]
-        ema_sd = JP.strip_prefix(ref_ema, "ema_model.model.")
-        ema_step = int(ref_ema.get("step", step))
-        initted = bool(ref_ema.get("initted", True))
-        opt = None  # fresh: the reference's Adam and scaler are dropped
+        model_sd = JP.strip_prefix(data["model"], "model.")
+        payload = {
+            "step": step, "model": data["model"],
+            "opt": None,  # fresh: the reference's Adam and scaler are dropped
+            "ema": ckpt.ema_state(
+                model_sd, JP.strip_prefix(ref_ema, "ema_model.model."),
+                int(ref_ema.get("step", step)),
+                bool(ref_ema.get("initted", True))),
+            "version": f"ported:{os.path.basename(path)}"}
 
-    net.load_state_dict(model_sd, strict=True)
+    # every piece loads into the nets strictly before anything is written
+    net.load_state_dict(JP.strip_prefix(payload["model"], "model."),
+                        strict=True)
     ema = EMA(nn.ModuleDict({"model": net}))
-    ema.ema_model["model"].load_state_dict(ema_sd, strict=True)
-    ema.step.fill_(ema_step)
-    ema.initted.fill_(initted)
+    ema.load_state_dict(payload["ema"], strict=True)
     out = Path(out_dir) / f"model-{milestone}.pt"
     ckpt.save_checkpoint(out, {
-        "step": step,
+        "step": payload["step"],
         "model": {f"model.{k}": v for k, v in net.state_dict().items()},
-        "opt": _adam(net, lr, opt),
+        "opt": _adam(net, lr, payload["opt"]),
         "ema": ema.state_dict(),
-        "version": f"ported:{os.path.basename(path)}"})
+        "version": payload["version"]})
     return out
 
 
 def convert_depth_correction(path: str, out_dir: str, milestone: str,
                              model_cfg: C.MaskModelConfig) -> Path:
     """``{epoch, model, opt, loss_hist, best_metrics, version}`` from a
-    reference depth-correction ``.pt`` or a JAX MaskTrainer ``.ckpt``."""
+    reference depth-correction ``.pt`` or a JAX MaskTrainer ``.ckpt`` (as
+    ``MaskTrainer.load`` reads one)."""
     from pointreggpt_tpu_torch.train import checkpoint as ckpt
     from pointreggpt_tpu_torch.utils import jax_params as JP
 
     lr = C.MaskTrainConfig().train_lr
     net = C.build_mask_unet(model_cfg)
     if path.endswith(".ckpt"):
-        state, meta = ckpt.load_jax_checkpoint(path)
-        parts = JP.mask_parts_from_jax(state, meta, net, lr=lr,
-                                       betas=ADAM_BETAS, eps=ADAM_EPS)
+        payload = ckpt.mask_payload_from_jax(path, net, lr=lr)
     else:
         data = JP.load_reference_checkpoint(path)
         metrics = data.get("metrics") or {}
-        parts = dict(
+        payload = dict(
             epoch=int(data["epoch"]), model=data["model"], opt=None,
             loss_hist=[float(x) for x in data.get("loss_hist") or []],
             best_metrics={k: float(v)
-                          for k, v in (metrics.get("best") or {}).items()})
-    net.load_state_dict(parts["model"], strict=True)
+                          for k, v in (metrics.get("best") or {}).items()},
+            version=f"ported:{os.path.basename(path)}")
+    net.load_state_dict(payload["model"], strict=True)
     out = Path(out_dir) / f"model-{milestone}.pt"
     ckpt.save_checkpoint(out, {
-        "epoch": parts["epoch"],
+        "epoch": payload["epoch"],
         "model": net.state_dict(),
-        "opt": _adam(net, lr, parts["opt"]),
-        "loss_hist": parts["loss_hist"],
-        "best_metrics": parts["best_metrics"],
-        "version": f"ported:{os.path.basename(path)}"})
+        "opt": _adam(net, lr, payload["opt"]),
+        "loss_hist": payload["loss_hist"],
+        "best_metrics": payload["best_metrics"],
+        "version": payload["version"]})
     return out
 
 

@@ -174,15 +174,14 @@ def _dtype(bf16: bool) -> torch.dtype:
 def build_diffusion_unet(cfg: ModelConfig):
     from pointreggpt_tpu_torch.models import DiffusionUNet
 
-    if cfg.learned_variance or cfg.learned_sinusoidal_cond or \
-            cfg.random_fourier_features:
-        raise ValueError("learned_variance and the learned/random Fourier "
-                         "time embeddings are not ported (and GaussianDiffu"
-                         "sion rejects them in the reference)")
     return DiffusionUNet(dim=cfg.dim, param_cond_dim=cfg.param_cond_dim,
                          dim_mults=cfg.dim_mults, channels=cfg.channels,
                          resnet_block_groups=cfg.resnet_block_groups,
-                         dtype=_dtype(cfg.bf16), remat=cfg.remat)
+                         dtype=_dtype(cfg.bf16), remat=cfg.remat,
+                         learned_variance=cfg.learned_variance,
+                         learned_sinusoidal_cond=cfg.learned_sinusoidal_cond,
+                         random_fourier_features=cfg.random_fourier_features,
+                         learned_sinusoidal_dim=cfg.learned_sinusoidal_dim)
 
 
 def build_mask_unet(cfg: MaskModelConfig):
@@ -193,11 +192,29 @@ def build_mask_unet(cfg: MaskModelConfig):
                     dtype=_dtype(cfg.bf16))
 
 
-def build_diffusion(cfg: DiffusionConfig, channels: int = 1):
+def build_diffusion(cfg: DiffusionConfig, model=None):
+    """The GaussianDiffusion of ``cfg`` for ``model``, whose channels it
+    takes (one channel with no model).
+
+    Refuses what the JAX package's ``build_diffusion`` refuses, with its
+    messages: a ``learned_variance`` net (its 2x head would broadcast
+    against the 1-channel target) and the Fourier time embeddings.
+    """
     from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
 
+    if getattr(model, "learned_variance", False):
+        raise ValueError(
+            "GaussianDiffusion requires model.channels == out channels; "
+            "learned_variance=True doubles the output head (reference "
+            "asserts this away at construction, sdd:1032-1033)")
+    if getattr(model, "learned_sinusoidal_cond", False) or \
+            getattr(model, "random_fourier_features", False):
+        raise ValueError(
+            "GaussianDiffusion does not support random/learned sinusoidal "
+            "time embeddings (reference assert, sdd:1034)")
     return GaussianDiffusion(
-        image_size=cfg.image_size, channels=channels,
+        image_size=cfg.image_size,
+        channels=1 if model is None else model.channels,
         timesteps=cfg.timesteps, sampling_timesteps=cfg.sampling_timesteps,
         loss_type=cfg.loss_type, objective=cfg.objective,
         beta_schedule=cfg.beta_schedule,

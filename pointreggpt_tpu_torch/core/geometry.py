@@ -230,6 +230,43 @@ def unnormalize_to_zero_to_one(img: torch.Tensor) -> torch.Tensor:
     return (img + 1.0) * 0.5
 
 
+def image_condition(
+    depth01: torch.Tensor,
+    intrinsic: torch.Tensor,
+    relative_pose: torch.Tensor,
+    *,
+    depth_unit: float = 10.0,
+    depth_clip: Tuple[float, float] = (0.0, 10.0),
+    use_occlusion_filter: bool = False,
+) -> torch.Tensor:
+    """The 2-channel DDNM condition: the depth re-projected to
+    ``relative_pose`` (unit-normalized) and its validity mask, both mapped
+    to [-1, 1].
+
+    Args:
+        depth01: (b, h, w) depth in [0, 1] model units (1.0 == depth_unit m).
+
+    Returns:
+        (b, h, w, 2) in [-1, 1] (NHWC).
+    """
+    depth_rpj, mask_rpj = reproject(depth01 * depth_unit, intrinsic,
+                                    relative_pose, clip=depth_clip)
+    if use_occlusion_filter:
+        depth_rpj, mask_rpj = occlusion_filter(depth_rpj, mask_rpj)
+    cond = torch.stack([depth_rpj / depth_unit, mask_rpj.to(depth_rpj.dtype)],
+                       dim=-1)
+    return normalize_to_neg_one_to_one(cond)
+
+
+def null_image_condition(batch_size: int, image_size: int,
+                         dtype: torch.dtype = torch.float32,
+                         device: Union[str, torch.device, None] = None
+                         ) -> torch.Tensor:
+    """The all -1 condition: an empty mask (unconditional)."""
+    return -torch.ones((batch_size, image_size, image_size, 2), dtype=dtype,
+                       device=device)
+
+
 def mask_from_image_condition(img_cond: torch.Tensor) -> torch.Tensor:
     """(b, h, w, 2) condition in [-1, 1] -> (b, h, w) bool validity mask."""
     return unnormalize_to_zero_to_one(img_cond[..., 1]) > 0.5
@@ -249,3 +286,28 @@ def point_cloud_np(depth: np.ndarray,
     y = (r - cy) * z / fy
     pc = np.stack([x, y, z], axis=-1).reshape(-1, 3)
     return pc[valid.reshape(-1)].astype(np.float32)
+
+
+def depth_image_np(pc: np.ndarray,
+                   intrinsic: np.ndarray,
+                   image_size: Tuple[int, int] = (480, 640)
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Forward-project an (n, 3) host point array to a depth image and its
+    mask (host): pixels indexed ``[row, col]``, the nearest point wins a
+    pixel. The device path is :func:`points_to_depth`.
+
+    Returns:
+        (depth (h, w) float32, 0 where empty; mask (h, w) bool).
+    """
+    rows, cols = image_size
+    fx, fy = intrinsic[0][0], intrinsic[1][1]
+    cx, cy = intrinsic[0][2], intrinsic[1][2]
+    x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        c = np.round(x * fx / np.where(z == 0, 1, z) + cx).astype(np.int64)
+        r = np.round(y * fy / np.where(z == 0, 1, z) + cy).astype(np.int64)
+    ok = (c >= 0) & (c < cols) & (r >= 0) & (r < rows) & (z > 0)
+    depth = np.full((rows, cols), np.inf, np.float32)
+    np.minimum.at(depth, (r[ok], c[ok]), z[ok].astype(np.float32))
+    mask = np.isfinite(depth)
+    return np.where(mask, depth, 0.0).astype(np.float32), mask

@@ -1,12 +1,16 @@
-"""Host-side 16-bit depth PNG I/O and model-space preprocessing (PIL).
+"""Host-side 16-bit depth PNG I/O and model-space preprocessing.
 
-Port of the PIL path of ``pointreggpt_tpu/core/imageio16.py``: uint16 mm
-PNGs, scale 1e-4 (1.0 == 10 m), values > 1 clipped to 0, NEAREST resize of
-the short side, center crop.
+Port of ``pointreggpt_tpu/core/imageio16.py``: uint16 mm PNGs, scale 1e-4
+(1.0 == 10 m), values > 1 clipped to 0, NEAREST resize of the short side,
+center crop. With ``use_native`` (the default) the 16-bit grayscale
+frames decode, and are preprocessed, in the native C++ library
+(``native.py``), bit for bit as the PIL path; other PNGs, or a host where
+the library does not build, go through PIL.
 """
 
 from __future__ import annotations
 
+import io
 import os
 from typing import Union
 
@@ -16,8 +20,23 @@ from PIL import Image
 PathLike = Union[str, os.PathLike]
 
 
-def read_depth_png(path: PathLike) -> np.ndarray:
+def _native():
+    """The native module when its library is built and loaded, else None."""
+    from pointreggpt_tpu_torch import native
+
+    return native if native.is_available() else None
+
+
+def read_depth_png(path: PathLike, use_native: bool = True) -> np.ndarray:
     """Read a 16-bit depth PNG to (h, w) raw values."""
+    native = _native() if use_native else None
+    if native is not None:
+        with open(path, "rb") as f:
+            data = f.read()
+        out = native.png16_decode(data)
+        # another format: PIL decodes the bytes already read
+        return out if out is not None else np.asarray(
+            Image.open(io.BytesIO(data)))
     return np.asarray(Image.open(path))
 
 
@@ -56,14 +75,26 @@ def center_crop(img: np.ndarray, size: int) -> np.ndarray:
 
 
 def load_depth_model_space(path: PathLike, image_size: int, *,
-                           flip: bool = False) -> np.ndarray:
+                           flip: bool = False,
+                           use_native: bool = True) -> np.ndarray:
     """Load a 3DMatch depth PNG into model space: (h, w) float32 in [0, 1].
 
     Resize short side -> image_size (NEAREST), optional horizontal flip
     (before the crop, as the reference transform order), center crop,
-    scale by 1e-4, zero values above 1.
+    scale by 1e-4, zero values above 1. ``use_native``: decode and
+    preprocess in one native call where the format allows.
     """
-    raw = resize_nearest_short_side(read_depth_png(path), image_size)
+    native = _native() if use_native else None
+    if native is not None:
+        with open(path, "rb") as f:
+            data = f.read()
+        out = native.png16_depth_preprocess(data, image_size, flip=flip)
+        if out is not None:
+            return out
+        raw = np.asarray(Image.open(io.BytesIO(data)))
+    else:
+        raw = read_depth_png(path, use_native=False)
+    raw = resize_nearest_short_side(raw, image_size)
     if flip:
         raw = raw[:, ::-1]
     raw = center_crop(raw, image_size)

@@ -2,10 +2,10 @@
 the radius overlap and the registration loaders' distances on torch
 tensors.
 
-Port of ``voxel_downsample`` (and its batched form),
+Port of ``crop_bbox``, ``voxel_downsample`` (and its batched form),
 ``memory_voxel_update``, ``keep_nearest``, ``any_within_radius``,
-``overlap_ratio``, ``min_dist_sq`` and ``correspondences_np`` from
-``pointreggpt_tpu/core/pointops.py``. The JAX package built the voxel
+``overlap_ratio``, ``overlap_region``, ``min_dist_sq`` and
+``correspondences_np`` from ``pointreggpt_tpu/core/pointops.py``. The JAX package built the voxel
 functions scatter-free for the TPU (packed-key sort + segmented scan); on
 the GPU the plain route is a sort and ``index_add_`` sums:
 
@@ -80,6 +80,20 @@ def _voxel_segments(points: Tensor, valid: Tensor, voxel_size: float
     centroid = torch.where(seg_ok[..., None], centroid,
                            torch.zeros_like(centroid))
     return centroid, seg_ok, seg_ok.sum(dim=1)
+
+
+def crop_bbox(points: Tensor, valid: Tensor, min_bound, max_bound
+              ) -> Tensor:
+    """``valid`` with the points outside the axis-aligned box
+    [min_bound, max_bound] (bounds included) masked out; nothing is
+    compacted.
+
+    Args:
+        points: (..., n, 3); valid: (..., n) bool; bounds: three values.
+    """
+    lo = torch.as_tensor(min_bound, dtype=points.dtype, device=points.device)
+    hi = torch.as_tensor(max_bound, dtype=points.dtype, device=points.device)
+    return valid & ((points >= lo) & (points <= hi)).all(dim=-1)
 
 
 def voxel_downsample(points: Tensor, valid: Tensor, voxel_size: float
@@ -293,6 +307,25 @@ def min_dist_sq(src: Tensor, src_valid: Tensor, tgt: Tensor,
         d_sq = torch.where(tgt_valid[None, j:j + block], d_sq, inf)
         best = torch.minimum(best, d_sq.amin(dim=1))
     return torch.where(src_valid, best, inf)
+
+
+def overlap_region(src: Tensor, src_valid: Tensor, tgt: Tensor,
+                   tgt_valid: Tensor, *, voxel_size: float = 0.025
+                   ) -> Tensor:
+    """Per-src-point overlap mask: does a centroid of the voxel-downsampled
+    tgt lie within 1.5 × ``voxel_size``? src is not downsampled.
+
+    Args:
+        src: (n, 3); src_valid: (n,) bool; tgt: (m, 3); tgt_valid: (m,)
+            bool.
+
+    Returns:
+        (n,) bool, False for invalid src points.
+    """
+    tgt_d, tgt_dv = voxel_downsample(tgt, tgt_valid, voxel_size)
+    radius = voxel_size * 1.5
+    r_sq = float(torch.tensor(radius * radius, dtype=torch.float32))
+    return min_dist_sq(src, src_valid, tgt_d, tgt_dv) <= r_sq
 
 
 def correspondences_np(src: np.ndarray, tgt: np.ndarray,

@@ -138,3 +138,25 @@ def random_sample_pose(generator: Optional[torch.Generator],
     random_trans[:, -1] = 0.0
     rc = (rot * c[None, None, :]).sum(dim=-1)
     return _se3(rot, c[None] - rc + random_trans)
+
+
+def haar_uniform_rotation(batch_size: int = 1, *,
+                          generator: Optional[torch.Generator] = None,
+                          z: Optional[torch.Tensor] = None,
+                          device=None) -> torch.Tensor:
+    """(b, 3, 3) Haar-uniform rotations on SO(3): the QR decomposition of
+    Gaussian matrices, Q's columns signed by R's diagonal, then divided by
+    det(Q) to turn reflections into rotations.
+
+    ``z`` injects the (b, 3, 3) Gaussian draw (tests); otherwise it is
+    drawn from ``generator``.
+    """
+    if z is None:
+        if device is None:
+            device = generator.device if generator is not None else "cpu"
+        z = torch.randn((batch_size, 3, 3), generator=generator,
+                        device=device, dtype=torch.float32)
+    q, r = torch.linalg.qr(z)
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    q = q * (d / d.abs())[:, None, :]
+    return q / torch.linalg.det(q)[:, None, None]

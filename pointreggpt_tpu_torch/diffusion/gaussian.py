@@ -1,11 +1,18 @@
 """GaussianDiffusion: the training loss and the DDIM + DDNM sampling chain
 on torch.
 
-Port of ``pointreggpt_tpu/diffusion/gaussian.py`` (``denoise`` and
-``interpolate`` are not ported yet). The JAX ``lax.scan`` over timesteps
-(DDIM pairs, or all ``timesteps`` of the ancestral chain) is a Python loop
-here; nothing in it reads a value back to the host, so the whole chain
-queues on the stream without a sync.
+Port of ``pointreggpt_tpu/diffusion/gaussian.py``: the loss, both
+sampling chains, ``denoise`` and ``interpolate``. The JAX ``lax.scan`` over
+timesteps (DDIM pairs, all ``timesteps`` of the ancestral chain, or the t
+steps of an interpolation) is a Python loop here; nothing in it reads a
+value back to the host, so the whole chain queues on the stream without a
+sync.
+
+Random draws come from ``torch.Generator``s, so they differ from
+``jax.random``'s; tests inject them: x_T (``x_init``), each step's noise
+(``noise(t)``), the keep-mask uniforms of a nonzero mask-dropout table
+(``uniforms(t)``) and the two q_sample noises of ``interpolate``
+(``q_noise``).
 
 Data parallel runs pass ``rows`` (:class:`~pointreggpt_tpu_torch.parallel.
 mesh.Rows`): each random draw is then made at the global batch's shape and
@@ -23,7 +30,7 @@ Deterministic scalar coefficients are computed on the host in float32.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +46,7 @@ from pointreggpt_tpu_torch.diffusion import schedules as sched
 from pointreggpt_tpu_torch.parallel.mesh import Rows
 
 Tensor = torch.Tensor
+Draws = Callable[[int], Tensor]  # injected draws of the step at t (tests)
 
 
 def _draw(fn, shape: Sequence[int], generator: Optional[torch.Generator],
@@ -52,6 +60,10 @@ def _draw(fn, shape: Sequence[int], generator: Optional[torch.Generator],
         raise ValueError(f"batch {shape[0]} != the process's rows {rows}")
     return rows.take(fn((rows.total,) + tuple(shape[1:]),
                         generator=generator, device=device, **kw))
+
+
+def _at(draws: Optional[Draws], t: int) -> Optional[Tensor]:
+    return None if draws is None else draws(t)
 
 
 class ModelPrediction(NamedTuple):
@@ -104,6 +116,10 @@ class GaussianDiffusion:
         self.sampling_timesteps = int(s)
 
     @property
+    def num_timesteps(self) -> int:
+        return self.timesteps
+
+    @property
     def is_ddim_sampling(self) -> bool:
         return self.sampling_timesteps < self.timesteps
 
@@ -129,6 +145,33 @@ class GaussianDiffusion:
         nd = x_start.dim()
         return (self._table("sqrt_alphas_cumprod", t, nd) * noise -
                 self._table("sqrt_one_minus_alphas_cumprod", t, nd) * x_start)
+
+    def predict_start_from_noise(self, x_t: Tensor, t: Tensor,
+                                 noise: Tensor) -> Tensor:
+        nd = x_t.dim()
+        return (self._table("sqrt_recip_alphas_cumprod", t, nd) * x_t -
+                self._table("sqrt_recipm1_alphas_cumprod", t, nd) * noise)
+
+    def predict_noise_from_start(self, x_t: Tensor, t: Tensor,
+                                 x0: Tensor) -> Tensor:
+        nd = x_t.dim()
+        return ((self._table("sqrt_recip_alphas_cumprod", t, nd) * x_t - x0)
+                / self._table("sqrt_recipm1_alphas_cumprod", t, nd))
+
+    def predict_start_from_v(self, x_t: Tensor, t: Tensor,
+                             v: Tensor) -> Tensor:
+        nd = x_t.dim()
+        return (self._table("sqrt_alphas_cumprod", t, nd) * x_t -
+                self._table("sqrt_one_minus_alphas_cumprod", t, nd) * v)
+
+    def q_posterior(self, x_start: Tensor, x_t: Tensor, t: Tensor):
+        """(mean, variance, clipped log variance) of q(x_{t-1} | x_t,
+        x_0) at (b,) timesteps ``t``."""
+        nd = x_t.dim()
+        mean = (self._table("posterior_mean_coef1", t, nd) * x_start +
+                self._table("posterior_mean_coef2", t, nd) * x_t)
+        return (mean, self._table("posterior_variance", t, nd),
+                self._table("posterior_log_variance_clipped", t, nd))
 
     # -- training loss ------------------------------------------------------
 
@@ -204,6 +247,7 @@ class GaussianDiffusion:
                           clip_x_start: bool = False,
                           is_ban_ddnm: bool = False,
                           is_denoise: bool = False,
+                          keep_uniform: Optional[Tensor] = None,
                           rows: Optional[Rows] = None) -> ModelPrediction:
         """Network forward + objective conversion + DDNM projection at the
         scalar timestep ``t`` (all samples share it while sampling).
@@ -212,6 +256,9 @@ class GaussianDiffusion:
             x: (b, h, w, c) current noisy image in [-1, 1].
             img_cond: (b, h, w, 2) condition; consumed only by the DDNM
                 projection, never fed to the network.
+            keep_uniform: (b, h, w, 1) injected uniforms of the keep mask
+                (tests); else drawn from ``generator`` when the active
+                mask-dropout table is nonzero at ``t``.
         """
         b = x.shape[0]
         tt = torch.full((b,), float(t), device=x.device)
@@ -243,13 +290,14 @@ class GaussianDiffusion:
             table = self.ddnm_dropouts if use_ddnm else self.denoise_dropouts
             p_drop = float(table[t])
             if p_drop > 0:
-                if generator is None:
+                if keep_uniform is None and generator is None:
                     raise ValueError(
                         "model_predictions: the mask-dropout schedule is "
                         "nonzero but no generator was passed")
-                keep = _draw(torch.rand, mask.shape, generator, x.device,
-                             rows) > p_drop
-                mask = mask & keep
+                u = (_draw(torch.rand, mask.shape, generator, x.device, rows)
+                     if keep_uniform is None else
+                     keep_uniform.to(x.device, torch.float32))
+                mask = mask & (u > p_drop)
             # pred_noise stays the pre-projection estimate (reference)
             x_start = torch.where(mask, img_rpj, x_start)
         return ModelPrediction(pred_noise, x_start)
@@ -265,11 +313,14 @@ class GaussianDiffusion:
                     has_refine_step: bool = False,
                     is_denoise: bool = False,
                     x_init: Optional[Tensor] = None,
+                    noise: Optional[Draws] = None,
+                    uniforms: Optional[Draws] = None,
                     rows: Optional[Rows] = None) -> Tensor:
         """DDIM chain with DDNM projection; returns (b, h, w, c) in [0, 1].
 
-        ``x_init`` injects the x_T draw (tests); with eta 0 the chain then
-        draws no random numbers at all.
+        ``x_init`` injects the x_T draw, ``noise(t)`` the noise of the step
+        at t and ``uniforms(t)`` its keep-mask uniforms (tests); with eta 0
+        and a zero dropout table the chain then draws nothing.
         """
         device = param_cond.device
         eta = np.float32(self.ddim_sampling_eta)
@@ -282,7 +333,7 @@ class GaussianDiffusion:
             pred_noise, x_start = self.model_predictions(
                 model, img, t, param_cond, img_cond, generator=generator,
                 clip_x_start=clip_denoised, is_denoise=is_denoise,
-                rows=rows)
+                keep_uniform=_at(uniforms, t), rows=rows)
             if t_next < 0:
                 img = x_start
                 continue
@@ -294,8 +345,9 @@ class GaussianDiffusion:
                                    np.float32(0)))
             img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
             if sigma > 0:
-                noise = _draw(torch.randn, img.shape, generator, device, rows)
-                img = img + float(sigma) * noise
+                z = (_draw(torch.randn, img.shape, generator, device, rows)
+                     if noise is None else noise(t).to(device, torch.float32))
+                img = img + float(sigma) * z
 
         if has_refine_step and img_cond is not None:
             _, x_start = self.model_predictions(
@@ -310,14 +362,17 @@ class GaussianDiffusion:
     def _p_sample_step(self, model: nn.Module, x: Tensor, t: int,
                        param_cond: Tensor, img_cond: Optional[Tensor],
                        generator: Optional[torch.Generator],
-                       noise: Optional[Callable[[int], Tensor]], *,
+                       noise: Optional[Draws], *,
                        is_ban_ddnm: bool = False,
+                       is_denoise: bool = False,
+                       uniforms: Optional[Draws] = None,
                        rows: Optional[Rows] = None) -> Tensor:
         """One step of the posterior chain: x_{t-1} from x_t (the posterior
         mean at t = 0, where the noise is zero)."""
         _, x_start = self.model_predictions(
             model, x, t, param_cond, img_cond, generator=generator,
-            is_ban_ddnm=is_ban_ddnm, rows=rows)
+            is_ban_ddnm=is_ban_ddnm, is_denoise=is_denoise,
+            keep_uniform=_at(uniforms, t), rows=rows)
         x_start = x_start.clamp(-1.0, 1.0)
         mean = (self._coef("posterior_mean_coef1", t) * x_start +
                 self._coef("posterior_mean_coef2", t) * x)
@@ -334,21 +389,26 @@ class GaussianDiffusion:
                       img_cond: Optional[Tensor], shape: Sequence[int], *,
                       generator: Optional[torch.Generator] = None,
                       has_refine_step: bool = False,
+                      is_denoise: bool = False,
                       x_init: Optional[Tensor] = None,
-                      noise: Optional[Callable[[int], Tensor]] = None,
+                      noise: Optional[Draws] = None,
+                      uniforms: Optional[Draws] = None,
                       rows: Optional[Rows] = None) -> Tensor:
         """Ancestral chain over all ``timesteps``; returns (b, h, w, c) in
         [0, 1].
 
-        ``x_init`` injects the x_T draw and ``noise(t)`` the noise of step
-        t (tests); otherwise both are drawn from ``generator``.
+        ``x_init`` injects the x_T draw, ``noise(t)`` the noise of step t
+        and ``uniforms(t)`` its keep-mask uniforms (tests); otherwise they
+        are drawn from ``generator``.
         """
         device = param_cond.device
         img = (_draw(torch.randn, shape, generator, device, rows)
                if x_init is None else x_init.to(device, torch.float32))
         for t in range(self.timesteps - 1, -1, -1):
             img = self._p_sample_step(model, img, t, param_cond, img_cond,
-                                      generator, noise, rows=rows)
+                                      generator, noise,
+                                      is_denoise=is_denoise,
+                                      uniforms=uniforms, rows=rows)
         if has_refine_step and img_cond is not None:
             refined = self._p_sample_step(model, img, 0, param_cond,
                                           img_cond, generator, noise,
@@ -373,3 +433,60 @@ class GaussianDiffusion:
         return chain(model, param_cond, img_cond, shape, generator=generator,
                      has_refine_step=has_refine_step, x_init=x_init,
                      rows=rows)
+
+    def denoise(self, model: nn.Module, *, param_cond: Tensor,
+                img_cond: Optional[Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                has_refine_step: bool = False,
+                x_init: Optional[Tensor] = None,
+                noise: Optional[Draws] = None,
+                uniforms: Optional[Draws] = None) -> Tensor:
+        """Denoise mode: the chain of :meth:`sample` with ``is_denoise``,
+        so the condition's pixels are projected under the denoise dropout
+        table when DDNM is off (with DDNM on, its own table wins). Returns
+        (b, h, w, c) in [0, 1]; the draws may be injected as in the
+        chains."""
+        b = param_cond.shape[0]
+        shape = (b, self.image_size, self.image_size, self.channels)
+        chain = (self.ddim_sample if self.is_ddim_sampling
+                 else self.p_sample_loop)
+        return chain(model, param_cond, img_cond, shape, generator=generator,
+                     has_refine_step=has_refine_step, is_denoise=True,
+                     x_init=x_init, noise=noise, uniforms=uniforms)
+
+    @torch.inference_mode()
+    def interpolate(self, model: nn.Module, x1: Tensor, x2: Tensor,
+                    param_cond: Tensor, *, t: Optional[int] = None,
+                    lam: float = 0.5,
+                    generator: Optional[torch.Generator] = None,
+                    q_noise: Optional[Tuple[Tensor, Tensor]] = None,
+                    noise: Optional[Draws] = None) -> Tensor:
+        """Diffuse two (b, h, w, c) images in [-1, 1] to step ``t``
+        (default T - 1), blend them ``(1 - lam) x1_t + lam x2_t``, and run
+        the t ancestral steps back down, unconditioned. Returns (b, h, w,
+        c) in [-1, 1].
+
+        ``q_noise`` injects the two q_sample noises and ``noise(t)`` each
+        step's noise (tests); else they are drawn from ``generator``.
+        """
+        if x1.shape != x2.shape:
+            raise ValueError(f"interpolate: shapes {tuple(x1.shape)} and "
+                             f"{tuple(x2.shape)} differ")
+        t = self.num_timesteps - 1 if t is None else int(t)
+        if not 1 <= t <= self.num_timesteps - 1:
+            raise ValueError(
+                f"interpolate: t={t} outside [1, {self.num_timesteps - 1}]")
+        device = param_cond.device
+        x1 = x1.to(device, torch.float32)
+        x2 = x2.to(device, torch.float32)
+        if q_noise is None:
+            q_noise = tuple(_draw(torch.randn, x1.shape, generator, device,
+                                  None) for _ in range(2))
+        tb = torch.full((x1.shape[0],), t, device=device)
+        xt1 = self.q_sample(x1, tb, q_noise[0].to(device, torch.float32))
+        xt2 = self.q_sample(x2, tb, q_noise[1].to(device, torch.float32))
+        img = (1 - lam) * xt1 + lam * xt2
+        for step in range(t - 1, -1, -1):
+            img = self._p_sample_step(model, img, step, param_cond, None,
+                                      generator, noise)
+        return img

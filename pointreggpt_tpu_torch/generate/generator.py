@@ -44,9 +44,9 @@ from pointreggpt_tpu_torch.data.datasets import resolve_frame_record
 from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
 from pointreggpt_tpu_torch.models.bake import bake_inference
 from pointreggpt_tpu_torch.parallel import mesh as M
+from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.utils import profiling
-from pointreggpt_tpu_torch.utils.jax_params import (load_reference_checkpoint,
-                                                    strip_prefix)
+from pointreggpt_tpu_torch.utils.jax_params import strip_prefix
 
 BBOX_MIN = (-1.5, -1.5, 0.5)
 BBOX_MAX = (1.5, 1.5, 3.5)
@@ -79,8 +79,9 @@ def load_ema_unet(model, path) -> None:
     """Load the EMA U-Net of a diffusion checkpoint ({step, model, ema},
     the reference layout: the EMA wraps the GaussianDiffusion, whose
     ``model`` is the U-Net, so its keys sit under ``ema_model.model.``; a
-    bare ``ema_model.`` U-Net loads too) into ``model``."""
-    data = load_reference_checkpoint(path)
+    bare ``ema_model.`` U-Net loads too; a JAX package ``.ckpt`` is
+    converted to that layout) into ``model``."""
+    data = ckpt.load_diffusion_checkpoint(path, model)
     sd = strip_prefix(data["ema"], "ema_model.")
     if any(k.startswith("model.") for k in sd):
         sd = strip_prefix(sd, "model.")
@@ -144,24 +145,25 @@ class Generator:
 
     # ------------------------------------------------------------------
     def load(self, milestone) -> None:
-        """Load the EMA weights of ``model-{milestone}.pt`` (see
-        :func:`load_ema_unet`)."""
-        load_ema_unet(self.model, self.results_folder /
-                      f"model-{milestone}.pt")
+        """Load the EMA weights of ``model-{milestone}.pt``, or of the JAX
+        package's ``model-{milestone}.ckpt`` (see :func:`load_ema_unet`)."""
+        load_ema_unet(self.model,
+                      ckpt.milestone_path(self.results_folder, milestone))
         self._loaded = True
         self._device_models = None
 
     def _load_depth_correction(self) -> None:
-        """Load ``model-best.pt`` ({epoch, model}); cached on the file's
-        (mtime, size), so an overwritten checkpoint is picked up."""
+        """Load ``model-best.pt`` ({epoch, model}), or the JAX package's
+        ``model-best.ckpt``; cached on the file's (path, mtime, size), so
+        an overwritten checkpoint is picked up."""
         if self.depth_correction_model is None:
             return
-        path = self.depth_correction_results / "model-best.pt"
+        path = ckpt.milestone_path(self.depth_correction_results, "best")
         st = path.stat()
-        stamp = (st.st_mtime_ns, st.st_size)
+        stamp = (path, st.st_mtime_ns, st.st_size)
         if self._dc_stamp == stamp:
             return
-        data = load_reference_checkpoint(path)
+        data = ckpt.load_mask_checkpoint(path, self.depth_correction_model)
         self.depth_correction_model.load_state_dict(data["model"])
         self._dc_stamp = stamp
         self._device_models = None

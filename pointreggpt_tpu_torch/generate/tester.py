@@ -51,6 +51,7 @@ from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
 from pointreggpt_tpu_torch.generate.generator import (load_ema_unet,
                                                       place_for_inference)
 from pointreggpt_tpu_torch.parallel import mesh as M
+from pointreggpt_tpu_torch.train import checkpoint as ckpt
 
 SAVE_VOXEL = 0.025  # scene-{sid}.ply
 
@@ -110,10 +111,11 @@ class Tester:
 
     # ------------------------------------------------------------------
     def load(self, milestone) -> None:
-        """Load the EMA U-Net of ``model-{milestone}.pt``, baked and on the
-        device, as the Generator places it."""
-        load_ema_unet(self.model, self.results_folder /
-                      f"model-{milestone}.pt")
+        """Load the EMA U-Net of ``model-{milestone}.pt`` (or of the JAX
+        package's ``model-{milestone}.ckpt``), baked and on the device, as
+        the Generator places it."""
+        load_ema_unet(self.model,
+                      ckpt.milestone_path(self.results_folder, milestone))
         self.ema_model = place_for_inference(self.model, self.device)
 
     # ------------------------------------------------------------------

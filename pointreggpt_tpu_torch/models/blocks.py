@@ -112,6 +112,25 @@ class SinusoidalPosEmb(nn.Module):
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
+class RandomOrLearnedSinusoidalPosEmb(nn.Module):
+    """Fourier features of the timestep, ``[t, sin(2 pi t w), cos(2 pi t
+    w)]``: dim + 1 features from dim / 2 frequencies ``weights`` (normal
+    at init). ``is_random`` freezes them (``requires_grad=False``; still
+    in the state dict, as the reference keeps them)."""
+
+    def __init__(self, dim: int, is_random: bool = False):
+        super().__init__()
+        if dim % 2:
+            raise ValueError(f"RandomOrLearnedSinusoidalPosEmb: odd dim {dim}")
+        self.weights = nn.Parameter(torch.randn(dim // 2),
+                                    requires_grad=not is_random)
+
+    def forward(self, t: Tensor) -> Tensor:
+        t = t.float()[:, None]
+        freqs = t * self.weights.float()[None, :] * 2 * math.pi
+        return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
+
+
 class Block(nn.Module):
     """WSConv3x3 -> GroupNorm (fp32) -> optional (scale + 1, shift) ->
     SiLU -> compute dtype."""
@@ -278,3 +297,22 @@ def depth_augment(depth: Tensor, invalid_number: float = 0.0) -> Tensor:
     mn0 = min_pool(d, window=3, stride=1)
     mn = torch.where(torch.isinf(mn), mn0, mn)
     return torch.stack([d, mn, mn - d], dim=1)
+
+
+def depth_downsample(depth: Tensor, invalid_number: float = 0.0) -> Tensor:
+    """(b, 1, h, w) depth -> (b, 1, ceil(h / 2), ceil(w / 2)): a 2x2
+    min-pool (stride 2, "SAME": an odd edge is padded with +inf) over the
+    valid pixels; a window with none keeps the raw minimum, the invalid
+    value."""
+    d = depth[:, 0].float()
+    d_cln = torch.where(d == invalid_number, torch.full_like(d, float("inf")),
+                        d)
+
+    def pool(x):
+        x = F.pad(-x[:, None], (0, x.shape[-1] % 2, 0, x.shape[-2] % 2),
+                  value=float("-inf"))
+        return -F.max_pool2d(x, 2, 2)[:, 0]
+
+    down = pool(d_cln)
+    down = torch.where(torch.isinf(down), pool(d), down)
+    return down[:, None]

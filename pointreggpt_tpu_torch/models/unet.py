@@ -28,6 +28,7 @@ from pointreggpt_tpu_torch.models.blocks import (
     LinearAttention,
     Linear,
     PreNormResidual,
+    RandomOrLearnedSinusoidalPosEmb,
     ResnetBlock,
     SinusoidalPosEmb,
     Upsample,
@@ -96,18 +97,38 @@ class DiffusionUNet(nn.Module):
     (b, channels, h, w) prediction (x0 for the production objective).
     ``remat`` recomputes every ResnetBlock in the backward instead of
     keeping its activations (training memory; gradients do not change).
+
+    The reference's optional surface: ``learned_variance`` doubles the
+    output channels; ``learned_sinusoidal_cond`` (learned) or
+    ``random_fourier_features`` (frozen) embed the timestep with
+    ``learned_sinusoidal_dim`` Fourier frequencies, ``time_mlp.0.weights``,
+    instead of the sinusoidal embedding. GaussianDiffusion takes neither
+    (``config.build_diffusion`` refuses them, as the JAX package does).
     """
 
     def __init__(self, dim: int = 64, param_cond_dim: int = 4,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), channels: int = 1,
                  resnet_block_groups: int = 8,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 learned_variance: bool = False,
+                 learned_sinusoidal_cond: bool = False,
+                 random_fourier_features: bool = False,
+                 learned_sinusoidal_dim: int = 16):
         super().__init__()
         self.dim, self.channels, self.dtype = dim, channels, dtype
+        self.learned_variance = learned_variance
+        self.learned_sinusoidal_cond = learned_sinusoidal_cond
+        self.random_fourier_features = random_fourier_features
         time_dim = param_dim = dim * 4
         self.init_conv = Conv2d(channels, dim, 7, padding=3, dtype=dtype)
+        if learned_sinusoidal_cond or random_fourier_features:
+            pos_emb = RandomOrLearnedSinusoidalPosEmb(
+                learned_sinusoidal_dim, is_random=random_fourier_features)
+            fourier_dim = learned_sinusoidal_dim + 1
+        else:
+            pos_emb, fourier_dim = SinusoidalPosEmb(dim), dim
         self.time_mlp = nn.Sequential(
-            SinusoidalPosEmb(dim), Linear(dim, time_dim, dtype=dtype),
+            pos_emb, Linear(fourier_dim, time_dim, dtype=dtype),
             nn.GELU(), Linear(time_dim, time_dim, dtype=dtype))
         self.param_mlp = nn.Sequential(
             Linear(param_cond_dim, param_dim, dtype=dtype), nn.GELU(),
@@ -123,7 +144,8 @@ class DiffusionUNet(nn.Module):
         self.mid_block2 = ResnetBlock(mid, mid, cond_dim, g, dtype, remat)
         self.final_res_block = ResnetBlock(dim * 2, dim, cond_dim, g, dtype,
                                            remat)
-        self.final_conv = nn.Conv2d(dim, channels, 1)
+        self.final_conv = nn.Conv2d(
+            dim, channels * (2 if learned_variance else 1), 1)
         self.final_conv.keep_fp32 = True
 
     def forward(self, x: torch.Tensor, time: torch.Tensor,

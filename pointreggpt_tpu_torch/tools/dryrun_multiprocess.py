@@ -205,10 +205,9 @@ def build_trainer(folder: str, gt_log: str, results: str, *,
               save_and_sample_every=10**9, results_folder=results,
               samples_folder=results, gt_log=gt_log, num_workers=2,
               ema_update_every=1, seed=seed)
-    return Trainer(
-        C.build_diffusion_unet(model_cfg),
-        C.build_diffusion(diff_cfg, channels=model_cfg.channels), folder,
-        **dict(kw, **overrides))
+    model = C.build_diffusion_unet(model_cfg)
+    return Trainer(model, C.build_diffusion(diff_cfg, model), folder,
+                   **dict(kw, **overrides))
 
 
 def dryrun_rank(root: str, full_width: bool) -> dict:

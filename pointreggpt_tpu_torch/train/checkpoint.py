@@ -16,7 +16,11 @@ leaves the old checkpoint or the new one, never a torn or empty file.
 :func:`load_jax_checkpoint` reads a ``.ckpt`` that the JAX package wrote
 (flax's ``msgpack_serialize`` of ``{state, meta}``) with a small decoder
 in pure Python, as flax's ``load_checkpoint(path)`` with no target
-returns it.
+returns it. Every loader of a milestone resolves it with
+:func:`milestone_path` (the ``.pt`` first, else the JAX ``.ckpt``) and
+reads it with :func:`load_diffusion_checkpoint` or
+:func:`load_mask_checkpoint`, which turn a ``.ckpt`` into the ``.pt``
+layout as the importer CLI writes it.
 """
 
 from __future__ import annotations
@@ -196,3 +200,98 @@ def load_jax_checkpoint(path: PathLike) -> Tuple[Dict[str, Any],
             or "state" not in payload:
         raise ValueError(f"{path}: not a JAX package checkpoint")
     return _unchunk(payload["state"]), _unchunk(payload.get("meta", {}))
+
+
+# ---------------------------------------------------------------------------
+# a milestone from the port's .pt or, failing that, a JAX package .ckpt
+
+ADAM_BETAS, ADAM_EPS = (0.9, 0.99), 1e-8
+
+
+def milestone_path(results_folder: PathLike, milestone) -> Path:
+    """``model-<milestone>.pt`` when it exists, else the JAX package's
+    ``model-<milestone>.ckpt``; ``FileNotFoundError`` naming both when
+    neither does."""
+    folder = Path(results_folder)
+    pt = folder / f"model-{milestone}.pt"
+    jax_ckpt = folder / f"model-{milestone}.ckpt"
+    for path in (pt, jax_ckpt):
+        if path.exists():
+            return path
+    raise FileNotFoundError(f"no checkpoint for milestone {milestone!r}: "
+                            f"neither {pt} nor {jax_ckpt} exists")
+
+
+def ema_state(model_sd: Dict[str, torch.Tensor],
+              ema_sd: Dict[str, torch.Tensor], step: int,
+              initted: bool) -> Dict[str, torch.Tensor]:
+    """The state dict of ``train/ema.py``'s EMA around a U-Net nested
+    under ``model`` (online weights ``model_sd``, averaged ``ema_sd``)."""
+    out = {"initted": torch.tensor(bool(initted)),
+           "step": torch.tensor(int(step))}
+    out.update({f"online_model.model.{k}": v for k, v in model_sd.items()})
+    out.update({f"ema_model.model.{k}": v for k, v in ema_sd.items()})
+    return out
+
+
+def diffusion_payload_from_jax(path: PathLike, model: torch.nn.Module, *,
+                               lr: float, betas=ADAM_BETAS,
+                               eps: float = ADAM_EPS) -> Dict[str, Any]:
+    """A JAX Trainer ``.ckpt`` as the port's Trainer saves a milestone
+    (``{step, model, opt, ema, version}``), its weights checked against
+    ``model``'s and its optax Adam carried into a torch Adam of ``lr``,
+    ``betas`` and ``eps``."""
+    from pointreggpt_tpu_torch.utils.jax_params import (
+        diffusion_parts_from_jax)
+
+    state, _ = load_jax_checkpoint(path)
+    parts = diffusion_parts_from_jax(state, model, lr=lr, betas=betas,
+                                     eps=eps)
+    return {"step": parts["step"],
+            "model": {f"model.{k}": v for k, v in parts["model"].items()},
+            "opt": parts["opt"],
+            "ema": ema_state(parts["model"], parts["ema_model"],
+                             parts["ema_step"], parts["ema_initted"]),
+            "version": f"ported:{Path(path).name}"}
+
+
+def mask_payload_from_jax(path: PathLike, model: torch.nn.Module, *,
+                          lr: float, betas=ADAM_BETAS,
+                          eps: float = ADAM_EPS) -> Dict[str, Any]:
+    """A JAX MaskTrainer ``.ckpt`` as the port's MaskTrainer saves a
+    milestone (``{epoch, model, opt, loss_hist, best_metrics, version}``);
+    the Adam step is optax's count, the learning-rate schedule's clock."""
+    from pointreggpt_tpu_torch.utils.jax_params import mask_parts_from_jax
+
+    state, meta = load_jax_checkpoint(path)
+    parts = mask_parts_from_jax(state, meta, model, lr=lr, betas=betas,
+                                eps=eps)
+    return {"epoch": parts["epoch"], "model": parts["model"],
+            "opt": parts["opt"], "loss_hist": parts["loss_hist"],
+            "best_metrics": parts["best_metrics"],
+            "version": f"ported:{Path(path).name}"}
+
+
+def load_diffusion_checkpoint(path: PathLike, model: torch.nn.Module, *,
+                              lr: float = 8e-5, betas=ADAM_BETAS,
+                              eps: float = ADAM_EPS) -> Dict[str, Any]:
+    """A diffusion milestone in the port's layout: a ``.pt`` as written,
+    a JAX ``.ckpt`` through :func:`diffusion_payload_from_jax`. Prints
+    the path it reads."""
+    print(f"loading {path}")
+    if Path(path).suffix == ".ckpt":
+        return diffusion_payload_from_jax(path, model, lr=lr, betas=betas,
+                                          eps=eps)
+    return load_checkpoint(path)
+
+
+def load_mask_checkpoint(path: PathLike, model: torch.nn.Module, *,
+                         lr: float = 4e-5, betas=ADAM_BETAS,
+                         eps: float = ADAM_EPS) -> Dict[str, Any]:
+    """:func:`load_diffusion_checkpoint` for a depth-correction
+    milestone."""
+    print(f"loading {path}")
+    if Path(path).suffix == ".ckpt":
+        return mask_payload_from_jax(path, model, lr=lr, betas=betas,
+                                     eps=eps)
+    return load_checkpoint(path)

@@ -274,9 +274,14 @@ class MaskTrainer:
     def load(self, milestone: str) -> None:
         """Restore a milestone: weights, Adam state and the schedule's
         count; training goes on at the epoch after the saved one. Every
-        process reads the file; rank 0's weights are then broadcast."""
-        data = ckpt.load_checkpoint(
-            self.results_folder / f"model-{milestone}.pt")
+        process reads the file; rank 0's weights are then broadcast.
+        ``model-{milestone}.pt`` wins; else the JAX package's
+        ``model-{milestone}.ckpt`` is read (optax's count carries the
+        schedule's clock)."""
+        group = self.opt.param_groups[0]
+        data = ckpt.load_mask_checkpoint(
+            ckpt.milestone_path(self.results_folder, milestone), self.model,
+            lr=self.train_lr, betas=group["betas"], eps=group["eps"])
         self.model.load_state_dict(data["model"])
         M.broadcast_module_(self.model)
         self.opt.load_state_dict(data["opt"])
@@ -366,10 +371,11 @@ class MaskTester:
         self.net = None
 
     def load(self, milestone: str) -> None:
-        """Read ``model-{milestone}.pt`` and place the baked net on the
-        device once."""
-        data = ckpt.load_checkpoint(
-            self.results_folder / f"model-{milestone}.pt")
+        """Read ``model-{milestone}.pt`` (or the JAX package's
+        ``model-{milestone}.ckpt``) and place the baked net on the device
+        once."""
+        data = ckpt.load_mask_checkpoint(
+            ckpt.milestone_path(self.results_folder, milestone), self.model)
         self.model.load_state_dict(data["model"])
         net = bake_inference(self.model.eval(), self.model.dtype)
         self.net = net.to(self.device,

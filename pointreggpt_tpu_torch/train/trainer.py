@@ -358,9 +358,16 @@ class Trainer:
     def load(self, milestone) -> None:
         """Restore a milestone: weights, Adam and EMA state, and the step;
         the loader restarts at the epoch that step had reached. Every
-        process reads the file; rank 0's weights are then broadcast."""
-        data = ckpt.load_checkpoint(
-            self.results_folder / f"model-{milestone}.pt")
+        process reads the file; rank 0's weights are then broadcast.
+
+        ``model-{milestone}.pt`` wins; else the JAX package's
+        ``model-{milestone}.ckpt`` is read, its Adam moments and count
+        carried into this trainer's Adam (its own learning rate, as the
+        JAX trainer's optax closure has it)."""
+        group = self.opt.param_groups[0]
+        data = ckpt.load_diffusion_checkpoint(
+            ckpt.milestone_path(self.results_folder, milestone), self.model,
+            lr=group["lr"], betas=group["betas"], eps=group["eps"])
         self.model.load_state_dict(
             {k[len("model."):]: v for k, v in data["model"].items()})
         self.opt.load_state_dict(data["opt"])

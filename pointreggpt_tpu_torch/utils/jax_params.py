@@ -2,7 +2,9 @@
 
 ``diffusion_unet_from_jax`` / ``mask_unet_from_jax`` take a JAX
 DiffusionUNet / MaskUNet params tree with numpy leaves and return the
-port's ``state_dict`` (reference key names). They invert the layouts of
+port's ``state_dict`` (reference key names; a Fourier time embedding's
+``time_pos_emb/weights`` becomes ``time_mlp.0.weights``, a
+learned-variance head keeps its two output channels). They invert the layouts of
 ``pointreggpt_tpu/utils/torch_port.py``: HWIO conv -> OIHW, Dense (i, o)
 -> Linear (o, i) or 1x1 conv (o, i, 1, 1), LayerNorm ``g`` (c,) ->
 (1, c, 1, 1). Every leaf of the tree must be consumed and, given a
@@ -169,6 +171,9 @@ def diffusion_unet_from_jax(params_np: Mapping,
     """JAX DiffusionUNet params (numpy leaves) -> port state dict."""
     tree = _Tree(params_np)
     sd = _unet(tree)
+    if tree.has("time_pos_emb", "weights"):
+        # the Fourier time embedding's frequencies (learned or frozen)
+        sd["time_mlp.0.weights"] = _t(tree.get("time_pos_emb", "weights"))
     _dense(sd, "time_mlp.1", tree, "time_mlp_1")
     _dense(sd, "time_mlp.3", tree, "time_mlp_2")
     _dense(sd, "param_mlp.0", tree, "param_mlp_1")

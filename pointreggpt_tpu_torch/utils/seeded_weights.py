@@ -13,6 +13,9 @@ In sorted ``state_dict()`` key order, from one
 - other weights are normal / sqrt(fan_in) (fan_in: all dims but the
   first);
 - biases are normal x ``BIAS_STD``;
+- the frequencies of a Fourier time embedding
+  (``RandomOrLearnedSinusoidalPosEmb.weights``, learned or frozen) are
+  standard normal, the module's own init;
 - each LinearAttention's output projection is then scaled by
   ``ATTN_OUT_GAIN`` and its bias set to 0: the block averages its values
   over all n tokens (the reference's v / (h w)), so with weights of unit
@@ -30,8 +33,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from pointreggpt_tpu_torch.models.blocks import (ChannelLayerNorm,
-                                                 LinearAttention)
+from pointreggpt_tpu_torch.models.blocks import (
+    ChannelLayerNorm, LinearAttention, RandomOrLearnedSinusoidalPosEmb)
 from pointreggpt_tpu_torch.models.unet import MaskUNet
 
 BIAS_STD = 0.02
@@ -51,16 +54,25 @@ def _norm_keys(net: nn.Module) -> dict:
     return keys
 
 
+def _fourier_keys(net: nn.Module) -> set:
+    """The state_dict keys of Fourier time-embedding frequencies."""
+    return {f"{name}.weights" for name, mod in net.named_modules()
+            if isinstance(mod, RandomOrLearnedSinusoidalPosEmb)}
+
+
 def seeded_state_dict(net: nn.Module, seed: int,
                       mask_out_bias=MASK_OUT_BIAS) -> dict:
     """The seeded fp32 state dict for ``net`` (see the module docstring)."""
     rng = np.random.default_rng(seed)
     norms = _norm_keys(net)
+    fourier = _fourier_keys(net)
     out = {}
     for key, ref in sorted(net.state_dict().items()):
         shape = tuple(ref.shape)
         if key in norms:
             w = np.full(shape, norms[key])
+        elif key in fourier:
+            w = rng.standard_normal(shape)
         elif len(shape) >= 2:
             w = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
         else:

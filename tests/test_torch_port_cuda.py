@@ -1326,3 +1326,50 @@ def test_profiled_trainer_traces_device_kernels(cuda, tmp_path,
     (trace,) = (tmp_path / "prof").rglob("*.pt.trace.json")
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the JAX surface (``chip_smoke.py``'s ``surface_path``)
+
+
+@pytest.mark.parametrize("case", ["condition", "denoise", "interpolate",
+                                  "fourier"])
+def test_surface_parity_on_the_card(cuda, fp32_exact, case):
+    """``surface_path`` (c) on one case: the port on the card against
+    ``tests/data/torch_port_jax_surface.npz``; the swapped interpolation
+    at least ``FAULT_MARGIN`` times its gate."""
+    cs = _chip_smoke()
+    res = cs.surface_parity_report(torch, K1, K2, cases=(case,))
+    assert not res["failed"], res
+    assert res["launches"] == res["want_launches"], res
+    assert not any(res["plain_routes"].values()), res
+    if case == "interpolate":
+        assert res["fault_over_gate"] >= cs.FAULT_MARGIN, res
+
+
+def test_surface_ckpt_folder_drives_a_generator_step_on_the_card(
+        cuda, fp32_exact, tmp_path):
+    """``surface_path`` (d): ``Generator.load`` on a folder of the JAX
+    ``.ckpt`` files, its step bit for bit the importer's ``.pt``'s."""
+    res = _chip_smoke().surface_ckpt_report(torch, K1, K2, tmp_path)
+    assert not res["differ"], res
+    assert res["launches"] == res["want_launches"], res
+
+
+def test_surface_native_decode_on_the_cards_machine(cuda, tmp_path):
+    """``surface_path`` (f): the native library builds on the card's host
+    and decodes as PIL does, bit for bit."""
+    res = _chip_smoke().surface_native_report(tmp_path / "native")
+    assert res["available"] and not res["unequal"], res
+
+
+def test_surface_fourier_gradients_on_the_card(cuda, fp32_exact):
+    """``surface_path`` (g): a Fourier / learned-variance net's gradients
+    through K1, K3 and K2 against the CPU; frozen frequencies get none."""
+    cs = _chip_smoke()
+    res = cs.surface_fourier_grads(torch, K1, K2)
+    assert res["launches"] == res["want_launches"], res
+    for name in cs.SURFACE_GRAD_OPTIONS:
+        assert res[name]["max_rel_err"] <= cs.GRAD_RTOL, res
+    assert res["learned"]["frequencies_grad"], res
+    assert res["frozen"]["frequencies_grad"] is None, res
