@@ -18,7 +18,9 @@ from ``pointreggpt_tpu/data/datasets.py``, with the same contracts:
 - :class:`PrefetchLoader` draws a fresh permutation per epoch from
   ``default_rng([seed, epoch])``, can start at ``start_epoch``, decodes in
   worker threads ahead of the consumer, re-raises a decode error in the
-  consumer, and releases its thread when an iterator is abandoned. In a
+  consumer, and releases its thread when an iterator is abandoned. Its
+  spans: the consumer's ``loader_wait`` on the queue, and on the
+  producer's thread ``loader_decode`` and ``loader_collate``. In a
   data-parallel run every process walks the same batches and decodes
   only its own positions of each (``rows``).
 
@@ -41,6 +43,7 @@ import torch
 from pointreggpt_tpu_torch import resolve_device
 from pointreggpt_tpu_torch.core import imageio16
 from pointreggpt_tpu_torch.core.geometry import intrinsic_transform, reproject
+from pointreggpt_tpu_torch.utils import profiling
 
 
 def resolve_frame_record(data_root: str, folder: str, rel_path: str,
@@ -310,10 +313,13 @@ class PrefetchLoader:
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for epoch, batch_idx in self._index_batches(start_epoch):
-                        items = list(pool.map(self.dataset.getitem_at_epoch,
-                                              batch_idx,
-                                              [epoch] * len(batch_idx)))
-                        if not put(collate(items)):
+                        with profiling.span("loader_decode", epoch=epoch):
+                            items = list(pool.map(
+                                self.dataset.getitem_at_epoch, batch_idx,
+                                [epoch] * len(batch_idx)))
+                        with profiling.span("loader_collate"):
+                            batch = collate(items)
+                        if not put(batch):
                             return
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 error.append(e)
@@ -324,7 +330,8 @@ class PrefetchLoader:
                          name="prgpt-prefetch").start()
         try:
             while True:
-                item = q.get()
+                with profiling.span("loader_wait"):
+                    item = q.get()
                 if item is sentinel:
                     if error:
                         raise error[0]

@@ -50,6 +50,9 @@ from pointreggpt_tpu_torch.utils.jax_params import strip_prefix
 
 BBOX_MIN = (-1.5, -1.5, 0.5)
 BBOX_MAX = (1.5, 1.5, 3.5)
+# the JAX package's stage names: ``generate``'s top-level spans that
+# ``PRGPT_PROFILE`` sums
+STAGES = ("scene_setup", "dispatch", "host_write")
 
 
 class StepOutputs(NamedTuple):
@@ -282,12 +285,21 @@ class Generator:
                 under torchrun the CLI passes this process's strided share
                 (``parallel.local_scene_range``).
 
-        ``PRGPT_PROFILE=<dir>`` (``utils/profiling.py``): the wall time of
-        ``scene_setup`` (a chunk's host set-up), ``dispatch`` (queueing a
-        sample step; the card runs it later) and ``host_write`` (waiting
-        for a step's outputs and writing them, which overlaps the next
-        step on the card), printed at the end, and a trace of the third
-        sample step, which the breakdown leaves out.
+        Spans (``utils/profiling.py``, recorded while a ``torch.profiler``
+        session records or ``PRGPT_PROFILE`` is set; ``req`` the chunk's
+        first scene index): ``scene_setup`` (a chunk's host set-up; per
+        scene ``scene_dir``, ``frame_read``, ``seed_outputs``),
+        ``chunk_upload`` (the memory and intrinsics to the device and the
+        parameter vector), ``dispatch`` (queueing a sample step, ``step``
+        and ``to_host``; the card runs it later; the allocator's counts on
+        the card) and ``host_write`` (``event_wait`` for the step's
+        copies, then per scene ``encode``, the pose and PNGs, and at the
+        last sample ``fragment``, the voxel-downsampled PLY), which
+        overlaps the next step on the card.
+        ``PRGPT_PROFILE=<dir>`` also prints the totals of ``scene_setup``,
+        ``dispatch`` and ``host_write``, the GC pauses and the allocator
+        counts at the end, and writes a trace of the third sample step,
+        which the totals leave out.
         """
         cap = self.memory_capacity
         self._load_depth_correction()
@@ -295,8 +307,7 @@ class Generator:
             raise RuntimeError("call load() first")
         # step 0 pays the first launches; one traced step is plenty (each
         # is a whole DDIM chain)
-        prof = profiling.loop_profile(1, 3)
-        stage = prof.stage if prof is not None else profiling.no_stage
+        prof = profiling.loop_profile(1, 3, STAGES)
         if info_train is None:
             with open(self.train_info_path, "rb") as f:
                 info_train = pickle.load(f)
@@ -326,26 +337,32 @@ class Generator:
             mem_valid = np.zeros((batch, cap), bool)
             fragment_clouds = [None] * batch
             fragment_poses = [None] * batch
-            with stage("scene_setup"):
+            req = chunk[0]
+            with profiling.span("scene_setup", req):
                 self._setup_chunk(chunk, info_train, intrinsic, mem_pts,
                                   mem_valid, save_voxel_size)
 
-            mem_pts_d = torch.from_numpy(mem_pts).to(self.device)
-            mem_valid_d = torch.from_numpy(mem_valid).to(self.device)
-            intr_d = torch.from_numpy(intrinsic).to(self.device)
-            param_cond = G.param_vector(intr_d)
+            with profiling.span("chunk_upload", req):
+                mem_pts_d = torch.from_numpy(mem_pts).to(self.device)
+                mem_valid_d = torch.from_numpy(mem_valid).to(self.device)
+                intr_d = torch.from_numpy(intrinsic).to(self.device)
+                param_cond = G.param_vector(intr_d)
 
             pending = None  # (sample_idx, host outputs, event) of step k
             for sample_idx in range(num_samples):
-                with stage("dispatch"), profiling.annotate("generator_step"):
-                    outs = self.step(mem_pts_d, mem_valid_d, intr_d,
-                                     param_cond, gen,
-                                     has_refine_step=has_refine_step,
-                                     memory_voxel=memory_voxel_size)
+                with profiling.span("dispatch", req, alloc=self.device,
+                                    sample=sample_idx):
+                    with profiling.span("step"):
+                        outs = self.step(mem_pts_d, mem_valid_d, intr_d,
+                                         param_cond, gen,
+                                         has_refine_step=has_refine_step,
+                                         memory_voxel=memory_voxel_size)
                     mem_pts_d, mem_valid_d = outs.mem_pts, outs.mem_valid
-                    host = (sample_idx,) + self._to_host(outs)
+                    with profiling.span("to_host"):
+                        host = (sample_idx,) + self._to_host(outs)
                 if pending is not None:
-                    with stage("host_write"):
+                    with profiling.span("host_write", req,
+                                        sample=pending[0]):
                         self._write_sample_outputs(
                             chunk, pending, num_samples, fragment_clouds,
                             fragment_poses, save_voxel_size, verbose)
@@ -353,7 +370,7 @@ class Generator:
                 if prof is not None:
                     prof.tick()
             if pending is not None:
-                with stage("host_write"):
+                with profiling.span("host_write", req, sample=pending[0]):
                     self._write_sample_outputs(
                         chunk, pending, num_samples, fragment_clouds,
                         fragment_poses, save_voxel_size, verbose)
@@ -368,17 +385,16 @@ class Generator:
         cap = self.memory_capacity
         for i, sid in enumerate(chunk):
             scene_dir = self.samples_folder / f"scene-{sid:0>6d}"
-            if scene_dir.exists():
-                shutil.rmtree(scene_dir, ignore_errors=True)
-            scene_dir.mkdir(parents=True, exist_ok=True)
+            with profiling.span("scene_dir", scene=sid):
+                if scene_dir.exists():
+                    shutil.rmtree(scene_dir, ignore_errors=True)
+                scene_dir.mkdir(parents=True, exist_ok=True)
 
             rel = self._scene_source(info_train, sid)
-            depth01, intr = resolve_frame_record(
-                self.data_root, self.folder, rel, self.image_size)
+            with profiling.span("frame_read", scene=sid):
+                depth01, intr = resolve_frame_record(
+                    self.data_root, self.folder, rel, self.image_size)
             intrinsic[i] = intr
-            np.savetxt(scene_dir / "camera-intrinsics.txt", intr)
-            Image.fromarray(imageio16.to_uint8_image(depth01)).save(
-                scene_dir / "sample-000000.image.png")
 
             pc = G.point_cloud_np(depth01 * 10.0, intr, clip=(0.5, 10.0))
             inside = np.all((pc >= BBOX_MIN) & (pc <= BBOX_MAX), axis=-1)
@@ -386,8 +402,13 @@ class Generator:
             n = min(pc.shape[0], cap)
             mem_pts[i, :n] = pc[:n]
             mem_valid[i, :n] = True
-            plyio.write_ply(scene_dir / "sample-000000.cloud.ply",
-                            voxel_downsample_host(pc[:n], save_voxel_size))
+            with profiling.span("seed_outputs", scene=sid):
+                np.savetxt(scene_dir / "camera-intrinsics.txt", intr)
+                Image.fromarray(imageio16.to_uint8_image(depth01)).save(
+                    scene_dir / "sample-000000.image.png")
+                plyio.write_ply(scene_dir / "sample-000000.cloud.ply",
+                                voxel_downsample_host(pc[:n],
+                                                      save_voxel_size))
 
     # ------------------------------------------------------------------
     def _write_sample_outputs(self, chunk, pending, num_samples,
@@ -396,7 +417,8 @@ class Generator:
         """Host side of one generation step."""
         sample_idx, outs, event = pending
         if event is not None:
-            event.synchronize()
+            with profiling.span("event_wait"):
+                event.synchronize()
         (pose_np, images_raw_np, images_rpj_np, images_np, world_np,
          world_valid_np, overflow_np) = (t.numpy() for t in outs)
         cap = self.memory_capacity
@@ -409,17 +431,20 @@ class Generator:
         for i, sid in enumerate(chunk):
             scene_dir = self.samples_folder / f"scene-{sid:0>6d}"
             out_idx = sample_idx + 1
-            np.savetxt(scene_dir / f"sample-{out_idx:0>6d}.pose.txt",
-                       np.linalg.inv(pose_np[i]))
-            Image.fromarray(imageio16.to_uint8_image(images_raw_np[i])).save(
-                scene_dir / "reprojected.image.png")
-            Image.fromarray(imageio16.to_uint8_image(images_rpj_np[i])).save(
-                scene_dir / "corrected.image.png")
-            img01 = images_np[i, ..., 0]
-            Image.fromarray(imageio16.to_uint8_image(img01)).save(
-                scene_dir / f"sample-{out_idx:0>6d}.image.png")
-            imageio16.write_depth_png(
-                scene_dir / f"sample-{out_idx:0>6d}.depth.png", img01)
+            with profiling.span("encode", scene=sid):
+                np.savetxt(scene_dir / f"sample-{out_idx:0>6d}.pose.txt",
+                           np.linalg.inv(pose_np[i]))
+                Image.fromarray(imageio16.to_uint8_image(
+                    images_raw_np[i])).save(
+                        scene_dir / "reprojected.image.png")
+                Image.fromarray(imageio16.to_uint8_image(
+                    images_rpj_np[i])).save(
+                        scene_dir / "corrected.image.png")
+                img01 = images_np[i, ..., 0]
+                Image.fromarray(imageio16.to_uint8_image(img01)).save(
+                    scene_dir / f"sample-{out_idx:0>6d}.image.png")
+                imageio16.write_depth_png(
+                    scene_dir / f"sample-{out_idx:0>6d}.depth.png", img01)
 
             wp = world_np[i][world_valid_np[i]]
             if sample_idx == 0:
@@ -430,20 +455,22 @@ class Generator:
                     [fragment_clouds[i], wp], axis=0)
 
             if sample_idx == num_samples - 1:
-                frag = fragment_clouds[i]
-                fpose = fragment_poses[i]
-                # to the first-sample camera frame, crop, voxel, back
-                cam = frag @ fpose[:3, :3].T + fpose[:3, 3]
-                inside = np.all((cam >= BBOX_MIN) & (cam <= BBOX_MAX),
-                                axis=-1)
-                cam = cam[inside].astype(np.float32)
-                if cam.shape[0]:
-                    down = voxel_downsample_host(cam, save_voxel_size)
-                    inv = np.linalg.inv(fpose)
-                    down = down @ inv[:3, :3].T + inv[:3, 3]
-                else:
-                    down = cam
-                plyio.write_ply(scene_dir / "sample-000001.cloud.ply", down)
+                with profiling.span("fragment", scene=sid):
+                    frag = fragment_clouds[i]
+                    fpose = fragment_poses[i]
+                    # to the first-sample camera frame, crop, voxel, back
+                    cam = frag @ fpose[:3, :3].T + fpose[:3, 3]
+                    inside = np.all((cam >= BBOX_MIN) & (cam <= BBOX_MAX),
+                                    axis=-1)
+                    cam = cam[inside].astype(np.float32)
+                    if cam.shape[0]:
+                        down = voxel_downsample_host(cam, save_voxel_size)
+                        inv = np.linalg.inv(fpose)
+                        down = down @ inv[:3, :3].T + inv[:3, 3]
+                    else:
+                        down = cam
+                    plyio.write_ply(scene_dir / "sample-000001.cloud.ply",
+                                    down)
 
         if verbose:
             print(f"scenes {chunk[0]}-{chunk[-1]}: "

@@ -48,6 +48,7 @@ from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.train.metrics import (METRIC_NAMES, AverageMeter,
                                                  Logger, mask_metrics)
 from pointreggpt_tpu_torch.train.trainer import clip_by_global_norm_
+from pointreggpt_tpu_torch.utils import profiling
 
 MASK_THRESHOLD = 0.99
 
@@ -67,15 +68,18 @@ def bce_loss(prob: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def _to_device(batch: Dict[str, np.ndarray], keys: Sequence[str],
-               device: torch.device) -> List[torch.Tensor]:
+               device: torch.device, *, step: Optional[int] = None
+               ) -> List[torch.Tensor]:
     """(b, h, w, 1) numpy images as (b, 1, h, w) tensors on ``device``,
-    from pinned memory without a host wait on the card."""
+    from pinned memory without a host wait on the card; an ``upload``
+    span, ``step`` its request identifier."""
     out = []
-    for key in keys:
-        t = torch.from_numpy(batch[key])
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out.append(t.permute(0, 3, 1, 2))
+    with profiling.span("upload", step):
+        for key in keys:
+            t = torch.from_numpy(batch[key])
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            out.append(t.permute(0, 3, 1, 2))
     return out
 
 
@@ -158,29 +162,40 @@ class MaskTrainer:
     def train_step(self, input_img: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
         """One optimizer step on a (b, 1, h, w) batch (this process's
-        rows); returns the loss (over every process) as a device scalar."""
-        self.model.train()
-        self.opt.zero_grad(set_to_none=True)
-        loss = bce_loss(self.model(input_img), mask)
-        loss.backward()
-        grads = [p.grad for p in self.params]
-        loss = loss.detach().reshape(1)
-        # before the clip, which sees the global gradient; the loss rides
-        # in the same all-reduce
-        M.all_reduce_mean_(grads + [loss])
-        clip_by_global_norm_(grads, self.grad_clip)
-        for group in self.opt.param_groups:
-            group["lr"] = self.lr_at(self.count)
-        self.opt.step()
-        self.count += 1
-        return loss[0]
+        rows); returns the loss (over every process) as a device scalar.
+
+        Spans (``req`` the Adam count; the allocator's counts on the
+        card): ``train_step``, with ``forward``, ``backward``,
+        ``all_reduce``, ``clip`` and ``adam``."""
+        with profiling.span("train_step", self.count, alloc=self.device):
+            self.model.train()
+            self.opt.zero_grad(set_to_none=True)
+            with profiling.span("forward"):
+                loss = bce_loss(self.model(input_img), mask)
+            with profiling.span("backward"):
+                loss.backward()
+            grads = [p.grad for p in self.params]
+            loss = loss.detach().reshape(1)
+            # before the clip, which sees the global gradient; the loss
+            # rides in the same all-reduce
+            with profiling.span("all_reduce"):
+                M.all_reduce_mean_(grads + [loss])
+            with profiling.span("clip"):
+                clip_by_global_norm_(grads, self.grad_clip)
+            with profiling.span("adam"):
+                for group in self.opt.param_groups:
+                    group["lr"] = self.lr_at(self.count)
+                self.opt.step()
+            self.count += 1
+            return loss[0]
 
     def train_one_epoch(self) -> float:
         meter = AverageMeter()
         t0 = time.time()
         losses = []
         for batch in self._loader(self.epoch):
-            x, m = _to_device(batch, ("input_img", "mask"), self.device)
+            x, m = _to_device(batch, ("input_img", "mask"), self.device,
+                              step=self.count)
             losses.append(self.train_step(x, m))
         # one transfer at the epoch's end: a read per step would make the
         # next batch's upload wait for this step

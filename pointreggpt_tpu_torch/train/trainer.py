@@ -44,6 +44,9 @@ from pointreggpt_tpu_torch.train.metrics import Logger
 from pointreggpt_tpu_torch.utils import profiling
 
 VERSION = "pointreggpt-tpu-torch"
+# the JAX package's stage names: ``train``'s top-level spans that
+# ``PRGPT_PROFILE`` sums
+STAGES = ("load_batch", "dispatch", "loss_sync", "save_and_sample")
 
 
 def save_image_grid(images01: np.ndarray, path, nrow: int) -> None:
@@ -202,64 +205,80 @@ class Trainer:
         host wait on the card."""
         a, b = self.gradient_accumulate_every, self.local_batch
         out = []
-        for key in ("img", "intrinsic"):
-            t = torch.from_numpy(batch[key])
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t.reshape((a, b) + t.shape[1:]))
+        with profiling.span("upload", self.step):
+            for key in ("img", "intrinsic"):
+                t = torch.from_numpy(batch[key])
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out.append(t.reshape((a, b) + t.shape[1:]))
         return out
 
     def train_step(self, img: torch.Tensor, intrinsic: torch.Tensor,
                    generator: torch.Generator) -> torch.Tensor:
         """One optimizer step over ``accum`` microbatches; returns the mean
-        microbatch loss (over every process) as a device scalar."""
-        self.model.train()
-        self.opt.zero_grad(set_to_none=True)
-        loss_sum = torch.zeros((), device=self.device)
-        for i in range(self.gradient_accumulate_every):
-            loss = self.diffusion.training_loss(
-                self.model, img[i], intrinsic[i], generator, rows=self.rows)
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-        grads = [p.grad for p in self.params]
-        # where JAX's psum sits: before the clip, which sees the global
-        # gradient; the loss rides in the same all-reduce
-        M.all_reduce_mean_(grads + [loss_sum.reshape(1)])
-        torch._foreach_div_(grads, float(self.gradient_accumulate_every))
-        clip_by_global_norm_(grads, self.grad_clip)
-        self.opt.step()
-        self.ema.update()
-        return loss_sum / self.gradient_accumulate_every
+        microbatch loss (over every process) as a device scalar.
+
+        Spans (``req`` the step count; the allocator's counts on the
+        card): ``train_step``, with ``forward`` and ``backward`` per
+        microbatch, ``all_reduce``, ``clip``, ``adam`` and ``ema``."""
+        with profiling.span("train_step", self.step, alloc=self.device):
+            self.model.train()
+            self.opt.zero_grad(set_to_none=True)
+            loss_sum = torch.zeros((), device=self.device)
+            for i in range(self.gradient_accumulate_every):
+                with profiling.span("forward", micro=i):
+                    loss = self.diffusion.training_loss(
+                        self.model, img[i], intrinsic[i], generator,
+                        rows=self.rows)
+                with profiling.span("backward", micro=i):
+                    loss.backward()
+                loss_sum = loss_sum + loss.detach()
+            grads = [p.grad for p in self.params]
+            # where JAX's psum sits: before the clip, which sees the
+            # global gradient; the loss rides in the same all-reduce
+            with profiling.span("all_reduce"):
+                M.all_reduce_mean_(grads + [loss_sum.reshape(1)])
+            with profiling.span("clip"):
+                torch._foreach_div_(grads,
+                                    float(self.gradient_accumulate_every))
+                clip_by_global_norm_(grads, self.grad_clip)
+            with profiling.span("adam"):
+                self.opt.step()
+            with profiling.span("ema"):
+                self.ema.update()
+            return loss_sum / self.gradient_accumulate_every
 
     def train(self, *, log_every: int = 50) -> None:
         """Run the loop to ``train_num_steps``.
 
-        ``PRGPT_PROFILE=<dir>`` (``utils/profiling.py``): the wall time of
-        the stages ``load_batch`` (waiting for the decoded batch),
-        ``dispatch`` (upload and queueing of the step; the card runs it
-        later), ``loss_sync`` (the log line's read of the loss) and
-        ``save_and_sample``, printed at the end, and a trace of steps 3-4,
-        whose steps the breakdown leaves out.
+        Spans (``utils/profiling.py``, recorded while a ``torch.profiler``
+        session records or ``PRGPT_PROFILE`` is set; ``req`` the step
+        count): the stages ``load_batch`` (waiting for the decoded batch:
+        the loader's ``loader_wait``), ``dispatch`` (``upload`` and the
+        queueing of ``train_step``; the card runs it later), ``loss_sync``
+        (the log line's read of the loss) and ``save_and_sample``.
+        ``PRGPT_PROFILE=<dir>`` also prints the stages' totals, the GC
+        pauses and the allocator counts at the end, and writes a trace of
+        steps 3-4, which the totals leave out.
         """
-        prof = profiling.loop_profile(2, 5)
-        stage = prof.stage if prof is not None else profiling.no_stage
+        prof = profiling.loop_profile(2, 5, STAGES)
         generator = torch.Generator(device=self.device).manual_seed(
             self._generator_seed())
         device_losses = []
         t0 = time.time()
         while self.step < self.train_num_steps:
-            with stage("load_batch"):
+            with profiling.span("load_batch", self.step):
                 batch = next(self.dl)
             if self.calculate_fid:
                 self._last_batch = batch
-            with stage("dispatch"), profiling.annotate("train_step"):
+            with profiling.span("dispatch", self.step):
                 img, intrinsic = self._upload(batch)
                 loss = self.train_step(img, intrinsic, generator)
             if self.track_losses:
                 device_losses.append(loss)
             self.step += 1
             if self.step % log_every == 0:
-                with stage("loss_sync"):
+                with profiling.span("loss_sync", self.step - 1):
                     loss_v = loss.item()
                 # the global batch: every process's rows
                 rate = log_every * self.batch_size * \
@@ -269,7 +288,7 @@ class Trainer:
                     f"loss {loss_v:.4f} ({rate:.1f} img/s)")
                 t0 = time.time()
             if self.step % self.save_and_sample_every == 0:
-                with stage("save_and_sample"):
+                with profiling.span("save_and_sample", self.step - 1):
                     self._save_and_sample(self.step)
                 # the milestone's sampling would deflate the next rate
                 t0 = time.time()
