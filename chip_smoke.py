@@ -47,7 +47,11 @@ Phases, each printing one JSON line:
    of ``conv3x3_plain`` (fp32 at a small shape, 1e-4; bf16 at (16, 256,
    256, 128 -> 64), 3e-2); then K5's fp32 path (three TF32 passes on
    the tensor cores) at the same four shapes against its plain version
-   (1e-5 relative) and fp32 cuDNN (TF32 off);
+   (1e-5 relative) and fp32 cuDNN (TF32 off); then ``profile_conv.mask_main``
+   at the fp32 MaskUNet's fourteen 3x3 shapes at batch 4: ``conv3_dw``'s
+   time, bound and gap to fp64 (at most twice cuDNN's fp32 weight
+   gradient's), ``_wgrad``'s and cuDNN's times, K5's forward and dx beside
+   cuDNN's;
 8. ``net_parity``: a small whole-U-Net forward on the card against the
    same net on the CPU (fp32, plain path);
 9. ``forward_profile``: one production DiffusionUNet forward (bf16,
@@ -690,13 +694,49 @@ def phase_conv_tools(torch, dev):
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         r["library_share_of_bound"] = r["bound_ms"] / r["library_ms"]
     fp32 = conv_fp32(torch, KC, dev)
+    dw = conv_dw(KC, profile_conv)
     emit("conv_tools", card=card_line(), rtol=CONV_RTOL,
          grad_rel_err=grad_errs, grad_rtol=CONV_GRAD_RTOL,
          k5_launches=k5_launches, k6_launches=k6_launches, k5=k5_rows,
-         k6_small=ig["correctness"], k6=k6_rows, k5_fp32=fp32)
+         k6_small=ig["correctness"], k6=k6_rows, k5_fp32=fp32,
+         mask_route=dw)
     torch.cuda.empty_cache()
-    return (dict(conv_summary(k5_rows, KC, k5_launches), fp32=fp32),
-            conv_summary(k6_rows, KC, k6_launches))
+    return (dict(conv_summary(k5_rows, KC, k5_launches), fp32=fp32,
+                 dw=dw), conv_summary(k6_rows, KC, k6_launches))
+
+
+# K5's fp32 forward and dx against fp64 on the route: three TF32 passes
+# keep about 21 bits a product, so a few 2^-21 (one TF32 pass: ~2^-11)
+ROUTE_FP32_GAP = 8 * 2.0**-21
+
+
+def conv_dw(KC, profile_conv) -> dict:
+    """``profile_conv.mask_main``: the route's kernels at the fp32
+    MaskUNet's 3x3 shapes at batch 4; ``conv3_dw``'s gaps to fp64 at most
+    twice cuDNN's fp32 weight gradient's, and K5's forward (with the bias)
+    and dx within ``ROUTE_FP32_GAP`` of fp64, at every shape. Returns the
+    rows and the sums over the shapes."""
+    KC.conv3_dw.launches = 0
+    res = profile_conv.mask_main()
+    rows = res["shapes"]
+    bad = [(r["shape"], r["dw_gap"], r["library_dw_gap"]) for r in rows
+           if not r["dw_gap"] <= 2 * r["library_dw_gap"]]
+    if bad:
+        raise AssertionError(f"conv3_dw against fp64: {bad} above twice "
+                             f"cuDNN's gap")
+    bad = [(r["shape"], k, r[k]) for r in rows for k in ("fwd_gap", "dx_gap")
+           if not r[k] <= ROUTE_FP32_GAP]
+    if bad:
+        raise AssertionError(f"K5 fp32 on the route against fp64: {bad} > "
+                             f"{ROUTE_FP32_GAP}")
+    total = {k: sum(r[k] for r in rows) for k in (
+        "dw_ms", "bound_ms", "wgrad_plain_ms", "library_dw_ms", "fwd_ms",
+        "dx_ms", "library_fwd_ms", "library_dx_ms")}
+    return dict(shapes=rows, launches=res["launches"], **total,
+                share_of_bound=total["bound_ms"] / total["dw_ms"],
+                **{f"max_{k}": max(r[k] for r in rows) for k in (
+                    "dw_gap", "library_dw_gap", "fwd_gap", "library_fwd_gap",
+                    "dx_gap", "library_dx_gap")}, gap_rtol=ROUTE_FP32_GAP)
 
 
 CONV_FP32_RTOL = 1e-5  # three TF32 passes keep about 21 bits a product
@@ -893,7 +933,8 @@ def phase_mask_fwd_bwd(torch, K1, K2, dev):
     """One fp32 MaskUNet (``MaskModelConfig``: dim 64, (1, 2, 4, 8), 8
     groups) forward and backward of the MaskTrainer's loss at its
     microbatch, 4 x 256^2: K1, K2 and K3 launch in fp32 (counted; none
-    routed to a plain version); the step's time by CUDA events once it has
+    routed to a plain version), and its 3x3 convs on K5 and ``conv3_dw``
+    (``mask_conv_want``, counted); the step's time by CUDA events once it has
     settled, and the device time by kernel category (summed and busy) of
     one more step, timed alike; the loss gradients card against CPU
     (fp32, ``GRAD_RTOL``) at ``MASK_PARITY_BATCH`` images, with each
@@ -956,11 +997,17 @@ def phase_mask_fwd_bwd(torch, K1, K2, dev):
     reset_counts(K1, K2)
     times = [timed_step() for _ in range(MASK_STEPS)]
     k1_n, k3_n, k2_n, routes = counts(K1, K2)
+    conv_n = conv_counts()
     want = (MASK_STEPS * n_attn, MASK_STEPS * n_attn, MASK_STEPS)
     if (k1_n, k3_n, k2_n) != want:
         raise AssertionError(f"mask_fwd_bwd launches K1, K3, K2 = "
                              f"{(k1_n, k3_n, k2_n)} over {MASK_STEPS} "
                              f"steps, want {want}")
+    if conv_n != mask_conv_want(MASK_STEPS):
+        raise AssertionError(f"mask_fwd_bwd convs routed to K5, left to "
+                             f"F.conv2d, K5 and conv3_dw launches = "
+                             f"{conv_n} over {MASK_STEPS} steps, want "
+                             f"{mask_conv_want(MASK_STEPS)}")
     check_no_routes("mask_fwd_bwd", routes)
     bad = [n for n, p in gpu_net.named_parameters()
            if p.grad is None or not torch.isfinite(p.grad).all()]
@@ -978,6 +1025,9 @@ def phase_mask_fwd_bwd(torch, K1, K2, dev):
          profiled_step_ms=profiled_ms,
          k1_per_step=k1_n / MASK_STEPS, k3_per_step=k3_n / MASK_STEPS,
          k2_per_step=k2_n / MASK_STEPS, plain_routes=routes,
+         conv_per_step=dict(zip(("k5", "library", "k5_launches",
+                                 "dw_launches"),
+                                (n / MASK_STEPS for n in conv_n))),
          grad_parity_batch=MASK_PARITY_BATCH, grad_max_rel_err=worst,
          grad_worst=worst_name, grad_rtol=GRAD_RTOL, fwd_bwd=fwd_bwd)
     del gpu_net, depth, target, prof
@@ -1042,11 +1092,39 @@ def write_checkpoints(torch, root: Path, seed: int):
 
 
 def reset_counts(K1, K2) -> None:
-    """Launch counters of K1, K3 and K2, and K1's and K3's plain routes,
-    to 0 just before an entry point runs."""
+    """Launch counters of K1, K3 and K2, K1's and K3's plain routes, and
+    the conv route's counts (``conv_counts``) to 0 just before an entry
+    point runs."""
+    from pointreggpt_tpu_torch.ops import conv as KC
+
     for op in (K1.fused_linear_attention, K1.fused_linear_attention_bwd):
         op.launches = op.plain_routes = 0
     K2.multihead_attention.launches = 0
+    KC.conv3x3.launches = KC.conv3_dw.launches = 0
+    for k in KC.ROUTES:
+        KC.ROUTES[k] = 0
+
+
+def conv_counts() -> tuple:
+    """(3x3 convs routed to K5, convs left to ``F.conv2d``, K5 launches,
+    forward and dx, ``conv3_dw`` launches)."""
+    from pointreggpt_tpu_torch.ops import conv as KC
+
+    return (KC.ROUTES["conv_k5"], KC.ROUTES["conv_library"],
+            KC.conv3x3.launches, KC.conv3_dw.launches)
+
+
+# the fp32 MaskUNet's convs a forward: 3x3 SAME ones routed to K5, the
+# rest (7x7, 4x4 stride 2, 1x1) left to F.conv2d
+MASK_K5_CONVS, MASK_LIBRARY_CONVS = 43, 15
+
+
+def mask_conv_want(fwd_bwd: int, fwd: int = 0) -> tuple:
+    """``conv_counts`` of ``fwd_bwd`` MaskUNet forwards and backwards and
+    ``fwd`` forwards alone."""
+    n = fwd_bwd + fwd
+    return (MASK_K5_CONVS * n, MASK_LIBRARY_CONVS * n,
+            MASK_K5_CONVS * (2 * fwd_bwd + fwd), MASK_K5_CONVS * fwd_bwd)
 
 
 def counts(K1, K2) -> tuple:
@@ -1124,7 +1202,9 @@ def phase_mask_train_path(torch, K1, K2, seed: int, tmp: Path,
     epochs and again with ``--resume latest`` for a third, then
     ``test_depth_correction`` on 4 items. Checks 8 K1, 8 K3 and 1 K2 per
     optimizer step (8 K1 and 1 K2 per validation batch, and the forward
-    that records the best net's output, counted apart), no
+    that records the best net's output, counted apart), the conv route's
+    counts alike (``mask_conv_want``: 43 convs on K5 with 43 forward, 43
+    dx and 43 ``conv3_dw`` launches and 15 on ``F.conv2d`` a step), no
     plain route, finite losses, the staircase learning rate, both
     checkpoints, the Generator's reading of ``model-best.pt`` (its net's
     keep probabilities on a validation input against the trainer's net's
@@ -1169,23 +1249,24 @@ def phase_mask_train_path(torch, K1, K2, seed: int, tmp: Path,
         epochs.append((self.epoch, time.perf_counter() - t0))
         return out
 
+    def launches():  # K1, K3, K2, then conv_counts
+        return counts(K1, K2)[:3] + conv_counts()
+
     def eval_one_epoch(self):
-        before = counts(K1, K2)[:3]
+        before = launches()
         t0 = time.perf_counter()
         orig[2](self)
         evals.append((self.epoch, time.perf_counter() - t0,
-                      tuple(b - a for a, b in zip(before,
-                                                  counts(K1, K2)[:3]))))
+                      tuple(b - a for a, b in zip(before, launches()))))
 
     def save(self, milestone):
         if milestone == "best":
             # the net's keep probabilities when it is saved as the best,
             # its launches counted apart
-            before = counts(K1, K2)[:3]
+            before = launches()
             with torch.inference_mode():
                 best_probs[:] = [self.model.eval()(val_input()).cpu()]
-            saves.append(tuple(b - a for a, b in zip(before,
-                                                     counts(K1, K2)[:3])))
+            saves.append(tuple(b - a for a, b in zip(before, launches())))
         orig[3](self, milestone)
 
     def val_input():
@@ -1219,6 +1300,7 @@ def phase_mask_train_path(torch, K1, K2, seed: int, tmp: Path,
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         *total, routes = counts(K1, K2)
+        total += conv_counts()
         peak = torch.cuda.max_memory_allocated()
         (Trainer.train_step, Trainer.train_one_epoch,
          Trainer.eval_one_epoch, Trainer.save) = orig
@@ -1248,16 +1330,22 @@ def phase_mask_train_path(torch, K1, K2, seed: int, tmp: Path,
                                     .read_text())) // cfg.val_batch_size)
     mask = C.build_mask_unet(C.MaskModelConfig())
     n_attn = sum(isinstance(m, LinearAttention) for m in mask.modules())
-    eval_n = tuple(sum(e[2][i] for e in evals) for i in range(3))
-    want_eval = (n_attn * val_batches * len(evals), 0,
-                 val_batches * len(evals))
-    save_n = tuple(sum(n[i] for n in saves) for i in range(3))
+    n_evals = val_batches * len(evals)
+    eval_n = tuple(sum(e[2][i] for e in evals) for i in range(7))
+    want_eval = (n_attn * n_evals, 0, n_evals) + mask_conv_want(0, n_evals)
+    save_n = tuple(sum(n[i] for n in saves) for i in range(7))
+    want_save = (n_attn * len(saves), 0, len(saves)) + mask_conv_want(
+        0, len(saves))
     step_n = tuple(t - v - b for t, v, b in zip(total, eval_n, save_n))
-    want_step = (n_attn * n_steps, n_attn * n_steps, n_steps)
-    if (step_n, eval_n) != (want_step, want_eval) or len(evals) != 3:
+    want_step = (n_attn * n_steps, n_attn * n_steps, n_steps) + \
+        mask_conv_want(n_steps)
+    if (step_n, eval_n, save_n) != (want_step, want_eval, want_save) or \
+            len(evals) != 3:
         raise AssertionError(
-            f"mask_train_path launches K1, K3, K2: steps {step_n} (want "
-            f"{want_step}), validation {eval_n} (want {want_eval})")
+            f"mask_train_path launches K1, K3, K2, then convs routed to "
+            f"K5, left to F.conv2d, K5 and conv3_dw launches: steps "
+            f"{step_n} (want {want_step}), validation {eval_n} (want "
+            f"{want_eval}), best-net forwards {save_n} (want {want_save})")
     check_no_routes("mask_train_path", routes)
     losses = [v.item() for _, _, _, v, _ in steps]
     if not np.all(np.isfinite(losses)):
@@ -1317,8 +1405,11 @@ def phase_mask_train_path(torch, K1, K2, seed: int, tmp: Path,
         lr_by_epoch=[lrs[e] for e in sorted(lrs)],
         k1_per_step=step_n[0] / n_steps, k3_per_step=step_n[1] / n_steps,
         k2_per_step=step_n[2] / n_steps,
-        k1_per_val_batch=eval_n[0] / (val_batches * len(evals)),
-        k2_per_val_batch=eval_n[2] / (val_batches * len(evals)),
+        k1_per_val_batch=eval_n[0] / n_evals,
+        k2_per_val_batch=eval_n[2] / n_evals,
+        conv_per_step=dict(zip(("k5", "library", "k5_launches",
+                                "dw_launches"),
+                               (n / n_steps for n in step_n[3:]))),
         k1_launches=total[0], k3_launches=total[1], k2_launches=total[2],
         plain_routes=routes, generator_max_abs_err=gen_err,
         generator_atol=MASK_ATOL, gifs=len(gifs))
@@ -1705,6 +1796,7 @@ def phase_train_path(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         *total, routes = counts(K1, K2)
+        total += conv_counts()
     finally:
         Trainer.train_step, Trainer._save_and_sample = orig_step, orig_save
     if len(marks) != 2:
@@ -3805,7 +3897,13 @@ def main(argv=None) -> int:
                   "(under fp32, the same 4 shapes, library_ms F.conv2d "
                   "fp32 with TF32 off) conv3_tf32.cuh's implicit GEMM in "
                   "three TF32 passes on the tensor cores, bound_ms at "
-                  "494.7 / 3 TFLOP/s, cuda_core_bound_ms at 67",
+                  "494.7 / 3 TFLOP/s, cuda_core_bound_ms at 67; dw: "
+                  "profile_conv.mask_main, the fp32 MaskUNet's 14 3x3 "
+                  "shapes at batch 4 (the route of ops/conv.py::conv2d, "
+                  "on the MaskUNet path): conv3_dw.cu's weight and bias "
+                  "gradient (dw_ms) beside its bound, _wgrad and cuDNN's "
+                  "fp32 weight gradient, and K5's fp32 forward and dx "
+                  "beside cuDNN's, summed over the shapes",
              **k5),
         dict(name="conv3_igemm", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/conv3_igemm.cu",

@@ -43,6 +43,7 @@ from pointreggpt_tpu_torch.core import sampling as S
 from pointreggpt_tpu_torch.data.datasets import resolve_frame_record
 from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
 from pointreggpt_tpu_torch.models.bake import bake_inference
+from pointreggpt_tpu_torch.ops import conv
 from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.utils import profiling
@@ -128,6 +129,7 @@ class Generator:
                  seed: int = 0,
                  device=None):
         self.device = resolve_device(device)
+        conv.load(self.device)  # the fp32 MaskUNet's kernels, at set-up
         self.model = model
         self.diffusion = diffusion
         self.folder = folder
@@ -292,14 +294,14 @@ class Generator:
         ``chunk_upload`` (the memory and intrinsics to the device and the
         parameter vector), ``dispatch`` (queueing a sample step, ``step``
         and ``to_host``; the card runs it later; the allocator's counts on
-        the card) and ``host_write`` (``event_wait`` for the step's
-        copies, then per scene ``encode``, the pose and PNGs, and at the
-        last sample ``fragment``, the voxel-downsampled PLY), which
-        overlaps the next step on the card.
+        the card and the conv route's) and ``host_write`` (``event_wait``
+        for the step's copies, then per scene ``encode``, the pose and
+        PNGs, and at the last sample ``fragment``, the voxel-downsampled
+        PLY), which overlaps the next step on the card.
         ``PRGPT_PROFILE=<dir>`` also prints the totals of ``scene_setup``,
-        ``dispatch`` and ``host_write``, the GC pauses and the allocator
-        counts at the end, and writes a trace of the third sample step,
-        which the totals leave out.
+        ``dispatch`` and ``host_write``, the GC pauses, the allocator and
+        conv route counts at the end, and writes a trace of the third
+        sample step, which the totals leave out.
         """
         cap = self.memory_capacity
         self._load_depth_correction()
@@ -351,7 +353,7 @@ class Generator:
             pending = None  # (sample_idx, host outputs, event) of step k
             for sample_idx in range(num_samples):
                 with profiling.span("dispatch", req, alloc=self.device,
-                                    sample=sample_idx):
+                                    counters=conv.ROUTES, sample=sample_idx):
                     with profiling.span("step"):
                         outs = self.step(mem_pts_d, mem_valid_d, intr_d,
                                          param_cond, gen,

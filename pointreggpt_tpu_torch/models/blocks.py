@@ -10,7 +10,10 @@ Dtype handling mirrors the JAX package: params stay fp32; every conv and
 linear casts its input and weight to the module's compute ``dtype``
 (bfloat16 on the card); GroupNorm, the channel LayerNorm and the softmaxes
 compute in fp32. A weight that is not fp32 has been baked (``bake.py``):
-a WSConv then skips its standardization, as in the JAX package.
+a WSConv then skips its standardization, as in the JAX package. Every
+Conv2d and WSConv goes through ``ops/conv.py::conv2d``, which runs the
+fp32 3x3 SAME convs of a CUDA tensor on hand-written kernels and leaves
+the rest to ``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pointreggpt_tpu_torch.core.geometry import min_pool
 from pointreggpt_tpu_torch.ops.attention import multihead_attention
+from pointreggpt_tpu_torch.ops.conv import conv2d
 from pointreggpt_tpu_torch.ops.linear_attention import fused_linear_attention
 
 Tensor = torch.Tensor
@@ -40,7 +44,8 @@ def _cast(t: Optional[Tensor], dtype: torch.dtype) -> Optional[Tensor]:
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in ``dtype`` (input, weight and bias cast)."""
+    """``nn.Conv2d`` computing in ``dtype`` (input, weight and bias cast),
+    through ``ops/conv.py::conv2d``."""
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
         super().__init__(*args, **kw)
@@ -48,8 +53,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: Tensor) -> Tensor:
         d = self.compute_dtype
-        return F.conv2d(x.to(d), self.weight.to(d), _cast(self.bias, d),
-                        self.stride, self.padding)
+        return conv2d(x.to(d), self.weight.to(d), _cast(self.bias, d),
+                      self.stride, self.padding)
 
 
 class Linear(nn.Linear):
@@ -76,8 +81,8 @@ class WSConv(Conv2d):
             mean = w.mean(dim=(1, 2, 3), keepdim=True)
             var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
             w = (w - mean) * torch.rsqrt(var + ws_eps(d))
-        return F.conv2d(x.to(d), w.to(d), _cast(self.bias, d), self.stride,
-                        self.padding)
+        return conv2d(x.to(d), w.to(d), _cast(self.bias, d), self.stride,
+                      self.padding)
 
 
 def channel_layer_norm(x: Tensor, g: Tensor, dtype: torch.dtype) -> Tensor:

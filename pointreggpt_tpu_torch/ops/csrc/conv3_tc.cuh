@@ -83,6 +83,7 @@ constexpr int CHUNK_W_BYTES = 9 * BN * ROW_BYTES;  // 73,728
 struct Geo {
   int b, h, wd, cin, cout, rows;
   int col_tiles, row_tiles, n_tiles, spatial, tiles, nch;
+  const float* bias;  // the fp32 body's optional bias (cout); else null
 };
 
 struct Tile {
@@ -428,11 +429,11 @@ conv3_kernel(const typename B::E* __restrict__ x,
 
 // Launch body B over (b, h, wd, cin, cout) with tiles of `rows` output rows
 // (at most 4 WARP_PX / TC) x TC columns on a persistent grid of min(tiles,
-// sms) blocks.
+// sms) blocks; `bias` is passed to the body's epilogue.
 template <class B>
 cudaError_t launch_body(const void* x, const void* w, void* out, int b,
                         int h, int wd, int cin, int cout, int rows, int sms,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, const float* bias = nullptr) {
   using E = typename B::E;
   constexpr int TC = B::TC;
   constexpr int VEC_C = 16 / sizeof(E);  // channels of a 16-byte copy
@@ -441,6 +442,7 @@ cudaError_t launch_body(const void* x, const void* w, void* out, int b,
     return cudaErrorInvalidValue;
   Geo g;
   g.b = b, g.h = h, g.wd = wd, g.cin = cin, g.cout = cout, g.rows = rows;
+  g.bias = bias;
   g.col_tiles = (wd + TC - 1) / TC;
   g.row_tiles = (h + rows - 1) / rows;
   g.n_tiles = (cout + BN - 1) / BN;

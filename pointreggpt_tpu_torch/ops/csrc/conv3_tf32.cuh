@@ -39,11 +39,17 @@
 //   window rows the warp's rows touch: one A fragment (ldmatrix.x4, split
 //   once) feeds image row wr - dy at tap dy, up to three taps. The
 //   tensor cores truncate the sum each mma accumulates, so a long sum in
-//   one fragment drifts (linear_attention_tf32.cuh): each tap column's
-//   products of a chunk (3 taps x 4 k8 steps x 3 passes = 36 mma) go into
-//   fragments of their own, added to the running sums in fp32.
-// - Epilogue. fp32 stored as 8-byte pairs (one float where cout or
-//   alignment forbid), masked at the ragged edges of h, w and cout.
+//   one fragment drifts (linear_attention_tf32.cuh): each k8 step's
+//   products of a tap column (3 taps x 3 passes = 9 mma) go into
+//   fragments of their own, added to the running sums in fp32. A tap
+//   column's four k8 steps (36 mma) a fragment left the forward 6.9e-7
+//   from fp64 where this gives 2-3e-7, for 7-10% more time; on the
+//   MaskUNet route the larger drift moved the MaskTrainer's third step
+//   3x further from the benchmark's fp32 reference (PERF.md).
+// - Epilogue. The bias added where one is given (the route of
+//   ops/conv.py::conv2d), fp32 stored as 8-byte pairs (one float where
+//   cout or alignment forbid), masked at the ragged edges of h, w and
+//   cout.
 // Channel counts that are no multiple of 4, or unaligned tensors, take
 // 4-byte staging (VEC = false), with the same ring, layout and compute.
 #pragma once
@@ -150,16 +156,16 @@ struct Body {
     const int apos = ln.apos, brow = ln.brow;
 #pragma unroll 1
     for (int dx = 0; dx < 3; ++dx) {
-      // this tap column's products of the chunk, summed apart
-      float t[RW][NJ][4];
-#pragma unroll
-      for (int r = 0; r < RW; ++r)
-#pragma unroll
-        for (int n = 0; n < NJ; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) t[r][n][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KCH / 8; ++kk) {
+        // this k8 step's products of the tap column, summed apart
+        float t[RW][NJ][4];
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+#pragma unroll
+          for (int n = 0; n < NJ; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) t[r][n][e] = 0.f;
         // the B fragments of the three taps (0, dx), (1, dx), (2, dx):
         // matrices (n 0-7, k 0-3), (n 0-7, k 4-7), (n 8-15, k 0-3), (n
         // 8-15, k 4-7) of a 16-channel pair of n8 blocks
@@ -199,13 +205,13 @@ struct Body {
             }
           }
         }
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+#pragma unroll
+          for (int n = 0; n < NJ; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[r][n][e] += t[r][n][e];
       }
-#pragma unroll
-      for (int r = 0; r < RW; ++r)
-#pragma unroll
-        for (int n = 0; n < NJ; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[r][n][e] += t[r][n][e];
     }
   }
 
@@ -231,13 +237,17 @@ struct Body {
 #pragma unroll
         for (int n = 0; n < NJ; ++n) {
           const int ch = nw + 8 * n;
+          float v0 = acc[r][n][2 * hh], v1 = acc[r][n][2 * hh + 1];
+          if (g.bias != nullptr) {
+            if (ch < g.cout) v0 += g.bias[ch];
+            if (ch + 1 < g.cout) v1 += g.bias[ch + 1];
+          }
           if (VEC) {
             if (ch < g.cout)
-              *reinterpret_cast<float2*>(orow + ch) =
-                  make_float2(acc[r][n][2 * hh], acc[r][n][2 * hh + 1]);
+              *reinterpret_cast<float2*>(orow + ch) = make_float2(v0, v1);
           } else {
-            if (ch < g.cout) orow[ch] = acc[r][n][2 * hh];
-            if (ch + 1 < g.cout) orow[ch + 1] = acc[r][n][2 * hh + 1];
+            if (ch < g.cout) orow[ch] = v0;
+            if (ch + 1 < g.cout) orow[ch + 1] = v1;
           }
         }
       }
@@ -245,12 +255,13 @@ struct Body {
   }
 };
 
-// Launch over (b, h, wd, cin, cout), wt = w repacked as (cout, 3, 3, cin).
+// Launch over (b, h, wd, cin, cout), wt = w repacked as (cout, 3, 3, cin);
+// `bias` (cout), when not null, is added to the sums before the store.
 inline cudaError_t launch(const float* x, const float* wt, float* out, int b,
                           int h, int wd, int cin, int cout, int sms,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, const float* bias = nullptr) {
   return launch_body<Body>(x, wt, out, b, h, wd, cin, cout, Body::TR, sms,
-                           stream);
+                           stream, bias);
 }
 
 }  // namespace tf32

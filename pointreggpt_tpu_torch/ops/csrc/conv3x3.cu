@@ -50,18 +50,22 @@ extern "C" {
 // Widest cin and cout the kernel takes.
 int prgpt_conv3x3_max_c() { return MAX_C; }
 
-// w: (3, 3, cin, cout) in bf16; in fp32 repacked as (cout, 3, 3, cin).
+// bf16: w (3, 3, cin, cout).
 int prgpt_conv3x3(const void* x, const void* w, void* out, int b, int h,
-                  int wd, int cin, int cout, int is_bf16, int sms,
-                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return prgpt::conv3::launch<16>(x, w, out, b, h, wd, cin, cout, TR, sms,
-                                    s);
-  return prgpt::conv3::tf32::launch(static_cast<const float*>(x),
-                                    static_cast<const float*>(w),
-                                    static_cast<float*>(out), b, h, wd, cin,
-                                    cout, sms, s);
+                  int wd, int cin, int cout, int sms, void* stream) {
+  return prgpt::conv3::launch<16>(x, w, out, b, h, wd, cin, cout, TR, sms,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// fp32: wt = w repacked as (cout, 3, 3, cin); bias (cout) or null, added
+// before the store (ops/conv.py::conv2d's route).
+int prgpt_conv3x3_f32(const void* x, const void* wt, const void* bias,
+                      void* out, int b, int h, int wd, int cin, int cout,
+                      int sms, void* stream) {
+  return prgpt::conv3::tf32::launch(
+      static_cast<const float*>(x), static_cast<const float*>(wt),
+      static_cast<float*>(out), b, h, wd, cin, cout, sms,
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(bias));
 }
 
 }  // extern "C"

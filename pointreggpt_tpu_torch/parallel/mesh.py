@@ -49,7 +49,8 @@ from pointreggpt_tpu_torch import resolve_device
 # samples and checkpoints at a milestone while the others wait)
 DEFAULT_TIMEOUT_S = 1800.0
 # the kernel libraries the model paths load (ops/_build.py's sources)
-MODEL_SOURCES = ("linear_attention", "linear_attention_bwd", "attention")
+MODEL_SOURCES = ("linear_attention", "linear_attention_bwd", "attention",
+                 "conv3x3", "conv3_dw")
 
 
 def in_process_group() -> bool:

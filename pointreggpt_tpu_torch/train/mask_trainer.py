@@ -43,6 +43,7 @@ from pointreggpt_tpu_torch.core import imageio16
 from pointreggpt_tpu_torch.data.datasets import (PairedDepthDataset,
                                                  PrefetchLoader, TestDataset)
 from pointreggpt_tpu_torch.models.bake import bake_inference
+from pointreggpt_tpu_torch.ops import conv
 from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.train.metrics import (METRIC_NAMES, AverageMeter,
@@ -115,6 +116,7 @@ class MaskTrainer:
         world = M.process_count()
         self.device = resolve_device(device)
         self.model = model.to(self.device, memory_format=torch.channels_last)
+        conv.load(self.device)  # the fp32 3x3 convs' kernels, at set-up
         M.broadcast_module_(self.model)
         self.epochs = epochs
         self.image_size = image_size
@@ -165,9 +167,10 @@ class MaskTrainer:
         rows); returns the loss (over every process) as a device scalar.
 
         Spans (``req`` the Adam count; the allocator's counts on the
-        card): ``train_step``, with ``forward``, ``backward``,
-        ``all_reduce``, ``clip`` and ``adam``."""
-        with profiling.span("train_step", self.count, alloc=self.device):
+        card and the conv route's): ``train_step``, with ``forward``,
+        ``backward``, ``all_reduce``, ``clip`` and ``adam``."""
+        with profiling.span("train_step", self.count, alloc=self.device,
+                            counters=conv.ROUTES):
             self.model.train()
             self.opt.zero_grad(set_to_none=True)
             with profiling.span("forward"):

@@ -37,6 +37,7 @@ from pointreggpt_tpu_torch.core import imageio16
 from pointreggpt_tpu_torch.core import sampling as S
 from pointreggpt_tpu_torch.data.datasets import DepthDataset, PrefetchLoader
 from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
+from pointreggpt_tpu_torch.ops import conv
 from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.train.ema import EMA
@@ -219,9 +220,11 @@ class Trainer:
         microbatch loss (over every process) as a device scalar.
 
         Spans (``req`` the step count; the allocator's counts on the
-        card): ``train_step``, with ``forward`` and ``backward`` per
-        microbatch, ``all_reduce``, ``clip``, ``adam`` and ``ema``."""
-        with profiling.span("train_step", self.step, alloc=self.device):
+        card and the conv route's): ``train_step``, with ``forward`` and
+        ``backward`` per microbatch, ``all_reduce``, ``clip``, ``adam``
+        and ``ema``."""
+        with profiling.span("train_step", self.step, alloc=self.device,
+                            counters=conv.ROUTES):
             self.model.train()
             self.opt.zero_grad(set_to_none=True)
             loss_sum = torch.zeros((), device=self.device)

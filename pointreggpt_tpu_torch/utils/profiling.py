@@ -16,6 +16,9 @@ the port's own spans:
   ``gc.callbacks`` hook, the generation in the attributes);
 - the caching allocator's counts across a span given ``alloc=<cuda
   device>`` (:data:`ALLOC_COUNTS` deltas in its attributes);
+- the change of a caller's counters across a span given
+  ``counters=<dict of name to int>`` (each name's delta in its
+  attributes, and in :class:`LoopProfile`'s summary);
 - :func:`trace`: a ``torch.profiler`` capture (CPU and, on the card, CUDA
   activity) of the enclosed block, written as a Chrome trace
   (``*.pt.trace.json``) under a directory;
@@ -54,7 +57,8 @@ import os
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Deque, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Deque, Dict, Iterator, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -74,6 +78,7 @@ _lock = threading.RLock()
 _ring: Deque["Span"] = deque(maxlen=RING)
 _totals: Dict[str, List[int]] = {}  # name -> [ns, count]
 _alloc_totals: Dict[str, int] = dict.fromkeys(ALLOC_COUNTS, 0)
+_counter_totals: Dict[str, int] = {}  # a span's ``counters``, by name
 _ids = itertools.count(1)
 _local = threading.local()
 _env_on = bool(os.environ.get("PRGPT_PROFILE"))
@@ -103,10 +108,12 @@ class Span:
     the ring when it closes."""
 
     __slots__ = ("name", "id", "parent", "thread", "req", "attrs", "start",
-                 "end", "_range", "_alloc", "_counts0")
+                 "end", "_range", "_alloc", "_counts0", "_counters",
+                 "_counters0")
 
     def __init__(self, name: str, req=None, attrs: Optional[dict] = None,
-                 alloc: Optional[torch.device] = None):
+                 alloc: Optional[torch.device] = None,
+                 counters: Optional[Mapping[str, int]] = None):
         self.name = name
         self.req = req
         self.attrs = {} if attrs is None else attrs
@@ -118,6 +125,8 @@ class Span:
         self._alloc = alloc if alloc is not None and \
             torch.device(alloc).type == "cuda" else None
         self._counts0: Optional[List[int]] = None
+        self._counters = counters
+        self._counters0: Optional[Dict[str, int]] = None
 
     def __enter__(self) -> "Span":
         stack = _stack()
@@ -136,6 +145,8 @@ class Span:
             self._range.__enter__()
         if self._alloc is not None:
             self._counts0 = _alloc_counts(self._alloc)
+        if self._counters is not None:
+            self._counters0 = dict(self._counters)
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -143,6 +154,9 @@ class Span:
             deltas = [b - a for a, b in zip(self._counts0,
                                             _alloc_counts(self._alloc))]
             self.attrs.update(zip(ALLOC_COUNTS, deltas))
+        if self._counters0 is not None:
+            self.attrs.update((k, v - self._counters0[k])
+                              for k, v in self._counters.items())
         if self._range is not None:
             self._range.__exit__(None, None, None)
             self._range = None
@@ -160,6 +174,10 @@ class Span:
             if self._counts0 is not None:
                 for k in ALLOC_COUNTS:
                     _alloc_totals[k] += self.attrs[k]
+            if self._counters0 is not None:
+                for k in self._counters0:
+                    _counter_totals[k] = (_counter_totals.get(k, 0)
+                                          + self.attrs[k])
         return False
 
     def __repr__(self) -> str:
@@ -184,14 +202,16 @@ _OFF = _Off()
 
 
 def span(name: str, req=None, alloc: Optional[torch.device] = None,
-         **attrs):
+         counters: Optional[Mapping[str, int]] = None, **attrs):
     """A span named ``name`` around the enclosed block, recorded while
     :func:`tracing`; the shared no-op otherwise. ``req``: the request
     identifier (inherited from the enclosing span when None); ``alloc``:
-    a CUDA device whose allocator counts to record the change of."""
+    a CUDA device whose allocator counts to record the change of;
+    ``counters``: a dict of counts (name to int) to record the change of,
+    read as the span opens and closes."""
     if not (_env_on or _autograd_profiler._is_profiler_enabled):
         return _OFF
-    return Span(name, req, attrs, alloc)
+    return Span(name, req, attrs, alloc, counters)
 
 
 def spans() -> List[Span]:
@@ -357,18 +377,21 @@ def _snapshot(names: Sequence[str]) -> Dict[str, Tuple[int, int]]:
     with _lock:
         out = {n: tuple(_totals.get(n, (0, 0))) for n in names}
         out.update((k, (v, 0)) for k, v in _alloc_totals.items())
+        out.update((k, (v, 0)) for k, v in _counter_totals.items())
     return out
 
 
 def _minus(a: dict, b: dict) -> dict:
-    return {k: (a[k][0] - b[k][0], a[k][1] - b[k][1]) for k in a}
+    zero = (0, 0)  # a counter first recorded after ``b``
+    return {k: (a[k][0] - b.get(k, zero)[0], a[k][1] - b.get(k, zero)[1])
+            for k in a}
 
 
 class LoopProfile:
     """``PRGPT_PROFILE`` for one loop: the recorder's totals of the loop's
-    ``stages`` (its top-level spans), of the GC pauses and of the
-    allocator counts over the loop, with a trace of iterations
-    [start, stop) left out of them."""
+    ``stages`` (its top-level spans), of the GC pauses, of the
+    allocator counts and of the spans' ``counters`` over the loop, with a
+    trace of iterations [start, stop) left out of them."""
 
     def __init__(self, log_dir: str, *, start: int, stop: int,
                  stages: Sequence[str] = ()):
@@ -386,8 +409,10 @@ class LoopProfile:
             self._traced = _snapshot(self._names)
         elif was_tracing and not self.capture.tracing:
             during = _minus(_snapshot(self._names), self._traced)
-            self._left_out = {k: (v[0] + during[k][0], v[1] + during[k][1])
-                              for k, v in self._left_out.items()}
+            left, zero = self._left_out, (0, 0)
+            self._left_out = {k: (v[0] + left.get(k, zero)[0],
+                                  v[1] + left.get(k, zero)[1])
+                              for k, v in during.items()}
 
     def tick(self) -> None:
         was = self.capture.tracing
@@ -409,10 +434,14 @@ class LoopProfile:
                 self.timer._count[name] = n
         gc_ns, gc_n = d["gc"]
         alloc = ", ".join(f"{k} {d[k][0]}" for k in ALLOC_COUNTS)
+        counters = ", ".join(f"{k} {d[k][0]}" for k in d
+                             if k not in self._names
+                             and k not in ALLOC_COUNTS)
         return (f"profile stages (trace in {self.log_dir}):\n"
                 + self.timer.summary()
                 + f"\ngc pauses: {gc_ns / 1e9:.3f}s in {gc_n} collections"
-                + f"\nallocator: {alloc}")
+                + f"\nallocator: {alloc}"
+                + (f"\ncounters: {counters}" if counters else ""))
 
 
 def loop_profile(start: int, stop: int, stages: Sequence[str] = ()

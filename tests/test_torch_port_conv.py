@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from test_torch_port_generator import single_torch_thread  # noqa: F401
 from pointreggpt_tpu_torch.ops import _build
@@ -360,3 +361,223 @@ ptxas info    : Used 78 registers
              spill_loads=12, registers=135, static_smem=16),
         dict(kernel="_Z4kernB", stack_frame=0, spill_stores=0,
              spill_loads=0, registers=78)]
+
+
+# ---------------------------------------------------------------------------
+# the route of the U-Nets' convs (ops/conv.py::conv2d) and conv3_dw
+
+
+@pytest.mark.parametrize("device,dtype,kernel,stride,padding,dilation,"
+                         "groups,want", [
+                             ("cuda", torch.float32, (3, 3), 1, 1, 1, 1, True),
+                             ("cuda", torch.float32, 3, (1, 1), (1, 1),
+                              (1, 1), 1, True),
+                             ("cpu", torch.float32, (3, 3), 1, 1, 1, 1, False),
+                             ("cuda", torch.bfloat16, (3, 3), 1, 1, 1, 1,
+                              False),
+                             ("cuda", torch.float16, (3, 3), 1, 1, 1, 1,
+                              False),
+                             ("cuda", torch.float64, (3, 3), 1, 1, 1, 1,
+                              False),
+                             ("cuda", torch.float32, (7, 7), 1, 3, 1, 1,
+                              False),
+                             ("cuda", torch.float32, (4, 4), 2, 1, 1, 1,
+                              False),
+                             ("cuda", torch.float32, (1, 1), 1, 0, 1, 1,
+                              False),
+                             ("cuda", torch.float32, (3, 1), 1, 1, 1, 1,
+                              False),
+                             ("cuda", torch.float32, (3, 3), 2, 1, 1, 1,
+                              False),
+                             ("cuda", torch.float32, (3, 3), 1, 0, 1, 1,
+                              False),
+                             ("cuda", torch.float32, (3, 3), 1, (1, 0), 1, 1,
+                              False),
+                             ("cuda", torch.float32, (3, 3), 1, "same", 1, 1,
+                              False),
+                             ("cuda", torch.float32, (3, 3), 1, 1, 2, 1,
+                              False),
+                             ("cuda", torch.float32, (3, 3), 1, 1, 1, 2,
+                              False)])
+def test_k5_route_is_a_function_of_device_dtype_and_geometry(
+        device, dtype, kernel, stride, padding, dilation, groups, want):
+    assert K.k5_route(device, dtype, kernel, stride, padding, dilation,
+                      groups) is want
+
+
+def _routed(model) -> tuple:
+    """(convs the route sends to K5 on a card, convs it leaves to
+    F.conv2d) over a net's Conv2d and WSConv modules."""
+    from pointreggpt_tpu_torch.models.blocks import Conv2d
+
+    convs = [m for m in model.modules() if isinstance(m, Conv2d)]
+    k5 = sum(K.k5_route("cuda", m.compute_dtype, m.kernel_size, m.stride,
+                        m.padding, m.dilation, m.groups) for m in convs)
+    return k5, len(convs) - k5
+
+
+def test_route_takes_43_of_the_mask_unets_convs_and_none_in_bf16():
+    # 38 WSConvs, the last down stage's 3x3, three Upsample convs and the
+    # last up stage's 3x3; left: the 7x7, three 4x4 stride-2 convs, nine
+    # 1x1 residual convs and mid-attention's two 1x1 convs
+    from pointreggpt_tpu_torch import config as C
+    from pointreggpt_tpu_torch.models import DiffusionUNet
+
+    with torch.device("meta"):
+        assert _routed(C.build_mask_unet(C.MaskModelConfig())) == (43, 15)
+        assert _routed(DiffusionUNet(dtype=torch.bfloat16)) == (0, 58)
+        assert _routed(DiffusionUNet()) == (43, 15)
+
+
+def test_conv2d_routes_each_call_by_the_predicate(monkeypatch):
+    """A full-width MaskUNet forward on the CPU with the route's predicate
+    asked as on a card and the K5 function standing in as F.conv2d: 43
+    calls routed, 15 left, no copy of a channels-last input."""
+    from pointreggpt_tpu_torch import config as C
+
+    route = K.k5_route
+    monkeypatch.setattr(K, "k5_route",
+                        lambda dev, *a: route("cuda", *a))
+    monkeypatch.setattr(K.Conv2dK5Fn, "apply", staticmethod(
+        lambda x, w, b: F.conv2d(x, w, b, 1, 1)))
+    torch.manual_seed(0)
+    net = C.build_mask_unet(C.MaskModelConfig()).to(
+        memory_format=torch.channels_last)
+    before = dict(K.ROUTES)
+    with torch.no_grad():
+        net(torch.rand(1, 1, 32, 32))
+    got = {k: v - before[k] for k, v in K.ROUTES.items()}
+    assert (got["conv_k5"], got["conv_library"]) == (43, 15)
+
+
+def test_cpu_forward_routes_nothing_to_k5():
+    from pointreggpt_tpu_torch.models import MaskUNet
+
+    torch.manual_seed(0)
+    net = MaskUNet(dim=8, dim_mults=(1, 2), resnet_block_groups=4)
+    before = dict(K.ROUTES)
+    with torch.no_grad():
+        net(torch.rand(1, 1, 16, 16))
+    n = sum(_routed(net))
+    assert {k: v - before[k] for k, v in K.ROUTES.items()} == {
+        "conv_k5": 0, "conv_library": n, "conv_copies": 0}
+
+
+def _k5_f32_plain(x, wt, bias=None):
+    """K5's fp32 entry in plain PyTorch: wt (cout, 3, 3, cin)."""
+    out = K.conv3x3_plain(x, wt.permute(1, 2, 3, 0))
+    return out if bias is None else out + bias
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("bias", [True, False])
+def test_k5_function_lays_out_and_flips_as_f_conv2d(monkeypatch,
+                                                    channels_last, bias):
+    """Conv2dK5Fn's layouts, with K5's entry in plain PyTorch: y, dx, dw
+    and db against autograd of F.conv2d in fp64; a layout that is not
+    channels-last costs one counted copy (x forward, dy backward)."""
+    monkeypatch.setattr(K, "_k5_f32", _k5_f32_plain)
+    rng = np.random.default_rng(11)
+    b, cin, cout, h, w = 2, 5, 7, 6, 9
+    x = torch.tensor(rng.normal(size=(b, cin, h, w)))
+    wt = torch.tensor(rng.normal(size=(cout, cin, 3, 3)))
+    bb = torch.tensor(rng.normal(size=cout)) if bias else None
+    gy = torch.tensor(rng.normal(size=(b, cout, h, w)))
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    got = [x.contiguous(memory_format=fmt).requires_grad_(),
+           wt.contiguous(memory_format=fmt).requires_grad_()]
+    got += [bb.clone().requires_grad_()] if bias else []
+    want = [t.detach().clone().requires_grad_() for t in got]
+    before = dict(K.ROUTES)
+    y = K.Conv2dK5Fn.apply(got[0], got[1], got[2] if bias else None)
+    copies = (not channels_last) + before["conv_copies"]
+    assert K.ROUTES["conv_copies"] == copies
+    y.backward(gy.contiguous(memory_format=fmt))
+    assert K.ROUTES["conv_copies"] == copies + (not channels_last)
+    yr = F.conv2d(want[0], want[1], want[2] if bias else None, padding=1)
+    yr.backward(gy)
+    np.testing.assert_allclose(y.detach().numpy(), yr.detach().numpy(),
+                               rtol=1e-6, atol=1e-6)
+    for a, r in zip(got, want):
+        # dw and db summed in fp32 by the plain version
+        np.testing.assert_allclose(a.grad.numpy(), r.grad.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    # dw lands in the weight's own layout
+    assert got[1].grad.is_contiguous(memory_format=fmt)
+
+
+def test_wgrad_and_the_bias_gradient_match_autograd_in_fp64():
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.normal(size=(2, 7, 9, 5)))
+    g = torch.tensor(rng.normal(size=(2, 7, 9, 3)))
+    w = torch.zeros((3, 5, 3, 3), dtype=torch.float64, requires_grad=True)
+    b = torch.zeros(3, dtype=torch.float64, requires_grad=True)
+    F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=1).backward(
+        g.permute(0, 3, 1, 2))
+    # the nine fp32 products, HWIO, and conv3_dw's (cout, 3, 3, cin)
+    np.testing.assert_allclose(K._wgrad(x, g).numpy(),
+                               w.grad.permute(2, 3, 1, 0).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    dw, db = K.conv3_dw(x, g)
+    np.testing.assert_allclose(dw.numpy(), w.grad.permute(0, 2, 3, 1).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(db.numpy(), b.grad.numpy(), rtol=1e-6)
+    assert K.conv3_dw(x, g, bias=False)[1] is None
+
+
+# (b, h, w, cin, cout): every MaskUNet 3x3 shape at batch 4, and ragged
+DW_SHAPES = [(4, h, h, cin, cout) for h, cin, cout in (
+    (256, 64, 64), (256, 128, 64), (128, 64, 64), (128, 192, 128),
+    (128, 128, 128), (128, 256, 128), (64, 128, 128), (64, 384, 256),
+    (64, 256, 256), (64, 512, 256), (32, 256, 256), (32, 256, 512),
+    (32, 512, 512), (32, 768, 512))] + [
+    (1, 1, 1, 1, 1), (2, 7, 37, 5, 3), (1, 9, 33, 70, 130),
+    (3, 13, 50, 36, 72), (2, 64, 64, 16, 8)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", DW_SHAPES)
+def test_dw_walk_covers_every_tap_channel_and_pixel_once(b, h, w, cin,
+                                                         cout):
+    """Every block of conv3_dw sums all nine taps of its 32 x 64 channel
+    tile over its items' pixels: each (channel tile, pixel) once is each
+    (tap, cin, cout, pixel) once; the blocks of input tile 0 sum db."""
+    splits = K.dw_split(b, h, w, cin, cout)
+    walk = K.dw_walk(b, h, w, cin, cout, splits)
+    m_t, n_t = -(-cin // K.DW_TILE_CI), -(-cout // K.DW_TILE_CO)
+    items = b * -(-h // K.DW_ROWS) * -(-w // K.DW_COLS)
+    assert 1 <= splits <= items and len(walk) == m_t * n_t * splits
+    count = np.zeros((m_t, n_t, b, h, w), np.int64)
+    for ci0, co0, split, mine in walk:
+        assert ci0 < cin and co0 < cout and mine
+        for img, y0, x0 in mine:
+            count[ci0 // K.DW_TILE_CI, co0 // K.DW_TILE_CO, img,
+                  y0:y0 + K.DW_ROWS, x0:x0 + K.DW_COLS] += 1
+    assert (count == 1).all()
+    # a split's items are contiguous and the splits differ by at most one
+    sizes = [len(m) for _, _, _, m in walk]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_dw_split_fills_the_card_only_as_far_as_it_must():
+    # the 2-tile 64 -> 64 convs split 64 ways (128 blocks); 128 tiles of
+    # 512 -> 512 already fill a wave; 192 tiles of 768 -> 512 split 2 ways
+    # (3 full waves, not 2 at 73%)
+    assert K.dw_split(4, 256, 256, 64, 64) == 64
+    assert K.dw_split(4, 128, 128, 64, 64) == 64
+    assert K.dw_split(4, 32, 32, 512, 512) == 1
+    assert K.dw_split(4, 32, 32, 768, 512) == 2
+    assert K.dw_split(1, 1, 1, 1, 1) == 1
+
+
+def test_trace_reads_the_route_kernels_as_hand_written():
+    from portbench.lib import trace
+
+    for name in (
+            "void prgpt::conv3dw::conv3_kernel_dw<true>(float const*, "
+            "float const*, float*, float*, prgpt::conv3dw::Geo)",
+            "prgpt::conv3dw::conv3_kernel_dw_sum(float const*, float "
+            "const*, float*, float*, int, int, int)",
+            "void prgpt::conv3::conv3_kernel<prgpt::conv3::tf32::Body, "
+            "true>(float const*, float const*, float*, prgpt::conv3::Geo, "
+            "int, int, int)"):
+        assert trace.kind(name) == "kernel", name

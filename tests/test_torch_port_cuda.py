@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from pointreggpt_tpu_torch.models import DiffusionUNet
-from pointreggpt_tpu_torch.models.blocks import PreNormResidual
+from pointreggpt_tpu_torch.models.blocks import Conv2d, PreNormResidual
 from pointreggpt_tpu_torch.ops import _build
 from pointreggpt_tpu_torch.ops import attention as K2
 from pointreggpt_tpu_torch.ops import conv as KC
@@ -836,6 +836,190 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
                                    device=cuda), w, rows=32)
 
 
+# ---------------------------------------------------------------------------
+# the route of the U-Nets' fp32 3x3 convs: K5 with its bias, conv3_dw
+
+# (h, cin, cout) of the MaskUNet's 43 fp32 3x3 convs at 256^2 (dim 64,
+# mults 1, 2, 4, 8), each shape once
+MASK_CONV3 = [(256, 64, 64), (256, 128, 64), (128, 64, 64), (128, 192, 128),
+              (128, 128, 128), (128, 256, 128), (64, 128, 128),
+              (64, 384, 256), (64, 256, 256), (64, 512, 256), (32, 256, 256),
+              (32, 256, 512), (32, 512, 512), (32, 768, 512)]
+
+
+def _dw_inputs(device, b, h, w, cin, cout, seed=0):
+    """x ~ N(0, 1) and the output's gradient g ~ N(0, 1), NHWC fp64."""
+    rng = np.random.default_rng(seed)
+    return (torch.tensor(rng.normal(size=(b, h, w, cin)), device=device),
+            torch.tensor(rng.normal(size=(b, h, w, cout)), device=device))
+
+
+def _library_wgrad(x, g):
+    """(dw (cout, 3, 3, cin), db) by torch's conv backward (cuDNN) in
+    x.dtype on the NHWC tensors viewed as channels-last NCHW."""
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    w = torch.zeros((g.shape[-1], x.shape[-1], 3, 3), dtype=x.dtype,
+                    device=x.device).contiguous(
+                        memory_format=torch.channels_last)
+    _, dw, db = torch.ops.aten.convolution_backward(
+        gc, xc, w, [g.shape[-1]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [False, True, True])
+    return dw.permute(0, 2, 3, 1), db
+
+
+def _gap(got, ref):
+    """||got - ref|| / ||ref|| over the whole tensor, in fp64."""
+    return ((got.double() - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.parametrize("b", [4, 8])
+@pytest.mark.parametrize("h,cin,cout", MASK_CONV3)
+def test_conv3_dw_at_the_mask_unet_shapes(cuda, fp32_exact, b, h, cin, cout):
+    """dw and db against fp64 at every MaskUNet 3x3 shape: the kernel's gap
+    at most twice cuDNN's fp32 weight gradient's (TF32 off)."""
+    x, g = _dw_inputs(cuda, b, h, h, cin, cout)
+    ref_w, ref_b = _library_wgrad(x, g)
+    xf, gf = x.float(), g.float()
+    before = KC.conv3_dw.launches
+    dw, db = KC.conv3_dw(xf, gf)
+    torch.cuda.synchronize()
+    assert KC.conv3_dw.launches == before + 1
+    lib_w, lib_b = _library_wgrad(xf, gf)
+    gaps = dict(dw=_gap(dw, ref_w), db=_gap(db, ref_b),
+                lib_dw=_gap(lib_w, ref_w), lib_db=_gap(lib_b, ref_b))
+    print((b, h, cin, cout), KC.dw_split(b, h, h, cin, cout), gaps)
+    assert gaps["dw"] <= 2 * gaps["lib_dw"], gaps
+    assert gaps["db"] <= max(2 * gaps["lib_db"], 1e-6), gaps
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 256, 64, 64),
+                                   (4, 32, 32, 512, 512),
+                                   (4, 32, 32, 768, 512)])
+def test_conv3_dw_gives_the_same_bits_every_run(cuda, shape):
+    x, g = (t.float() for t in _dw_inputs(cuda, *shape, seed=1))
+    first = KC.conv3_dw(x, g)
+    again = KC.conv3_dw(x, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# ragged channels and images (4-byte staging where a channel count is no
+# multiple of 4), one image of one pixel, and a split over many blocks
+DW_SMALL = [(1, 1, 1, 1, 1), (2, 7, 37, 5, 3), (1, 9, 33, 70, 130),
+            (2, 16, 40, 64, 36), (3, 13, 50, 36, 72), (2, 64, 64, 16, 8)]
+
+
+@pytest.mark.parametrize("shape", DW_SMALL)
+def test_conv3_dw_matches_fp64_at_ragged_shapes(cuda, shape):
+    x, g = _dw_inputs(cuda, *shape, seed=2)
+    dw, db = KC.conv3_dw(x.float(), g.float())
+    # the nine shifted products in fp64
+    ref = torch.zeros_like(dw, dtype=torch.float64)
+    h, w = x.shape[1:3]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    for ky in range(3):
+        for kx in range(3):
+            ref[:, ky, kx] = torch.einsum(
+                "bhwi,bhwo->oi", xp[:, ky:ky + h, kx:kx + w], g)
+    assert _rel(dw, ref) <= 1e-5
+    assert _rel(db, g.sum((0, 1, 2))) <= 1e-5
+
+
+def test_conv3_dw_takes_any_alignment(cuda):
+    x, g = (t.float() for t in _dw_inputs(cuda, 2, 9, 37, 16, 24, seed=3))
+    xs = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x).copy_(x)
+    gs = torch.empty(g.numel() + 1, device=cuda)[1:].view_as(g).copy_(g)
+    assert xs.data_ptr() % 16 and gs.data_ptr() % 16
+    got = KC.conv3_dw(xs, gs)
+    want = KC.conv3_dw(x, g)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-6
+
+
+@pytest.mark.parametrize("shape,channels_last,bias", [
+    ((2, 7, 37, 5, 3), True, True), ((1, 9, 33, 70, 130), False, True),
+    ((2, 16, 40, 64, 36), True, False)])
+def test_conv2d_route_matches_fp64(cuda, shape, channels_last, bias):
+    """The route's y, dx, dw and db against F.conv2d's in fp64; an input
+    that is not channels-last is copied, once, and counted."""
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.normal(size=(b, cin, h, w)), device=cuda)
+    wt = torch.tensor(rng.normal(size=(cout, cin, 3, 3)) * 0.1, device=cuda)
+    bb = torch.tensor(rng.normal(size=cout), device=cuda) if bias else None
+    gy = torch.tensor(rng.normal(size=(b, cout, h, w)), device=cuda)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    ins = [t.float().contiguous(memory_format=fmt).requires_grad_()
+           for t in (x, wt)]
+    bf = bb.float().requires_grad_() if bias else None
+    routes = dict(KC.ROUTES)
+    y = KC.conv2d(ins[0], ins[1], bf, 1, 1)
+    assert KC.ROUTES["conv_k5"] == routes["conv_k5"] + 1
+    assert (KC.ROUTES["conv_copies"]
+            == routes["conv_copies"] + (not channels_last))
+    y.backward(gy.float())
+    ref = [t.detach().requires_grad_() for t in (x, wt)]
+    rb = bb.detach().requires_grad_() if bias else None
+    yr = torch.nn.functional.conv2d(ref[0], ref[1], rb, 1, 1)
+    yr.backward(gy)
+    assert _rel(y, yr) <= 1e-5
+    for got, want in zip(ins + ([bf] if bias else []),
+                         ref + ([rb] if bias else [])):
+        assert _rel(got.grad, want.grad) <= 1e-5
+
+
+# (dim, mults, groups, size, batch): a small net, and the MaskTrainer's
+MASK_ROUTE_NETS = [(8, (1, 2), 4, 32, 2), (64, (1, 2, 4, 8), 8, 256, 4)]
+
+
+@pytest.mark.parametrize("dim,mults,groups,size,b", MASK_ROUTE_NETS)
+def test_mask_unet_on_the_route_matches_cudnn(cuda, fp32_exact, monkeypatch,
+                                             dim, mults, groups, size, b):
+    """A MaskUNet forward and backward with its fp32 3x3 convs on the
+    route against the same net with every conv on F.conv2d (cuDNN, TF32
+    off): keep probabilities and every gradient within MASK_GRAD_RTOL;
+    the launches count 43 forward, 43 dx and 43 dw at full width."""
+    from pointreggpt_tpu_torch.models import MaskUNet
+    from pointreggpt_tpu_torch.train.mask_trainer import bce_loss
+
+    torch.manual_seed(0)
+    net = MaskUNet(dim=dim, dim_mults=mults, resnet_block_groups=groups).to(
+        cuda, memory_format=torch.channels_last)
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.uniform(size=(b, 1, size, size)), dtype=torch.float32,
+                     device=cuda).contiguous(memory_format=torch.channels_last)
+    m = torch.tensor(rng.uniform(size=(b, 1, size, size)) > 0.5,
+                     dtype=torch.float32, device=cuda)
+
+    def run():
+        net.zero_grad(set_to_none=True)
+        prob = net(x)
+        bce_loss(prob, m).backward()
+        return prob.detach(), [p.grad.clone() for p in net.parameters()]
+
+    n3 = sum(isinstance(mod, Conv2d) and KC.k5_route(
+        "cuda", mod.compute_dtype, mod.kernel_size, mod.stride, mod.padding,
+        mod.dilation, mod.groups) for mod in net.modules())
+    k5, dw, routes = (KC.conv3x3.launches, KC.conv3_dw.launches,
+                      dict(KC.ROUTES))
+    prob, grads = run()
+    torch.cuda.synchronize()
+    assert KC.ROUTES["conv_k5"] - routes["conv_k5"] == n3
+    assert KC.conv3x3.launches - k5 == 2 * n3  # y, then dx
+    assert KC.conv3_dw.launches - dw == n3
+    if dim == 64:
+        assert n3 == 43
+        assert KC.ROUTES["conv_library"] - routes["conv_library"] == 15
+    monkeypatch.setattr(KC, "k5_route", lambda *a, **k: False)
+    k5 = KC.conv3x3.launches
+    prob_lib, grads_lib = run()
+    assert KC.conv3x3.launches == k5
+    assert (prob - prob_lib).abs().max().item() <= MASK_GRAD_RTOL
+    for (name, _), g, gl in zip(net.named_parameters(), grads, grads_lib):
+        scale = gl.abs().max().item()
+        assert (g - gl).abs().max().item() <= MASK_GRAD_RTOL * scale, name
+
+
 # Faults planted in copies of csrc/conv3x3.cu and csrc/conv3_igemm.cu;
 # all six are in the tensor-core body both include (csrc/conv3_tc.cuh), and
 # each kernel's check must fail on each: the four of the old kernels, and
@@ -943,8 +1127,9 @@ def test_conv3_igemm_check_sees_planted_fault(cuda, conv_mutants, conv_refs,
 # ---------------------------------------------------------------------------
 # the depth-correction path on the card
 
-# fp32 gradients, card (K1, K2, K3 in three TF32 passes, cuDNN fp32) vs CPU
-# (plain versions): per parameter, relative to its largest gradient
+# fp32 gradients, card (K1, K2, K3 and the 3x3 convs' K5 and conv3_dw in
+# three TF32 passes, cuDNN fp32 for the other convs) vs CPU (plain
+# versions): per parameter, relative to its largest gradient
 MASK_GRAD_RTOL = 2e-3
 
 

@@ -224,7 +224,7 @@ def test_build_is_keyed_on_the_sources():
     paths = {n: _build.library_path(n) for n in _build.SOURCES}
     assert set(paths) == {"linear_attention", "linear_attention_bwd",
                           "attention", "linear_attention_core", "conv3x3",
-                          "conv3_igemm"}
+                          "conv3_igemm", "conv3_dw"}
     for n, p in paths.items():
         assert p.parent == _build.BUILD_DIR
         assert p.name.startswith(n + "-") and p.suffix == ".so"

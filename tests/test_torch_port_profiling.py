@@ -13,6 +13,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from pointreggpt_tpu_torch.models.blocks import Conv2d
 from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
 from pointreggpt_tpu_torch.utils import profiling
@@ -279,6 +280,8 @@ def test_generate_records_the_chunk_span_tree(tmp_path, monkeypatch,
         ["-start", "0", "-stop", "2"])
     out = capsys.readouterr().out
     assert "\ngc pauses: " in out and "\nallocator: num_device_alloc 0" in out
+    # the CPU routes no conv to K5
+    assert "\ncounters: conv_k5 0, conv_library " in out
     got = [s for s in _since(mark) if s.name != "gc"]
     _, parent = _tree(got)
     top = [s.name for s in got if s.parent is None]
@@ -327,8 +330,10 @@ def test_trainer_step_records_each_microbatch_under_the_step(
     assert all(s.req == 41 for s in mine if s.name != "loader_wait")
     assert all(parent(s) is step for s in mine
                if s.parent is not None)
-    # on the CPU no allocator counts
+    # on the CPU no allocator counts; the conv route's counts
     assert not set(profiling.ALLOC_COUNTS) & set(step.attrs)
+    assert step.attrs["conv_k5"] == step.attrs["conv_copies"] == 0
+    assert step.attrs["conv_library"] > 0
     loader = {s.name for s in got if s.thread != main}
     assert {"loader_decode", "loader_collate"} <= loader
 
@@ -361,3 +366,7 @@ def test_mask_trainer_step_records_its_span_tree(tmp_path, monkeypatch,
     assert [s.name for s in mine if s.parent == step.id] == [
         "forward", "backward", "all_reduce", "clip", "adam"]
     assert {s.req for s in mine if s.name != "loader_wait"} == {12}
+    # every conv of the net's forward left to F.conv2d on the CPU
+    n_conv = sum(isinstance(mod, Conv2d) for mod in tr.model.modules())
+    assert (step.attrs["conv_k5"], step.attrs["conv_library"],
+            step.attrs["conv_copies"]) == (0, n_conv, 0)

@@ -10,8 +10,9 @@ cores to read to TF32, which drops its 13 low bits (the split and ``mm3``
 of ``test_torch_port_tf32x3.py``, whose ``tf32`` rounds on the fp32 bits;
 each product is exact in fp32). The
 emulations follow the kernels' order of sums: every fragment holds one
-32-deep k range (K5: one tap column of a 32-channel chunk; K3: 32 channels,
-or one 64-row tile for the dC^ partial, or 32 rows for a weight gradient),
+k range (K5: one k8 step of a tap column, 3 taps x 8 channels; K3: 32
+channels, or one 64-row tile for the dC^ partial, or 32 rows for a weight
+gradient),
 added to the running sum in fp32 in the kernels' order; q~ C^ and dcore C^^T
 take each k8 step in the accumulator fragments' permuted order. So the
 designs' errors, and what a single pass would cost, show before any card
@@ -70,18 +71,20 @@ def _shift(x, dy, dx):
 
 def k5_emulated(x, w, passes="three"):
     """K5's fp32 body as it computes: per 32-channel chunk, per tap column
-    dx, the three taps (dy, dx) of the chunk summed into a fragment of
-    their own (TF32 passes), added to the running sums in fp32."""
+    dx, per k8 step, the three taps (dy, dx) of the step's 8 channels
+    summed into a fragment of their own (TF32 passes), added to the running
+    sums in fp32."""
     cin = x.shape[-1]
     acc = None
     for c0 in range(0, cin, KCH):
-        xc, wc = x[..., c0:c0 + KCH], w[:, :, c0:c0 + KCH]
         for dx in range(3):
-            t = None
-            for dy in range(3):
-                p = mm3(_shift(xc, dy - 1, dx - 1), wc[dy, dx], passes)
-                t = p if t is None else t + p
-            acc = t if acc is None else acc + t
+            for k0 in range(c0, min(c0 + KCH, cin), 8):
+                xc, wc = x[..., k0:k0 + 8], w[:, :, k0:k0 + 8]
+                t = None
+                for dy in range(3):
+                    p = mm3(_shift(xc, dy - 1, dx - 1), wc[dy, dx], passes)
+                    t = p if t is None else t + p
+                acc = t if acc is None else acc + t
     return acc
 
 
