@@ -23,6 +23,10 @@ Phases, each printing one JSON line:
    each timed over 3 interleaved repeats, the median reported. K1's and
    K2's ``ms`` (and SDPA's) are device time, calls captured in a CUDA graph
    (``graph_ms``); ``event_ms`` times back-to-back launches, host included;
+   ``k2_adm_bf16``: K2 at d = 64 (bf16) at ADM's shapes (8, 1024, 8, 64),
+   (8, 256, 16, 64) and (8, 64, 16, 64) on ``K2.check_inputs(...,
+   legacy=True)`` (heads 3 d apart, read in place) against its plain
+   version in fp32, within the same 1e-2, with times, SDPA's and bounds;
 5. ``k3_*``: K3 (K1's backward) against its plain version (the autograd
    of K1's plain version) at the eight shapes and at (1024, 2048), up_0 of
    a dim-256 U-Net (reported apart), bf16 at microbatch 32 (the
@@ -184,15 +188,23 @@ Phases, each printing one JSON line:
    PIL bit for bit on 640x480 and 480x640 PNGs, flip on and off, and
    frames a second of both routes; (g) the gradients of a dim-64 fp32
    Fourier / learned-variance net (learned and frozen frequencies, 8 K1,
-   8 K3, 1 K2 each) card vs CPU within 2e-3; each chain's seconds.
+   8 K3, 1 K2 each) card vs CPU within 2e-3; each chain's seconds;
+24. ``main_path_adm``: ``generate_dataset.main --denoiser adm`` (guided-
+   diffusion's 553 M ADM at its published flags, seeded weights, the
+   production chain and MaskUNet, batch 8, one sample step) on a synthetic
+   tree, the output contract of ``main_path``; launch and route counts
+   reset just before: 4,002 K2 launches (4,000 at d = 64, 16 a forward,
+   and the MaskUNet's 2 at d = 32), no layout copy for K2
+   (``attn_copies`` 0), 16 K1 and no K3 a sample step.
 
 A ``phase_seconds`` line gives each phase's wall seconds and the total
 from the build on. The last three lines are the kernel table (one JSON
 object: K1-K3's launch counts from the main paths, K4's from its op's
 drive, K5's and K6's from their tools' entry points; K1's and K3's
 ``plain_routes``, the calls routed to the plain version by shape, must be
-0 on each path), the card's name and power limit, and ``{"ok": true,
-"device": {...}}``.
+0 on each path; K2's ``d64`` holds ``k2_adm_bf16`` and ``main_path_adm``'s
+counts, which its ``launches`` leave out), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -531,6 +543,68 @@ def phase_k2(torch, K2, dev, dtype):
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
                 **{k: rows[0][k] for k in keys},
                 training_shape={k: rows[1][k] for k in ("shape",) + keys})
+
+
+# ADM's attention blocks at batch 8, 256^2: 8 heads over 32^2 tokens, 16
+# over 16^2 and over 8^2, heads 64 wide
+K2_ADM_SHAPES = [(8, 1024, 8, 64), (8, 256, 16, 64), (8, 64, 16, 64)]
+
+
+def phase_k2_adm(torch, K2, dev):
+    """K2 at d = 64 in bf16 (``flash_fwd_tc<64>``) at ADM's three shapes
+    on ``K2.check_inputs(..., legacy=True)``: q, k and v read in place from
+    the legacy per-head [q | k | v] projection, heads 3 d apart, as
+    ``models/adm.py``'s blocks pass them. Each against its plain version
+    computed in fp32 from the same bf16 inputs (K2's bf16 gate), beside
+    SDPA in bf16 on the same views; device times (:func:`graph_ms`, medians
+    of 3 interleaved repeats), event times and the bound of ``K2.work``."""
+    import torch.nn.functional as F
+
+    atol = K_ATOL[("k2", "bfloat16")]
+    rows = []
+    for b, n, h, d in K2_ADM_SHAPES:
+        scale = d**-0.5
+        q, k, v = K2.check_inputs(b, n, h, d, torch.bfloat16, dev,
+                                  legacy=True)
+        if q.stride(2) != 3 * d:
+            raise AssertionError(f"legacy inputs: head stride {q.stride()}")
+        out = K2.multihead_attention(q, k, v, scale=scale)
+        ref = K2.multihead_attention_plain(q.float(), k.float(), v.float(),
+                                           scale=scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        if not np.isfinite(err) or err > atol:
+            raise AssertionError(f"K2 bf16 at ({b}, {n}, {h}, {d}), heads "
+                                 f"3 d apart: max abs err {err} > {atol}")
+        qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))
+        lib_err = (F.scaled_dot_product_attention(qf, kf, vf, scale=scale)
+                   .transpose(1, 2).float() - ref).abs().max().item()
+
+        def kern():
+            return K2.multihead_attention(q, k, v, scale=scale)
+
+        def library():
+            return F.scaled_dot_product_attention(qf, kf, vf, scale=scale)
+
+        kern_ms, lib_ms, kern_ev = [], [], []
+        for _ in range(3):
+            kern_ms.append(graph_ms(torch, kern, 20))
+            lib_ms.append(graph_ms(torch, library, 20))
+            kern_ev.append(time_ms(kern, 50))
+        wk = K2.work(b, n, h, d, q.element_size())
+        b_ms, b_by = bound(wk, PEAK["bfloat16"])
+        ms, library_ms = float(np.median(kern_ms)), float(np.median(lib_ms))
+        rows.append(dict(shape=[b, n, h, d], head_stride=q.stride(2),
+                         max_abs_err=err, library_max_abs_err=lib_err,
+                         ms=ms, ms_repeats=kern_ms,
+                         event_ms=float(np.median(kern_ev)),
+                         library_ms=library_ms, vs_library=ms / library_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         tflops=wk["flops"] / ms / 1e9,
+                         share_of_bound=b_ms / ms))
+        del q, k, v, out, ref
+    emit("k2_adm_bf16", atol=atol, shapes=rows)
+    return dict(atol=atol, shapes=rows)
 
 
 K4_N = [65536, 16384, 4096, 1024]  # the U-Net's n at 256^2, batch 8
@@ -1067,24 +1141,32 @@ def write_synthetic_tree(root: Path, n_scenes: int, seed: int):
     return rgbd, indoor, root / "train_info.pkl"
 
 
-def write_checkpoints(torch, root: Path, seed: int):
+def write_checkpoints(torch, root: Path, seed: int, denoiser: str = "unet"):
     """Checkpoints of seeded weights (``utils/seeded_weights.py``: the
     MaskUNet's keep probability far above 0.99, so the generated frames
     keep their pixels and ``gt_path`` scores real clouds) in the reference
     layout: the diffusion state dict holds the U-Net under ``model.``, the
-    EMA wraps it again."""
+    EMA wraps it again. ``denoiser`` ``adm``: guided-diffusion's ADM at
+    its published flags (``config.ADMConfig()``), its EMA alone (2.2 GB
+    in fp32)."""
     from pointreggpt_tpu_torch import config as C
     from pointreggpt_tpu_torch.utils.seeded_weights import fill_seeded
 
-    unet = fill_seeded(C.build_diffusion_unet(C.ModelConfig()), seed)
+    if denoiser == "adm":
+        unet = fill_seeded(C.build_adm_unet(C.ADMConfig()), seed)
+    else:
+        unet = fill_seeded(C.build_diffusion_unet(C.ModelConfig()), seed)
     sd = {f"model.{k}": v for k, v in unet.state_dict().items()}
     ema = {f"ema_model.{k}": v for k, v in sd.items()}
-    ema.update({f"online_model.{k}": v for k, v in sd.items()})
+    if denoiser != "adm":
+        ema.update({f"online_model.{k}": v for k, v in sd.items()})
     ema["initted"] = torch.tensor(True)
     ema["step"] = torch.tensor(0)
     (root / "results").mkdir()
-    torch.save({"step": 0, "model": sd, "ema": ema},
+    torch.save({"step": 0, "ema": ema} if denoiser == "adm" else
+               {"step": 0, "model": sd, "ema": ema},
                root / "results" / "model-1.pt")
+    del unet, sd, ema
     mask = fill_seeded(C.build_mask_unet(C.MaskModelConfig()), seed + 1)
     (root / "depth_correction_results").mkdir()
     torch.save({"epoch": 0, "model": mask.state_dict()},
@@ -1092,14 +1174,17 @@ def write_checkpoints(torch, root: Path, seed: int):
 
 
 def reset_counts(K1, K2) -> None:
-    """Launch counters of K1, K3 and K2, K1's and K3's plain routes, and
-    the conv route's counts (``conv_counts``) to 0 just before an entry
-    point runs."""
+    """Launch counters of K1, K3 and K2, K1's and K3's plain routes, the
+    attention route's counts (``K2.ROUTES``: K2 by head size, layout
+    copies) and the conv route's (``conv_counts``) to 0 just before an
+    entry point runs."""
     from pointreggpt_tpu_torch.ops import conv as KC
 
     for op in (K1.fused_linear_attention, K1.fused_linear_attention_bwd):
         op.launches = op.plain_routes = 0
     K2.multihead_attention.launches = 0
+    for k in K2.ROUTES:
+        K2.ROUTES[k] = 0
     KC.conv3x3.launches = KC.conv3_dw.launches = 0
     for k in KC.ROUTES:
         KC.ROUTES[k] = 0
@@ -1417,10 +1502,23 @@ def phase_mask_train_path(torch, K1, K2, seed: int, tmp: Path,
     return res
 
 
+# per sample step of the production chain (250 DDIM steps, two MaskUNet
+# passes): (K1, K3, K2) launches, and K2's routes (``K2.ROUTES``) where a
+# denoiser's are required; ADM has 16 attention blocks a forward, each one
+# K2 call at d = 64 on its qkv conv's output read in place (no copy)
+MAIN_PATH_LAUNCHES = {"unet": (2016, 0, 252), "adm": (16, 0, 4002)}
+MAIN_PATH_ROUTES = {"adm": {"attn_k2_d32": 2, "attn_k2_d64": 4000,
+                            "attn_copies": 0}}
+
+
 def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
-                    root: Path):
+                    root: Path, denoiser: str = "unet"):
     """``generate_dataset.main`` under ``root`` (its dataset stays there
-    for ``gt_path``)."""
+    for ``gt_path``) with the ``denoiser`` it names: ``unet`` the
+    DiffusionUNet, ``adm`` guided-diffusion's ADM at its published flags
+    (``--denoiser adm``), each of seeded weights; the launches and routes
+    of :data:`MAIN_PATH_LAUNCHES` and :data:`MAIN_PATH_ROUTES` a sample
+    step."""
     from pointreggpt_tpu_torch.cli import generate_dataset
     from pointreggpt_tpu_torch.core import plyio
     from pointreggpt_tpu_torch.generate import generator as gen_mod
@@ -1441,7 +1539,7 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
 
     root.mkdir(parents=True)
     rgbd, indoor, info = write_synthetic_tree(root, batch, seed)
-    write_checkpoints(torch, root, seed)
+    write_checkpoints(torch, root, seed, denoiser)
     cwd = os.getcwd()
     os.chdir(root)
     gen_mod.Generator.step = timed_step
@@ -1450,7 +1548,7 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         generate_dataset.main([
-            "--resume", "1", "--data", str(rgbd),
+            "--denoiser", denoiser, "--resume", "1", "--data", str(rgbd),
             "--train_info_path", str(info), "--data_root", str(indoor),
             "--results_folder", str(root / "results"),
             "-start", "0", "-stop", str(batch),
@@ -1463,11 +1561,17 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
         gen_mod.Generator.step = orig_step
         os.chdir(cwd)
     k1_n, k3_n, k2_n, routes = counts(K1, K2)
-    want = (2016 * num_samples, 0, 252 * num_samples)
+    attn = dict(K2.ROUTES)
+    want = tuple(n * num_samples for n in MAIN_PATH_LAUNCHES[denoiser])
     if (k1_n, k3_n, k2_n) != want:
         raise AssertionError(
-            f"kernel launches on the main path: K1, K3, K2 = "
+            f"kernel launches on the {denoiser} main path: K1, K3, K2 = "
             f"{(k1_n, k3_n, k2_n)}, want {want}")
+    want_attn = {k: n * num_samples
+                 for k, n in MAIN_PATH_ROUTES.get(denoiser, {}).items()}
+    if any(attn[k] != n for k, n in want_attn.items()):
+        raise AssertionError(f"attention routes on the {denoiser} main "
+                             f"path: {attn}, want {want_attn}")
     check_no_routes("main_path", routes)
 
     out = root / "generated_dataset" / "data"
@@ -1502,8 +1606,11 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
                k1_launches=k1_n, k3_launches=k3_n, k2_launches=k2_n,
                plain_routes=routes, k1_per_step=k1_n / num_samples,
                k3_per_step=k3_n / num_samples,
-               k2_per_step=k2_n / num_samples)
-    emit("main_path", card=card_line(), **res)
+               k2_per_step=k2_n / num_samples, attention_routes=attn,
+               attention_routes_per_step={k: v / num_samples
+                                          for k, v in attn.items()})
+    emit("main_path" if denoiser == "unet" else f"main_path_{denoiser}",
+         card=card_line(), denoiser=denoiser, **res)
     return res
 
 
@@ -3730,6 +3837,7 @@ def main(argv=None) -> int:
     k1_f32 = timed("k1_fp32", phase_k1, torch, K1, dev, torch.float32)
     k2 = timed("k2_bf16", phase_k2, torch, K2, dev, torch.bfloat16)
     k2_f32 = timed("k2_fp32", phase_k2, torch, K2, dev, torch.float32)
+    k2_adm = timed("k2_adm", phase_k2_adm, torch, K2, dev)
     k3 = timed("k3_bf16", phase_k3, torch, K1, dev, torch.bfloat16, 32)
     k3_f32 = timed("k3_fp32", phase_k3, torch, K1, dev, torch.float32, 8)
     k4 = timed("k4_bf16", phase_k4, torch, K1, dev, torch.bfloat16)
@@ -3766,6 +3874,8 @@ def main(argv=None) -> int:
         timed("profile_path", phase_profile_path, torch, tmp, fwd_bwd)
         surface_res = timed("surface_path", phase_surface_path, torch, K1,
                             K2, args.seed, tmp)
+        adm_res = timed("main_path_adm", phase_main_path, torch, K1, K2,
+                        args.seed, 1, tmp / "adm", "adm")
     emit("phase_seconds", total=time.perf_counter() - t_start, **seconds)
     sample_steps = main_res["num_samples"]
 
@@ -3844,8 +3954,17 @@ def main(argv=None) -> int:
                   "the tensor cores (flash_fwd_tc), fp32 (under fp32) in "
                   "three TF32 passes on the tensor cores "
                   "(flash_fwd_tf32x3), bound_ms at 494.7 / 3 TFLOP/s, "
-                  "cuda_core_bound_ms at 67",
-             fp32=k2_f32, **k2),
+                  "cuda_core_bound_ms at 67; d64: flash_fwd_tc<64> at "
+                  "ADM's three shapes, bf16, heads 3 d apart "
+                  "(K2.check_inputs legacy), and adm_path's generate_dataset "
+                  "--denoiser adm run (one 250-step sample step, counted "
+                  "apart from launches)",
+             fp32=k2_f32, **k2,
+             d64=dict(**k2_adm, launches_adm_path=adm_res["k2_launches"],
+                      attention_routes=adm_res["attention_routes"],
+                      per_sample_step=adm_res["attention_routes_per_step"],
+                      per_forward=adm_res["attention_routes"]["attn_k2_d64"]
+                      / (250 * adm_res["num_samples"]))),
         dict(name="fused_linear_attention_bwd", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/linear_attention_bwd.cu",
              headers=[BWD_TC_HEADER, BWD_TF32_HEADER, TC_HEADER, TF32_HEADER,

@@ -8,6 +8,17 @@ come from ``{results_folder}/model-{resume}.pt`` ({step, model, ema}) and
     python -m pointreggpt_tpu_torch.cli.generate_dataset --resume 1 \
         --data /path/to/3DMatch-RGBD/train -start 0 -stop 8 --num_samples 2
 
+``--denoiser adm`` samples with guided-diffusion's ADM
+(``256x256_diffusion_uncond`` for one depth channel, 553 M parameters)
+instead of the DiffusionUNet: the same chunks, chain, MaskUNet and writes.
+Its net flags are ``--adm_*`` (``--adm_num_channels``,
+``--adm_channel_mult``, ``--adm_attention_resolutions``, ...), its
+diffusion defaults linear betas and pred_noise, and its checkpoint the
+same ``{step, model, ema}`` layout with guided-diffusion's keys::
+
+    python -m pointreggpt_tpu_torch.cli.generate_dataset --denoiser adm \
+        --resume 1 --data /path/to/3DMatch-RGBD/train -start 0 -stop 8
+
 Runs on ``cuda``; ``PRGPT_PLATFORM=cpu`` runs the plain path on the CPU.
 On several GPUs, one process each, every process takes its strided share
 of [-start, -stop) (``parallel.local_scene_range``) with ``--batch_size``
@@ -25,23 +36,47 @@ from pointreggpt_tpu_torch import config as C
 from pointreggpt_tpu_torch.parallel import mesh as M
 
 GEN_DIFFUSION = C.DiffusionConfig(ddim_sampling_eta=1.0)
+# guided-diffusion's 256x256_diffusion_uncond: 1000 linear steps, the noise
+# predicted
+DIFFUSION_DEFAULTS = {
+    "unet": GEN_DIFFUSION,
+    "adm": C.DiffusionConfig(ddim_sampling_eta=1.0, beta_schedule="linear",
+                             objective="pred_noise")}
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description=__doc__)
+def build_parser(denoiser: str = "unet") -> argparse.ArgumentParser:
+    """The flags, with the diffusion defaults of ``denoiser``."""
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument("--resume", default=None, type=str, required=True,
                         help="checkpoint milestone to load")
     parser.add_argument("--start_scene_index", "-start", default=0, type=int)
     parser.add_argument("--stop_scene_index", "-stop", default=1, type=int)
+    parser.add_argument(
+        "--denoiser", choices=sorted(DIFFUSION_DEFAULTS), default="unet",
+        help="unet: PointRegGPT's DiffusionUNet (--dim, ...); adm: "
+             "guided-diffusion's ADM (--adm_*), whose diffusion defaults "
+             "are --beta_schedule linear --objective pred_noise")
     C.add_dataclass_args(parser, C.ModelConfig)
-    C.add_dataclass_args(parser, C.DiffusionConfig, defaults=GEN_DIFFUSION)
+    C.add_dataclass_args(parser, C.ADMConfig, prefix="adm_")
+    C.add_dataclass_args(parser, C.DiffusionConfig,
+                         defaults=DIFFUSION_DEFAULTS[denoiser])
     C.add_dataclass_args(parser, C.GenerateConfig)
     C.add_dataclass_args(parser, C.MaskModelConfig, prefix="dc_")
     return parser
 
 
+def parse_args(argv=None) -> argparse.Namespace:
+    """``argv`` parsed with the defaults of the ``--denoiser`` it names."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--denoiser", choices=sorted(DIFFUSION_DEFAULTS),
+                     default="unet")
+    denoiser = pre.parse_known_args(argv)[0].denoiser
+    return build_parser(denoiser).parse_args(argv)
+
+
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    args = parse_args(argv)
     with M.process_group():
         _generate(args)
 
@@ -56,9 +91,13 @@ def build_generator(args):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    model = C.build_diffusion_unet(C.from_args(args, C.ModelConfig))
-    diffusion = C.build_diffusion(C.from_args(args, C.DiffusionConfig),
-                                  model)
+    dcfg = C.from_args(args, C.DiffusionConfig)
+    if getattr(args, "denoiser", "unet") == "adm":
+        model = C.build_adm_unet(C.from_args(args, C.ADMConfig, "adm_"),
+                                 dcfg.image_size)
+    else:
+        model = C.build_diffusion_unet(C.from_args(args, C.ModelConfig))
+    diffusion = C.build_diffusion(dcfg, model)
     depth_correction = C.build_mask_unet(
         C.from_args(args, C.MaskModelConfig, prefix="dc_"))
     cfg = C.from_args(args, C.GenerateConfig)

@@ -36,6 +36,28 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ADMConfig:
+    """guided-diffusion's flags of ``256x256_diffusion_uncond`` (Dhariwal &
+    Nichol 2021), the ADM that DDNM samples with, for depth: one channel in,
+    two out (the noise and the learned variance). Its diffusion flags are
+    ``DiffusionConfig``'s: ``diffusion_steps`` 1000 is ``timesteps``,
+    ``noise_schedule`` linear is ``beta_schedule``, and the net predicts
+    the noise (``objective`` pred_noise). ``attention_resolutions`` are
+    feature-map sizes (``image_size // res`` gives the downsampling rate).
+    ``use_fp16`` computes in half precision: bf16 on the card. The net is
+    built as the published flags ``learn_sigma``, ``resblock_updown`` and
+    ``use_scale_shift_norm`` (all on) build it."""
+
+    num_channels: int = 256
+    channel_mult: Tuple[int, ...] = (1, 1, 2, 2, 4, 4)
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (32, 16, 8)
+    num_head_channels: int = 64
+    in_channels: int = 1
+    use_fp16: bool = True
+
+
+@dataclass(frozen=True)
 class MaskModelConfig:
     """MaskUNet hyperparameters."""
 
@@ -184,6 +206,19 @@ def build_diffusion_unet(cfg: ModelConfig):
                          learned_sinusoidal_dim=cfg.learned_sinusoidal_dim)
 
 
+def build_adm_unet(cfg: ADMConfig, image_size: int = 256):
+    """The ADMUNet of ``cfg`` for ``image_size``^2 inputs."""
+    from pointreggpt_tpu_torch.models import ADMUNet
+
+    return ADMUNet(
+        in_channels=cfg.in_channels, model_channels=cfg.num_channels,
+        out_channels=2 * cfg.in_channels,
+        num_res_blocks=cfg.num_res_blocks,
+        attention_ds=tuple(image_size // r for r in cfg.attention_resolutions),
+        channel_mult=cfg.channel_mult,
+        num_head_channels=cfg.num_head_channels, dtype=_dtype(cfg.use_fp16))
+
+
 def build_mask_unet(cfg: MaskModelConfig):
     from pointreggpt_tpu_torch.models import MaskUNet
 
@@ -197,12 +232,14 @@ def build_diffusion(cfg: DiffusionConfig, model=None):
     takes (one channel with no model).
 
     Refuses what the JAX package's ``build_diffusion`` refuses, with its
-    messages: a ``learned_variance`` net (its 2x head would broadcast
-    against the 1-channel target) and the Fourier time embeddings.
+    messages: a ``learned_variance`` DiffusionUNet (its 2x head would
+    broadcast against the 1-channel target) and the Fourier time
+    embeddings. A learned-variance ADM is taken: the chains read the first
+    half of its output, and the training loss refuses it.
     """
     from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
 
-    if getattr(model, "learned_variance", False):
+    if getattr(model, "denoiser", None) == "unet" and model.learned_variance:
         raise ValueError(
             "GaussianDiffusion requires model.channels == out channels; "
             "learned_variance=True doubles the output head (reference "

@@ -186,6 +186,12 @@ class GaussianDiffusion:
             noise: injected noise (tests); else drawn from ``generator``
                 on x_start's device.
         """
+        if getattr(model, "learned_variance", False):
+            raise ValueError(
+                "p_losses: a learned-variance net (twice the channels out: "
+                "the prediction and the variance) trains with L_hybrid "
+                "(L_simple + lambda L_vlb, Nichol & Dhariwal 2021), which is "
+                "not ported; such a net only samples")
         if noise is None:
             noise = torch.randn(x_start.shape, generator=generator,
                                 device=x_start.device, dtype=x_start.dtype)
@@ -253,7 +259,9 @@ class GaussianDiffusion:
         scalar timestep ``t`` (all samples share it while sampling).
 
         Args:
-            x: (b, h, w, c) current noisy image in [-1, 1].
+            x: (b, h, w, c) current noisy image in [-1, 1]; a net that
+                returns 2 c channels (learned variance) has its first c
+                read.
             img_cond: (b, h, w, 2) condition; consumed only by the DDNM
                 projection, never fed to the network.
             keep_uniform: (b, h, w, 1) injected uniforms of the keep mask
@@ -264,6 +272,11 @@ class GaussianDiffusion:
         tt = torch.full((b,), float(t), device=x.device)
         out = model(x.permute(0, 3, 1, 2), tt, param_cond)
         out = out.permute(0, 2, 3, 1).float()
+        c = x.shape[-1]
+        if out.shape[:-1] == x.shape[:-1] and out.shape[-1] == 2 * c:
+            # a learned-variance head: the objective's prediction, then
+            # the variance, which DDIM does not read
+            out = out[..., :c]
         if out.shape != x.shape:
             raise ValueError(f"model output {tuple(out.shape)} != input "
                              f"{tuple(x.shape)}")

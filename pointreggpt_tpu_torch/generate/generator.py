@@ -43,7 +43,7 @@ from pointreggpt_tpu_torch.core import sampling as S
 from pointreggpt_tpu_torch.data.datasets import resolve_frame_record
 from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
 from pointreggpt_tpu_torch.models.bake import bake_inference
-from pointreggpt_tpu_torch.ops import conv
+from pointreggpt_tpu_torch.ops import conv, routes
 from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.utils import profiling
@@ -105,8 +105,8 @@ class Generator:
     """Batched scene generator.
 
     Args:
-        model: DiffusionUNet (fp32 params; baked for its compute dtype at
-            first use).
+        model: the denoiser, a DiffusionUNet or an ADMUNet (fp32 params;
+            baked for its compute dtype at first use).
         diffusion: the sampling process (250-step DDIM + DDNM in
             production).
         folder: 3DMatch-RGBD train root (scene dirs with intrinsics).
@@ -294,14 +294,15 @@ class Generator:
         ``chunk_upload`` (the memory and intrinsics to the device and the
         parameter vector), ``dispatch`` (queueing a sample step, ``step``
         and ``to_host``; the card runs it later; the allocator's counts on
-        the card and the conv route's) and ``host_write`` (``event_wait``
-        for the step's copies, then per scene ``encode``, the pose and
-        PNGs, and at the last sample ``fragment``, the voxel-downsampled
-        PLY), which overlaps the next step on the card.
-        ``PRGPT_PROFILE=<dir>`` also prints the totals of ``scene_setup``,
-        ``dispatch`` and ``host_write``, the GC pauses, the allocator and
-        conv route counts at the end, and writes a trace of the third
-        sample step, which the totals leave out.
+        the card, the conv and attention routes' counts, ``ops/routes.py``,
+        and the attribute ``denoiser``, ``unet`` or ``adm``) and
+        ``host_write`` (``event_wait`` for the step's copies, then per
+        scene ``encode``, the pose and PNGs, and at the last sample
+        ``fragment``, the voxel-downsampled PLY), which overlaps the next
+        step on the card. ``PRGPT_PROFILE=<dir>`` also prints the totals
+        of ``scene_setup``, ``dispatch`` and ``host_write``, the GC
+        pauses, the allocator and route counts at the end, and writes a
+        trace of the third sample step, which the totals leave out.
         """
         cap = self.memory_capacity
         self._load_depth_correction()
@@ -353,7 +354,8 @@ class Generator:
             pending = None  # (sample_idx, host outputs, event) of step k
             for sample_idx in range(num_samples):
                 with profiling.span("dispatch", req, alloc=self.device,
-                                    counters=conv.ROUTES, sample=sample_idx):
+                                    counters=routes.ROUTES, sample=sample_idx,
+                                    denoiser=self.model.denoiser):
                     with profiling.span("step"):
                         outs = self.step(mem_pts_d, mem_valid_d, intr_d,
                                          param_cond, gen,

@@ -11,6 +11,9 @@ of the 250 chain steps:
 - ``final_conv`` and the upsample conv (marked ``keep_fp32``), biases and
   norm scales stay fp32.
 
+A net without WSConv (``has_ws_conv`` False: the ADM) is only cast; for
+the PointRegGPT nets a bake that standardizes nothing raises.
+
 Each baked weight is the fp32 standardization rounded once, so it differs
 from the per-step path by at most one bf16 ulp. Baked modules are
 inference-only.
@@ -42,7 +45,7 @@ def bake_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     baked = copy.deepcopy(model).eval().requires_grad_(False)
     n_std = 0
     for mod in baked.modules():
-        if not isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if not isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             continue
         if getattr(mod, "keep_fp32", False):
             continue
@@ -52,7 +55,7 @@ def bake_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
         else:
             w = mod.weight.detach()
         mod.weight = nn.Parameter(w.to(dtype), requires_grad=False)
-    if n_std == 0:
+    if n_std == 0 and getattr(model, "has_ws_conv", True):
         raise ValueError("bake_inference standardized no WSConv kernel; "
                          "the model holds no Block")
     return baked

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from pointreggpt_tpu_torch.core.geometry import min_pool
-from pointreggpt_tpu_torch.ops.attention import multihead_attention
+from pointreggpt_tpu_torch.ops.attention import multihead_attention, rows
 from pointreggpt_tpu_torch.ops.conv import conv2d
 from pointreggpt_tpu_torch.ops.linear_attention import fused_linear_attention
 
@@ -245,8 +245,8 @@ class Attention(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         b, c, h, w = x.shape
         n = h * w
-        qkv = _to_rows(self.to_qkv(x)).reshape(b, n, 3, self.heads,
-                                               self.dim_head)
+        qkv = rows(self.to_qkv(x)).reshape(b, n, 3, self.heads,
+                                           self.dim_head)
         out = multihead_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
                                   scale=self.dim_head**-0.5)
         out = _from_rows(out.reshape(b, n, self.heads * self.dim_head), h, w)

@@ -106,6 +106,8 @@ class DiffusionUNet(nn.Module):
     (``config.build_diffusion`` refuses them, as the JAX package does).
     """
 
+    denoiser = "unet"
+
     def __init__(self, dim: int = 64, param_cond_dim: int = 4,
                  dim_mults: Sequence[int] = (1, 2, 4, 8), channels: int = 1,
                  resnet_block_groups: int = 8,

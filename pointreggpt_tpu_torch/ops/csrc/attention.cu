@@ -4,25 +4,32 @@
 // Replaces pointreggpt_tpu/ops/attention.py::_attention_pallas.
 //
 // q, k, v (b, n, h, d) in T (bf16 or fp32), possibly strided views of one
-// packed (b, n, 3, h, d) projection: element (bi, row, hi, dd) sits at
-// bi * sb + row * sn + hi * d + dd. The output is written contiguous
-// (b, n, h, d) in T.
+// packed projection: element (bi, row, hi, dd) sits at
+// bi * sb + row * sn + hi * sh + dd. The head stride sh is d for the
+// PointRegGPT nets' (b, n, 3, h, d) packing and 3 d for ADM's legacy
+// per-head [q_h | k_h | v_h] order, so neither copies q, k or v. The
+// output is written contiguous (b, n, h, d) in T.
 //
 // Bound on this card at the production shape (8, 1024, 4, 32) bf16:
 // 4 tensors x 2 MB = 8.4 MB moved, 2.5 us at 3.35 TB/s, against
 // 2 * 2 * b*h*n*n*d = 4.3 GFLOP, 4.3 us at 989 TFLOP/s: operation-bound.
+// ADM's d = 64 at (8, 1024, 8, 64): 33.6 MB, 10.0 us, against 17.2 GFLOP,
+// 17.4 us: operation-bound; at (8, 256, 16, 64) and (8, 64, 16, 64) the
+// bytes bound it (5.0 and 1.25 us).
 //
 // The TPU kernel holds the whole 1024x1024 fp32 score matrix (4 MB) of a
 // head in VMEM, which no Hopper block can. Both paths here are tiled
 // online-softmax (flash) kernels over 64-row k/v tiles; the scores never
 // leave registers.
 //
-// bf16 (flash_fwd_tc, FlashAttention-2 style, d = 32): one block of 4 warps
-// per (64 q rows, b*h), each warp owning 16 q rows: 16 x 32 = 512 blocks at
-// (8, 1024, 4, 32), 2,048 at microbatch 32. q, and k and v tile by tile
-// through a two-stage ring, are staged by cp.async into 64-byte rows,
-// swizzled (chunk j of row r at j ^ ((r >> 1) & 3)) so that the 8 rows of
-// an ldmatrix hit 8 different bank groups. S = q k^T runs as
+// bf16 (flash_fwd_tc, FlashAttention-2 style, a template on d = 32 or 64):
+// one block of 4 warps per (64 q rows, b*h), each warp owning 16 q rows:
+// 16 x 32 = 512 blocks at (8, 1024, 4, 32), 2,048 at microbatch 32, 1,024
+// at ADM's (8, 1024, 8, 64). q, and k and v tile by tile through a
+// two-stage ring, are staged by cp.async into rows of 2 d bytes, swizzled
+// (d = 32: chunk j of row r at j ^ ((r >> 1) & 3); d = 64: j ^ (r & 7))
+// so that the 8 rows of an ldmatrix hit 8 different bank groups; at
+// d = 64 the block's shared memory is 40 KB. S = q k^T runs as
 // mma.sync.m16n8k16 (bf16 in, fp32 sums; bf16 x bf16 products are exact in
 // fp32) from q fragments held in registers for the whole walk. The scale
 // is applied to S in fp32, times log2 e, so that the softmax uses exp2f:
@@ -70,20 +77,33 @@ using prgpt::pack_bf16x2;
 constexpr int TC_WARPS = 4;            // 16 q rows each
 constexpr int TC_ROWS = 16 * TC_WARPS;  // q rows per block
 constexpr int KT = 64;                 // k / v rows per tile
-constexpr int ROW_B = 64;              // bytes of one staged row (32 bf16)
-constexpr int TILE_B = KT * ROW_B;
 
-// Byte offset of 16-byte chunk j (0..3) of staged row r. Rows are 64
-// bytes, two to a 128-byte line of banks; chunk j of row r sits at
-// j ^ ((r >> 1) & 3), so 8 consecutive rows cover all 8 bank groups.
-__device__ __forceinline__ uint32_t swz64(int r, int j) {
-  return r * ROW_B + ((j ^ ((r >> 1) & 3)) << 4);
+// Byte offset of 16-byte chunk j of staged row r of D bf16 values. d = 32:
+// rows of 64 bytes, two to a 128-byte line of banks; chunk j (0..3) of row
+// r sits at j ^ ((r >> 1) & 3), so 8 consecutive rows cover all 8 bank
+// groups. d = 64: rows of 128 bytes; chunk j (0..7) of row r sits at
+// j ^ (r & 7), the same property.
+template <int D>
+__device__ __forceinline__ uint32_t swz_tc(int r, int j) {
+  if constexpr (D == 32) {
+    return r * 64 + ((j ^ ((r >> 1) & 3)) << 4);
+  } else {
+    return r * 128 + ((j ^ (r & 7)) << 4);
+  }
 }
 
+// D = 32 or 64 values a head; d / 16 k16 steps of S = q k^T, d / 8 n8
+// fragments of O.
+template <int D>
 __global__ void __launch_bounds__(32 * TC_WARPS)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ out, int n,
-             int h, long long sb, long long sn, float scale) {
+             int h, long long sb, long long sn, long long sh, float scale) {
+  constexpr int ROW_B = 2 * D;        // bytes of one staged row
+  constexpr int CHUNKS = D / 8;       // 16-byte chunks of a row
+  constexpr int TILE_B = KT * ROW_B;
+  constexpr int KS = D / 16;          // k16 steps over d
+  constexpr int NF = D / 8;           // n8 fragments of O over d
   // q rows, then two ring stages of [k tile | v tile]
   __shared__ __align__(128) unsigned char smem[TC_ROWS * ROW_B + 4 * TILE_B];
   const uint32_t qs = prgpt::smem_u32(smem);
@@ -94,15 +114,15 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bi = blockIdx.y / h;
   const int hi = blockIdx.y % h;
   const int q0 = blockIdx.x * TC_ROWS;
-  const size_t base = static_cast<size_t>(bi) * sb + static_cast<size_t>(hi) * 32;
+  const size_t base = static_cast<size_t>(bi) * sb + static_cast<size_t>(hi) * sh;
   const float sl2 = scale * 1.4426950408889634f;  // scale * log2 e
 
   // rows r0 .. r0 + 64 of src into dst, zeros past n
   auto stage = [&](uint32_t dst, const bf16* src, int r0, int nrows) {
-    for (int i = tid; i < nrows * 4; i += 32 * TC_WARPS) {
-      const int r = i >> 2, j = i & 3;
+    for (int i = tid; i < nrows * CHUNKS; i += 32 * TC_WARPS) {
+      const int r = i / CHUNKS, j = i % CHUNKS;
       const bool in = r0 + r < n;
-      cp16(dst + swz64(r, j),
+      cp16(dst + swz_tc<D>(r, j),
            in ? src + base + static_cast<size_t>(r0 + r) * sn + j * 8 : src,
            in);
     }
@@ -113,10 +133,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage(ring + TILE_B, v, 0, KT);
   cp_commit();
 
-  uint32_t qf[2][4];  // this warp's 16 q rows x 32 d: two k16 A fragments
-  float o[4][4];      // 16 rows x 32 d: four n8 fragments
+  uint32_t qf[KS][4];  // this warp's 16 q rows x D: KS k16 A fragments
+  float o[NF][4];      // 16 rows x D: NF n8 fragments
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < NF; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   // rows g = lane / 4 and g + 8: running max (scaled by log2 e) and this
@@ -137,8 +157,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_commit();
     if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-        ldm_x4(qf[kk], qs + swz64(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+      for (int kk = 0; kk < KS; ++kk)
+        ldm_x4(qf[kk], qs + swz_tc<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
     }
     const uint32_t ks = ring + (t & 1) * 2 * TILE_B;
     const uint32_t vs = ks + TILE_B;
@@ -149,10 +169,13 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int jb = 0; jb < 8; ++jb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[jb][e] = 0.f;
-      uint32_t b[4];  // keys 8 jb .. 8 jb + 7, d 0..31
-      ldm_x4(b, ks + swz64(jb * 8 + (lane & 7), lane >> 3));
-      mma16816(s[jb], qf[0], b[0], b[1]);
-      mma16816(s[jb], qf[1], b[2], b[3]);
+#pragma unroll
+      for (int hh = 0; hh < D / 32; ++hh) {
+        uint32_t b[4];  // keys 8 jb .. 8 jb + 7, d 32 hh .. 32 hh + 31
+        ldm_x4(b, ks + swz_tc<D>(jb * 8 + (lane & 7), 4 * hh + (lane >> 3)));
+        mma16816(s[jb], qf[2 * hh], b[0], b[1]);
+        mma16816(s[jb], qf[2 * hh + 1], b[2], b[3]);
+      }
     }
 
     // online softmax on the fragments: element e of fragment jb is row
@@ -177,7 +200,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[r] *= al[r];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NF; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= al[e >> 1];
 #pragma unroll
@@ -198,9 +221,9 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
       const int kr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
+      for (int jj = 0; jj < D / 16; ++jj) {
         uint32_t b[4];
-        ldm_x4_trans(b, vs + swz64(kr, 2 * jj + (lane >> 4)));
+        ldm_x4_trans(b, vs + swz_tc<D>(kr, 2 * jj + (lane >> 4)));
         mma16816(o[2 * jj], a, b[0], b[1]);
         mma16816(o[2 * jj + 1], a, b[2], b[3]);
       }
@@ -218,28 +241,29 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
     if (row >= n) continue;
-    bf16* orow = out + ((static_cast<size_t>(bi) * n + row) * h + hi) * 32 +
+    bf16* orow = out + ((static_cast<size_t>(bi) * n + row) * h + hi) * D +
                  2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NF; ++j)
       *reinterpret_cast<uint32_t*>(orow + j * 8) =
           pack_bf16x2(o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
   }
 }
 
+template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       int b, int n, int h, long long sb, long long sn,
-                      float scale, cudaStream_t stream) {
+                      long long sh, float scale, cudaStream_t stream) {
   // cp.async copies 16-byte chunks: every row must start 16-byte aligned
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
               16 != 0 ||
-      sb % 8 != 0 || sn % 8 != 0)
+      sb % 8 != 0 || sn % 8 != 0 || sh % 8 != 0)
     return cudaErrorInvalidValue;
   dim3 grid((n + TC_ROWS - 1) / TC_ROWS, b * h);
-  flash_fwd_tc<<<grid, 32 * TC_WARPS, 0, stream>>>(
+  flash_fwd_tc<D><<<grid, 32 * TC_WARPS, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), n, h, sb, sn,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), n, h, sb, sn, sh,
       scale);
   return cudaGetLastError();
 }
@@ -262,7 +286,8 @@ __device__ __forceinline__ uint32_t swz128(int r, int j) {
 __global__ void __launch_bounds__(32 * TC_WARPS)
 flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int n,
-                 int h, long long sb, long long sn, float scale) {
+                 int h, long long sb, long long sn, long long sh,
+                 float scale) {
   // q rows, then two ring stages of [k tile | v tile]
   __shared__ __align__(128) unsigned char smem[TC_ROWS * F_ROW + 4 * F_TILE];
   const uint32_t qs = prgpt::smem_u32(smem);
@@ -274,7 +299,7 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   const int bi = blockIdx.y / h;
   const int hi = blockIdx.y % h;
   const int q0 = blockIdx.x * TC_ROWS;
-  const size_t base = static_cast<size_t>(bi) * sb + static_cast<size_t>(hi) * 32;
+  const size_t base = static_cast<size_t>(bi) * sb + static_cast<size_t>(hi) * sh;
 
   // rows r0 .. r0 + nrows of src into dst, zeros past n
   auto stage = [&](uint32_t dst, const float* src, int r0, int nrows) {
@@ -436,18 +461,19 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
 
 cudaError_t launch_tf32x3(const void* q, const void* k, const void* v,
                           void* out, int b, int n, int h, long long sb,
-                          long long sn, float scale, cudaStream_t stream) {
+                          long long sn, long long sh, float scale,
+                          cudaStream_t stream) {
   // cp.async copies 16-byte chunks: every row must start 16-byte aligned
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
               16 != 0 ||
-      sb % 4 != 0 || sn % 4 != 0)
+      sb % 4 != 0 || sn % 4 != 0 || sh % 4 != 0)
     return cudaErrorInvalidValue;
   dim3 grid((n + TC_ROWS - 1) / TC_ROWS, b * h);
   flash_fwd_tf32x3<<<grid, 32 * TC_WARPS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), n, h, sb, sn,
-      scale);
+      sh, scale);
   return cudaGetLastError();
 }
 
@@ -455,13 +481,15 @@ cudaError_t launch_tf32x3(const void* q, const void* k, const void* v,
 
 extern "C" int prgpt_attention(const void* q, const void* k, const void* v,
                                void* out, int b, int n, int h, int d,
-                               long long sb, long long sn, float scale,
-                               int is_bf16, void* stream) {
+                               long long sb, long long sn, long long sh,
+                               float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 32) {
     return is_bf16
-               ? launch_tc(q, k, v, out, b, n, h, sb, sn, scale, s)
-               : launch_tf32x3(q, k, v, out, b, n, h, sb, sn, scale, s);
+               ? launch_tc<32>(q, k, v, out, b, n, h, sb, sn, sh, scale, s)
+               : launch_tf32x3(q, k, v, out, b, n, h, sb, sn, sh, scale, s);
   }
+  if (d == 64 && is_bf16)
+    return launch_tc<64>(q, k, v, out, b, n, h, sb, sn, sh, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

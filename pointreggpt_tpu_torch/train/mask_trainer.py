@@ -43,7 +43,7 @@ from pointreggpt_tpu_torch.core import imageio16
 from pointreggpt_tpu_torch.data.datasets import (PairedDepthDataset,
                                                  PrefetchLoader, TestDataset)
 from pointreggpt_tpu_torch.models.bake import bake_inference
-from pointreggpt_tpu_torch.ops import conv
+from pointreggpt_tpu_torch.ops import conv, routes
 from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.train.metrics import (METRIC_NAMES, AverageMeter,
@@ -170,7 +170,7 @@ class MaskTrainer:
         card and the conv route's): ``train_step``, with ``forward``,
         ``backward``, ``all_reduce``, ``clip`` and ``adam``."""
         with profiling.span("train_step", self.count, alloc=self.device,
-                            counters=conv.ROUTES):
+                            counters=routes.ROUTES):
             self.model.train()
             self.opt.zero_grad(set_to_none=True)
             with profiling.span("forward"):

@@ -37,7 +37,7 @@ from pointreggpt_tpu_torch.core import imageio16
 from pointreggpt_tpu_torch.core import sampling as S
 from pointreggpt_tpu_torch.data.datasets import DepthDataset, PrefetchLoader
 from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
-from pointreggpt_tpu_torch.ops import conv
+from pointreggpt_tpu_torch.ops import routes
 from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.train.ema import EMA
@@ -224,7 +224,7 @@ class Trainer:
         ``backward`` per microbatch, ``all_reduce``, ``clip``, ``adam``
         and ``ema``."""
         with profiling.span("train_step", self.step, alloc=self.device,
-                            counters=conv.ROUTES):
+                            counters=routes.ROUTES):
             self.model.train()
             self.opt.zero_grad(set_to_none=True)
             loss_sum = torch.zeros((), device=self.device)

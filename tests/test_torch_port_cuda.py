@@ -228,7 +228,7 @@ def test_attention_kernel_matches_plain(cuda, dtype, b, n, kind):
 
 # Faults planted in a copy of csrc/attention.cu; the kernel's check must
 # fail on each at the production shapes. bf16: the tensor-core kernel
-# flash_fwd_tc.
+# flash_fwd_tc, a template on d whose faults reach d = 32 and d = 64.
 K2_FAULTS = {
     "online_rescale_dropped": ("al[r] = exp2f(m[r] - mx[r]);",
                                "al[r] = 1.f;"),
@@ -238,7 +238,7 @@ K2_FAULTS = {
     "scale_applied_twice": (
         "const float sl2 = scale * 1.4426950408889634f;",
         "const float sl2 = scale * scale * 1.4426950408889634f;"),
-    "swizzle_mismatch": ("cp16(dst + swz64(r, j),",
+    "swizzle_mismatch": ("cp16(dst + swz_tc<D>(r, j),",
                          "cp16(dst + r * ROW_B + (j << 4),"),
 }
 
@@ -287,6 +287,42 @@ def test_attention_check_sees_planted_fault(cuda, k2_mutants, k2_refs,
             for b in (8, 32)}
     print(fault, dtype, errs)
     assert _check_fails(errs, K2_GATE[dtype]), errs
+    if dtype == torch.bfloat16:  # the same template body at d = 64
+        errs64 = {shape: _k2_err_d64(cuda, *shape) for shape in K2_D64}
+        print(fault, "d = 64", errs64)
+        assert _check_fails(errs64, K2_GATE[dtype]), errs64
+
+
+# ADM's attention calls at batch 8: (b, n, heads, 64) at 32^2, 16^2, 8^2
+K2_D64 = [(8, 1024, 8, 64), (8, 256, 16, 64), (8, 64, 16, 64)]
+
+
+def _k2_err_d64(device, b, n, h, d, legacy=True):
+    """max |K2 - plain fp32| at d = 64 in bf16 on K2.check_inputs, q, k, v
+    as ADM passes them (heads 3 d apart)."""
+    q, k, v = K2.check_inputs(b, n, h, d, torch.bfloat16, device,
+                              legacy=legacy)
+    ref = K2.multihead_attention_plain(q.float(), k.float(), v.float(),
+                                       scale=d**-0.5)
+    out = K2.multihead_attention(q, k, v, scale=d**-0.5)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    return (out.float() - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("legacy", [True, False])
+@pytest.mark.parametrize("shape", K2_D64 + [(3, 100, 16, 64),
+                                            (2, 65, 8, 64)])
+def test_attention_kernel_d64_matches_plain_fp32(cuda, shape, legacy):
+    """bf16 K2 at d = 64 against the plain version in fp32 on the same
+    bf16 inputs, within K2's bf16 bound 1e-2: the outputs lie inside
+    (-2, 2), where one bf16 step of the written output is at most 2^-7,
+    and P rounded to bf16 before P V adds about as much (check_inputs)."""
+    before = dict(K2.ROUTES)
+    err = _k2_err_d64(cuda, *shape, legacy=legacy)
+    assert K2.ROUTES["attn_k2_d64"] == before["attn_k2_d64"] + 1
+    assert K2.ROUTES["attn_k2_d32"] == before["attn_k2_d32"]
+    assert err <= K2_TOL[torch.bfloat16], err
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -299,6 +335,9 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 16, 4, 16), device=cuda)
     with pytest.raises(ValueError):
         K2.multihead_attention(q, q, q, scale=0.25)  # dim_head 16
+    q = torch.zeros((1, 16, 4, 64), device=cuda)
+    with pytest.raises(ValueError):  # d = 64 is bf16 only
+        K2.multihead_attention(q, q, q, scale=0.125)
     # the bf16 tensor-core kernels stage 16-byte chunks: K1 and K3 need
     # 16-byte aligned tensors (c % 8 != 0 is routed, not refused), K2
     # 16-byte aligned rows
