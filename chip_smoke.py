@@ -195,7 +195,19 @@ Phases, each printing one JSON line:
    tree, the output contract of ``main_path``; launch and route counts
    reset just before: 4,002 K2 launches (4,000 at d = 64, 16 a forward,
    and the MaskUNet's 2 at d = 32), no layout copy for K2
-   (``attn_copies`` 0), 16 K1 and no K3 a sample step.
+   (``attn_copies`` 0), 16 K1 and no K3 a sample step;
+25. ``group_norm_*``: the GroupNorm kernel (``ops/group_norm.py``,
+   ``csrc/group_norm.cu``: statistics, affine, scale-shift, SiLU and the
+   cast, channels-last) at every GroupNorm shape of a batch-8 forward of
+   the dim-64 DiffusionUNet (bf16), the MaskUNet (fp32) and ADM (bf16),
+   against its plain version in fp32, its device time summed over a
+   forward beside its bound (x read once, y written once), the chain the
+   nets ran before it as ``library_ms`` and one elementwise pass over the
+   same bytes as ``one_pass_ms``. ``main_path`` and ``main_path_adm``
+   also check that every GroupNorm of a sample step ran on it
+   (``norm_fused`` 9,576 and 25,326, no plain route, no copy) and that its
+   launch counter read two a call, and ``train_step`` that training's 76
+   ran on the plain version.
 
 A ``phase_seconds`` line gives each phase's wall seconds and the total
 from the build on. The last three lines are the kernel table (one JSON
@@ -605,6 +617,100 @@ def phase_k2_adm(torch, K2, dev):
         del q, k, v, out, ref
     emit("k2_adm_bf16", atol=atol, shapes=rows)
     return dict(atol=atol, shapes=rows)
+
+
+# GroupNorm kernel against its plain version in fp32: (|got - ref| - rel
+# |ref|) / max |ref|, rel half a bf16 step with room (the kernel rounds
+# once to bf16) or an fp32 step's few (sum order)
+GN_REL = {"bfloat16": 2.0**-8, "float32": 1e-6}
+GN_ATOL = 1e-5
+
+
+def phase_group_norm(torch, dev):
+    """The GroupNorm kernel (``ops/group_norm.py``, ``csrc/group_norm.cu``)
+    at every GroupNorm shape of three forwards at batch 8: the dim-64
+    DiffusionUNet's (bf16 in and out, the Block's scale-shift and SiLU),
+    the MaskUNet's (fp32, SiLU) and ADM's (bf16, scale-shift and SiLU).
+    Each shape against the plain version in fp32 (``GN_ATOL``), its device
+    time (:func:`graph_ms`, 10 calls, median of 3) beside its bound (x read
+    once, y written once at 3.35 TB/s) and ``library_ms``, the chain the
+    nets ran before the kernel (the plain version on the channels-last
+    input, whose ``F.group_norm`` works in NCHW, and the copy back to
+    channels-last that the next conv made), timed here only; and
+    ``one_pass_ms``, one PyTorch elementwise launch that reads x once and
+    writes y once (``torch.neg`` into y), the floor of any design in one
+    launch. Sums over a forward weight each shape by its calls; the
+    launches a call are the kernel's counter over the check's call."""
+    from pointreggpt_tpu_torch.ops import group_norm as GN
+
+    sets = [("dim64_bf16", GN.DIM64_SHAPES, torch.bfloat16, True),
+            ("dim64_fp32", GN.DIM64_SHAPES, torch.float32, False),
+            ("adm_bf16", GN.ADM_SHAPES, torch.bfloat16, True)]
+    out = {}
+    for name, shapes, dtype, ss in sets:
+        rows = []
+        for c, size, groups, calls in shapes:
+            x, gamma, beta, scale, shift = GN.check_inputs(
+                8, c, size, size, groups, dtype, dev, seed=c + size)
+            sc = (scale, shift) if ss else (None, None)
+
+            def kern():
+                return GN.group_norm_act(x, groups, gamma, beta, 1e-5, *sc,
+                                         out_dtype=dtype)
+
+            def library():
+                return GN.group_norm_act_plain(
+                    x, groups, gamma, beta, 1e-5, *sc,
+                    out_dtype=dtype).contiguous(
+                        memory_format=torch.channels_last)
+
+            y = torch.empty_like(x)
+
+            def one_pass():
+                return torch.neg(x, out=y)
+
+            with torch.no_grad():
+                launches = GN.group_norm_act.launches
+                got = kern()
+                launches = GN.group_norm_act.launches - launches
+                ref = GN.group_norm_act_plain(x, groups, gamma, beta, 1e-5,
+                                              *sc)
+                torch.cuda.synchronize()
+                d = (got.float() - ref).abs() - GN_REL[str(dtype).split(
+                    ".")[-1]] * ref.abs()
+                err = (d.max() / ref.abs().max()).item()
+                if not np.isfinite(err) or err > GN_ATOL:
+                    raise AssertionError(f"group_norm {name} at (8, {c}, "
+                                         f"{size}, {size}) / {groups}: "
+                                         f"{err} > {GN_ATOL}")
+                del got, ref, d
+                ms, lib_ms, one_ms = [], [], []
+                for _ in range(3):
+                    ms.append(graph_ms(torch, kern, 10))
+                    lib_ms.append(graph_ms(torch, library, 10))
+                    one_ms.append(graph_ms(torch, one_pass, 10))
+            wk = GN.work_group_norm(8, size * size, c, x.element_size(),
+                                    x.element_size())
+            b_ms = bound(wk, PEAK["bfloat16"])[0]
+            rows.append(dict(shape=[8, c, size, size], groups=groups,
+                             calls=calls, launches=launches, err=err,
+                             ms=float(np.median(ms)),
+                             library_ms=float(np.median(lib_ms)),
+                             one_pass_ms=float(np.median(one_ms)),
+                             bound_ms=b_ms,
+                             share_of_bound=b_ms / float(np.median(ms))))
+            del x, y, gamma, beta, scale, shift
+        tot = {k: sum(r[k] * r["calls"] for r in rows)
+               for k in ("launches", "ms", "library_ms", "one_pass_ms",
+                         "bound_ms")}
+        res = dict(launches_per_forward=tot["launches"],
+                   ms=tot["ms"], library_ms=tot["library_ms"],
+                   one_pass_ms=tot["one_pass_ms"], bound_ms=tot["bound_ms"],
+                   share_of_bound=tot["bound_ms"] / tot["ms"],
+                   vs_library=tot["ms"] / tot["library_ms"], shapes=rows)
+        emit(f"group_norm_{name}", atol=GN_ATOL, **res)
+        out[name] = res
+    return out
 
 
 K4_N = [65536, 16384, 4096, 1024]  # the U-Net's n at 256^2, batch 8
@@ -1174,11 +1280,16 @@ def write_checkpoints(torch, root: Path, seed: int, denoiser: str = "unet"):
 
 
 def reset_counts(K1, K2) -> None:
-    """Launch counters of K1, K3 and K2, K1's and K3's plain routes, the
-    attention route's counts (``K2.ROUTES``: K2 by head size, layout
-    copies) and the conv route's (``conv_counts``) to 0 just before an
-    entry point runs."""
+    """Launch counters of K1, K3, K2 and the GroupNorm kernel, K1's and
+    K3's plain routes, the attention route's counts (``K2.ROUTES``: K2 by
+    head size, layout copies), the conv route's (``conv_counts``) and the
+    GroupNorm route's to 0 just before an entry point runs."""
     from pointreggpt_tpu_torch.ops import conv as KC
+    from pointreggpt_tpu_torch.ops import group_norm as GN
+
+    for k in GN.ROUTES:
+        GN.ROUTES[k] = 0
+    GN.group_norm_act.launches = 0
 
     for op in (K1.fused_linear_attention, K1.fused_linear_attention_bwd):
         op.launches = op.plain_routes = 0
@@ -1507,8 +1618,13 @@ def phase_mask_train_path(torch, K1, K2, seed: int, tmp: Path,
 # denoiser's are required; ADM has 16 attention blocks a forward, each one
 # K2 call at d = 64 on its qkv conv's output read in place (no copy)
 MAIN_PATH_LAUNCHES = {"unet": (2016, 0, 252), "adm": (16, 0, 4002)}
-MAIN_PATH_ROUTES = {"adm": {"attn_k2_d32": 2, "attn_k2_d64": 4000,
-                            "attn_copies": 0}}
+# and every GroupNorm on the kernel with no layout copy: 38 a
+# DiffusionUNet or MaskUNet forward (250 + 2 a step), 101 an ADM forward
+MAIN_PATH_ROUTES = {
+    "unet": {"norm_fused": 38 * 252, "norm_plain": 0, "norm_copies": 0},
+    "adm": {"attn_k2_d32": 2, "attn_k2_d64": 4000, "attn_copies": 0,
+            "norm_fused": 101 * 250 + 38 * 2, "norm_plain": 0,
+            "norm_copies": 0}}
 
 
 def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
@@ -1561,7 +1677,15 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
         gen_mod.Generator.step = orig_step
         os.chdir(cwd)
     k1_n, k3_n, k2_n, routes = counts(K1, K2)
-    attn = dict(K2.ROUTES)
+    from pointreggpt_tpu_torch.ops import group_norm as GN
+    from pointreggpt_tpu_torch.ops.routes import ROUTES
+    attn = {k: ROUTES[k] for k in (*K2.ROUTES, "norm_fused", "norm_plain",
+                                   "norm_copies")}
+    norm_launches = GN.group_norm_act.launches
+    if norm_launches != 2 * attn["norm_fused"]:
+        raise AssertionError(f"GroupNorm kernel launches on the {denoiser} "
+                             f"main path: {norm_launches}, want two for "
+                             f"each of {attn['norm_fused']} calls")
     want = tuple(n * num_samples for n in MAIN_PATH_LAUNCHES[denoiser])
     if (k1_n, k3_n, k2_n) != want:
         raise AssertionError(
@@ -1570,8 +1694,9 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
     want_attn = {k: n * num_samples
                  for k, n in MAIN_PATH_ROUTES.get(denoiser, {}).items()}
     if any(attn[k] != n for k, n in want_attn.items()):
-        raise AssertionError(f"attention routes on the {denoiser} main "
-                             f"path: {attn}, want {want_attn}")
+        raise AssertionError(f"attention and norm routes on the "
+                             f"{denoiser} main path: {attn}, want "
+                             f"{want_attn}")
     check_no_routes("main_path", routes)
 
     out = root / "generated_dataset" / "data"
@@ -1604,7 +1729,7 @@ def phase_main_path(torch, K1, K2, seed: int, num_samples: int,
                step_device_s=steps, sec_per_sample_step=sec_per_step,
                pairs_per_min=batch * 60.0 / sec_per_step,
                k1_launches=k1_n, k3_launches=k3_n, k2_launches=k2_n,
-               plain_routes=routes, k1_per_step=k1_n / num_samples,
+               norm_launches=norm_launches, plain_routes=routes, k1_per_step=k1_n / num_samples,
                k3_per_step=k3_n / num_samples,
                k2_per_step=k2_n / num_samples, attention_routes=attn,
                attention_routes_per_step={k: v / num_samples
@@ -1823,6 +1948,10 @@ def phase_train_step(torch, K1, K2, folder: str, gt_log: str, tmp: Path):
     if tuple(launched) != (16, 16, 2):
         raise AssertionError(f"train_step launches K1, K3, K2 = {launched}, "
                              "want (16, 16, 2)")
+    from pointreggpt_tpu_torch.ops import group_norm as GN
+    if GN.ROUTES["norm_fused"] or GN.ROUTES["norm_plain"] != 38 * 2:
+        raise AssertionError(f"train_step GroupNorm routes {GN.ROUTES}, "
+                             f"want the 76 of two microbatches plain")
     check_no_routes("train_step", routes)
     sec = e0.elapsed_time(e1) / 1e3
     peak = torch.cuda.max_memory_allocated()
@@ -3843,6 +3972,7 @@ def main(argv=None) -> int:
     k4 = timed("k4_bf16", phase_k4, torch, K1, dev, torch.bfloat16)
     k4_f32 = timed("k4_fp32", phase_k4, torch, K1, dev, torch.float32)
     k5, k6 = timed("conv_tools", phase_conv_tools, torch, dev)
+    gn = timed("group_norm", phase_group_norm, torch, dev)
     timed("net_parity", phase_net_parity, torch, dev)
     timed("forward_profile", phase_forward_profile, torch, dev)
     timed("grad_parity", phase_grad_parity, torch, dev)
@@ -4024,6 +4154,26 @@ def main(argv=None) -> int:
                   "fp32 weight gradient, and K5's fp32 forward and dx "
                   "beside cuDNN's, summed over the shapes",
              **k5),
+        dict(name="group_norm_act", route="cuda",
+             source="pointreggpt_tpu_torch/ops/csrc/group_norm.cu",
+             replaces="none: PyTorch's NCHW GroupNorm and the cast, copy, "
+                      "scale-shift, SiLU and cast passes around it",
+             launches_per_sample_step=main_res["norm_launches"]
+             / sample_steps,
+             launches_per_adm_sample_step=adm_res["norm_launches"]
+             / adm_res["num_samples"],
+             work="every GroupNorm shape of one batch-8 forward, summed by "
+                  "calls: dim64_bf16 the DiffusionUNet's (scale-shift, "
+                  "SiLU), dim64_fp32 the MaskUNet's (SiLU), adm_bf16 "
+                  "ADM's (scale-shift, SiLU); ms is device time (a CUDA "
+                  "graph of 10 calls, median of 3), bound_ms x read once "
+                  "and y written once at 3.35 TB/s, library_ms the plain "
+                  "chain the nets ran before and the copy back to "
+                  "channels-last (F.group_norm, elementwise ops), timed "
+                  "here only, one_pass_ms one elementwise launch over "
+                  "the same bytes (the floor of a one-launch design); "
+                  "launches counted by the kernel's counter",
+             **gn),
         dict(name="conv3_igemm", route="cuda",
              source="pointreggpt_tpu_torch/ops/csrc/conv3_igemm.cu",
              headers=[CONV_HEADER],

@@ -44,7 +44,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pointreggpt_tpu_torch.models.blocks import Conv2d, Linear, _from_rows
+from pointreggpt_tpu_torch.models.blocks import (Conv2d, Linear, _from_rows,
+                                                norm_act)
 from pointreggpt_tpu_torch.ops.attention import multihead_attention, rows
 from pointreggpt_tpu_torch.ops.conv import conv2d
 
@@ -64,13 +65,11 @@ def timestep_embedding(t: Tensor, dim: int,
 
 
 class GroupNorm32(nn.GroupNorm):
-    """32-group GroupNorm computed and returned in fp32."""
+    """32-group GroupNorm, computed in fp32 by ``blocks.norm_act`` with the
+    work that follows it."""
 
     def __init__(self, channels: int):
         super().__init__(GROUPS, channels, eps=1e-5)
-
-    def forward(self, x: Tensor) -> Tensor:
-        return super().forward(x.float())
 
 
 class Conv1x1(nn.Conv1d):
@@ -135,13 +134,12 @@ class ResBlock(nn.Module):
 
     def forward(self, x: Tensor, emb: Tensor) -> Tensor:
         d = self.compute_dtype
-        h = F.silu(self.in_layers[0](x)).to(d)
+        h = norm_act(self.in_layers[0], x, out_dtype=d)
         h = self.in_layers[2](self._resample(h))
         x = self._resample(x)
-        scale, shift = self.emb_layers(emb).float()[:, :, None, None].chunk(
-            2, dim=1)
-        h = self.out_layers[0](h) * (1.0 + scale) + shift
-        h = self.out_layers[3](F.silu(h).to(d))
+        scale_shift = self.emb_layers(emb)[:, :, None, None].chunk(2, dim=1)
+        h = norm_act(self.out_layers[0], h, scale_shift, out_dtype=d)
+        h = self.out_layers[3](h)
         return self.skip_connection(x) + h
 
 
@@ -164,8 +162,9 @@ class AttentionBlock(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         b, c, hh, ww = x.shape
         n = hh * ww
-        qkv = rows(self.qkv(self.norm(x))).reshape(b, n, self.heads, 3,
-                                                   self.dim_head)
+        xn = norm_act(self.norm, x, silu=False,
+                      out_dtype=self.qkv.compute_dtype)
+        qkv = rows(self.qkv(xn)).reshape(b, n, self.heads, 3, self.dim_head)
         out = multihead_attention(qkv[:, :, :, 0], qkv[:, :, :, 1],
                                   qkv[:, :, :, 2],
                                   scale=self.dim_head ** -0.5)
@@ -254,5 +253,5 @@ class ADMUNet(nn.Module):
         for block in self.output_blocks:
             h = block(torch.cat([h, hs.pop()], dim=1), emb)
         conv = self.out[2]
-        return F.conv2d(F.silu(self.out[0](h)), conv.weight.float(),
+        return F.conv2d(norm_act(self.out[0], h), conv.weight.float(),
                         conv.bias.float(), padding=1)

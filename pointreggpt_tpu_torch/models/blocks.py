@@ -9,11 +9,12 @@ maps a ``state_dict()`` of these modules onto the JAX tree.
 Dtype handling mirrors the JAX package: params stay fp32; every conv and
 linear casts its input and weight to the module's compute ``dtype``
 (bfloat16 on the card); GroupNorm, the channel LayerNorm and the softmaxes
-compute in fp32. A weight that is not fp32 has been baked (``bake.py``):
-a WSConv then skips its standardization, as in the JAX package. Every
-Conv2d and WSConv goes through ``ops/conv.py::conv2d``, which runs the
-fp32 3x3 SAME convs of a CUDA tensor on hand-written kernels and leaves
-the rest to ``F.conv2d``.
+compute in fp32; GroupNorm and its epilogue go through
+``ops/group_norm.py::group_norm_act`` (:func:`norm_act`). A weight that is
+not fp32 has been baked (``bake.py``): a WSConv then skips its
+standardization, as in the JAX package. Every Conv2d and WSConv goes
+through ``ops/conv.py::conv2d``, which runs the fp32 3x3 SAME convs of a
+CUDA tensor on hand-written kernels and leaves the rest to ``F.conv2d``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from pointreggpt_tpu_torch.core.geometry import min_pool
 from pointreggpt_tpu_torch.ops.attention import multihead_attention, rows
 from pointreggpt_tpu_torch.ops.conv import conv2d
+from pointreggpt_tpu_torch.ops.group_norm import group_norm_act
 from pointreggpt_tpu_torch.ops.linear_attention import fused_linear_attention
 
 Tensor = torch.Tensor
@@ -136,9 +138,22 @@ class RandomOrLearnedSinusoidalPosEmb(nn.Module):
         return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
 
 
+def norm_act(norm: nn.GroupNorm, x: Tensor,
+             scale_shift: Optional[Tuple[Tensor, Tensor]] = None,
+             silu: bool = True,
+             out_dtype: torch.dtype = torch.float32) -> Tensor:
+    """``norm`` (fp32) of x -> optional (scale + 1, shift) -> optional SiLU
+    -> ``out_dtype``, through ``ops/group_norm.py::group_norm_act``: one
+    channels-last kernel where autograd records nothing on the card, the
+    plain PyTorch chain elsewhere."""
+    scale, shift = scale_shift if scale_shift is not None else (None, None)
+    return group_norm_act(x, norm.num_groups, norm.weight, norm.bias,
+                          norm.eps, scale, shift, silu, out_dtype)
+
+
 class Block(nn.Module):
     """WSConv3x3 -> GroupNorm (fp32) -> optional (scale + 1, shift) ->
-    SiLU -> compute dtype."""
+    SiLU -> compute dtype (:func:`norm_act`)."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8,
                  dtype: torch.dtype = torch.float32):
@@ -150,11 +165,8 @@ class Block(nn.Module):
     def forward(self, x: Tensor,
                 scale_shift: Optional[Tuple[Tensor, Tensor]] = None
                 ) -> Tensor:
-        x = self.norm(self.proj(x).float())
-        if scale_shift is not None:
-            scale, shift = scale_shift
-            x = x * (scale.float() + 1.0) + shift.float()
-        return F.silu(x).to(self.compute_dtype)
+        return norm_act(self.norm, self.proj(x), scale_shift,
+                        out_dtype=self.compute_dtype)
 
 
 class ResnetBlock(nn.Module):

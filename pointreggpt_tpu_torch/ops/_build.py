@@ -34,7 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("linear_attention", "linear_attention_bwd", "attention",
-           "linear_attention_core", "conv3x3", "conv3_igemm", "conv3_dw")
+           "linear_attention_core", "conv3x3", "conv3_igemm", "conv3_dw",
+           "group_norm")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

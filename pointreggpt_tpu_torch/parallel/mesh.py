@@ -50,7 +50,7 @@ from pointreggpt_tpu_torch import resolve_device
 DEFAULT_TIMEOUT_S = 1800.0
 # the kernel libraries the model paths load (ops/_build.py's sources)
 MODEL_SOURCES = ("linear_attention", "linear_attention_bwd", "attention",
-                 "conv3x3", "conv3_dw")
+                 "conv3x3", "conv3_dw", "group_norm")
 
 
 def in_process_group() -> bool:

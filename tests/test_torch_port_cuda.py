@@ -17,6 +17,7 @@ from pointreggpt_tpu_torch.models.blocks import Conv2d, PreNormResidual
 from pointreggpt_tpu_torch.ops import _build
 from pointreggpt_tpu_torch.ops import attention as K2
 from pointreggpt_tpu_torch.ops import conv as KC
+from pointreggpt_tpu_torch.ops import group_norm as GN
 from pointreggpt_tpu_torch.ops import linear_attention as K1
 
 pytestmark = pytest.mark.cuda
@@ -1597,3 +1598,241 @@ def test_surface_fourier_gradients_on_the_card(cuda, fp32_exact):
         assert res[name]["max_rel_err"] <= cs.GRAD_RTOL, res
     assert res["learned"]["frequencies_grad"], res
     assert res["frozen"]["frequencies_grad"] is None, res
+
+
+# GroupNorm with its epilogue (ops/group_norm.py, csrc/group_norm.cu)
+# against its plain version in fp32 arithmetic: the kernel rounds once to
+# the output type where the fp32 reference does not, so a bf16 output may
+# sit half a bf16 step (2^-9 relative) off, given 2^-8; beyond that the
+# statistics' and the folded a x + b's fp32 sum orders, a few 1e-7 of the
+# output's scale, given 1e-5 of its largest value.
+GN_REL = {torch.bfloat16: 2.0**-8, torch.float32: 1e-6}
+GN_ATOL = 1e-5
+# (scale-shift, SiLU) of the nets' calls: Block and ADM's out_layers,
+# the MaskUNet's Blocks and ADM's in_layers and head, ADM's attention
+GN_EPILOGUES = [(True, True), (False, True), (False, False)]
+GN_CASES = ([(4, c, s, g) for c, s, g, _ in GN.DIM64_SHAPES] +
+            [(8, c, s, g) for c, s, g, _ in GN.DIM64_SHAPES] +
+            [(8, c, s, g) for c, s, g, _ in GN.ADM_SHAPES])
+
+
+def _gn_err(inputs, groups, ss, silu, out_dtype):
+    """The check: max over elements of (|kernel - fp32 plain| - rel
+    |ref|) / max |ref|, which must stay under GN_ATOL; and the kernel's
+    output."""
+    x, gamma, beta, scale, shift = inputs
+    sc = (scale, shift) if ss else (None, None)
+    with torch.no_grad():
+        got = GN.group_norm_act(x, groups, gamma, beta, 1e-5, *sc,
+                                silu=silu, out_dtype=out_dtype)
+        ref = GN.group_norm_act_plain(x, groups, gamma, beta, 1e-5, *sc,
+                                      silu=silu)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    d = (got.float() - ref).abs() - GN_REL[out_dtype] * ref.abs()
+    return (d.max() / ref.abs().max()).item(), got
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,size,groups", GN_CASES)
+def test_group_norm_kernel_matches_plain_at_the_nets_shapes(
+        cuda, dtype, b, c, size, groups):
+    """Every GroupNorm shape of the dim-64 nets (batches 4 and 8) and ADM
+    (batch 8), each epilogue, in bf16 (output bf16 or fp32, as ADM's head)
+    and fp32 (output fp32); one call a check, and the statistics the same
+    bits every run."""
+    inputs = GN.check_inputs(b, c, size, size, groups, dtype, cuda, seed=c)
+    for ss, silu in GN_EPILOGUES:
+        for out_dtype in ((torch.bfloat16, torch.float32)
+                          if dtype == torch.bfloat16 else (torch.float32,)):
+            before = dict(GN.ROUTES)
+            err, got = _gn_err(inputs, groups, ss, silu, out_dtype)
+            assert GN.ROUTES["norm_fused"] == before["norm_fused"] + 1
+            assert GN.ROUTES["norm_copies"] == before["norm_copies"]
+            assert err <= GN_ATOL, (ss, silu, out_dtype, err)
+    again = _gn_err(inputs, groups, ss, silu, out_dtype)[1]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,h,w,groups", [(2, 16, 5, 7, 2), (3, 256, 9, 11, 32),
+                                            (1, 48, 17, 3, 3), (2, 64, 1, 1, 8),
+                                            (2, 2048, 2, 3, 32)])
+def test_group_norm_kernel_takes_any_shape_and_layout(cuda, dtype, b, c, h, w,
+                                                      groups):
+    """Ragged tiles, a block of 252 threads (48 channels in bf16), one
+    pixel, 2,048 channels (512 threads a pixel in fp32), and an NCHW input
+    or one off a 16-byte start, each of which costs one counted copy."""
+    inputs = GN.check_inputs(b, c, h, w, groups, dtype, cuda, seed=3)
+    err, _ = _gn_err(inputs, groups, True, True, dtype)
+    assert err <= GN_ATOL, err
+    x = inputs[0].contiguous()
+    before = GN.ROUTES["norm_copies"]
+    err, _ = _gn_err((x,) + inputs[1:], groups, True, True, dtype)
+    assert err <= GN_ATOL, err
+    assert GN.ROUTES["norm_copies"] == before + (
+        not x.is_contiguous(memory_format=torch.channels_last))
+    # x one element past an aligned start: one counted copy
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    xs = buf[1:].view(b, h, w, c)
+    xs.copy_(inputs[0].permute(0, 2, 3, 1))
+    before = GN.ROUTES["norm_copies"]
+    err, _ = _gn_err((xs.permute(0, 3, 1, 2),) + inputs[1:], groups, True,
+                     True, dtype)
+    assert err <= GN_ATOL, err
+    assert GN.ROUTES["norm_copies"] == before + 1
+
+
+def test_group_norm_route_leaves_autograd_to_the_plain_version(cuda):
+    x, gamma, beta, scale, shift = GN.check_inputs(2, 64, 8, 8, 8,
+                                                   torch.bfloat16, cuda)
+    w = gamma.clone().requires_grad_()
+    before = dict(GN.ROUTES)
+    y = GN.group_norm_act(x, 8, w, beta, 1e-5, scale, shift,
+                          out_dtype=torch.bfloat16)
+    assert y.requires_grad
+    with torch.no_grad():
+        GN.group_norm_act(x, 8, w, beta, 1e-5, scale, shift,
+                          out_dtype=torch.bfloat16)
+    GN.group_norm_act(x, 8, gamma, beta, 1e-5, scale, shift,
+                      out_dtype=torch.bfloat16)
+    with torch.no_grad():  # fp16 is not the kernel's
+        GN.group_norm_act(x.half(), 8, gamma, beta, 1e-5)
+    assert {k: v - before[k] for k, v in GN.ROUTES.items()} == {
+        "norm_fused": 2, "norm_plain": 2, "norm_copies": 0}
+    # nor groups narrower than a 16-byte vector, bf16 past 2,048
+    # channels, or fp32 written as bf16: each the plain version's
+    before = dict(GN.ROUTES)
+    with torch.no_grad():
+        for c, g in ((3075, 1025), (64, 16), (4096, 32)):
+            y = GN.group_norm_act(
+                torch.randn(1, c, 2, 2, device=cuda, dtype=torch.bfloat16),
+                g, None, None, 1e-5, out_dtype=torch.bfloat16)
+            assert y.shape == (1, c, 2, 2)
+        GN.group_norm_act(x.float(), 8, gamma, beta, 1e-5,
+                          out_dtype=torch.bfloat16)
+    assert {k: v - before[k] for k, v in GN.ROUTES.items()} == {
+        "norm_fused": 0, "norm_plain": 4, "norm_copies": 0}
+
+
+def test_group_norm_runs_on_two_streams_at_once_and_in_a_graph(cuda):
+    """The statistics' last block of an image knows itself from counters
+    that calls on one stream share: calls in flight on two streams at once,
+    of different splits, and calls replayed from two CUDA graphs between
+    eager ones each give the bits the same call gives alone, and the launch
+    count is two a call."""
+    shapes = [(8, 256, 64, 32), (8, 512, 32, 32)]
+    inputs = [GN.check_inputs(b, c, s, s, g, torch.bfloat16, cuda, seed=k)
+              for k, (b, c, s, g) in enumerate(shapes)]
+
+    def call(k):
+        x, gamma, beta, scale, shift = inputs[k]
+        return GN.group_norm_act(x, shapes[k][3], gamma, beta, 1e-5, scale,
+                                 shift, out_dtype=torch.bfloat16)
+
+    with torch.no_grad():
+        want = [call(k) for k in range(2)]
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        torch.cuda.synchronize()
+        launches = GN.group_norm_act.launches
+        outs = [[], []]
+        for _ in range(20):
+            for k, st in enumerate(streams):
+                with torch.cuda.stream(st):
+                    outs[k].append(call(k))
+        torch.cuda.synchronize()
+        assert GN.group_norm_act.launches - launches == 2 * 40
+        for k in range(2):
+            assert all(torch.equal(o, want[k]) for o in outs[k]), k
+        graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+        with torch.cuda.graph(graphs[0]):
+            y = [call(0), call(1), call(0)]
+        with torch.cuda.graph(graphs[1]):
+            z = call(1)
+        for _ in range(3):
+            graphs[0].replay()
+            graphs[1].replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y[0], want[0]) and torch.equal(y[2], want[0])
+            assert torch.equal(y[1], want[1]) and torch.equal(z, want[1])
+            assert torch.equal(call(1), want[1])
+
+
+@pytest.mark.parametrize("denoiser", ["unet", "adm"])
+def test_sampling_forward_runs_every_group_norm_on_the_kernel(cuda,
+                                                              denoiser):
+    """A baked bf16 net on the card, channels-last, under inference_mode:
+    every GroupNorm on the kernel with no copy, its output within the bf16
+    net's noise of the plain route's; a training forward takes none."""
+    from pointreggpt_tpu_torch.models import bake
+    from pointreggpt_tpu_torch.models.adm import ADMUNet
+
+    torch.manual_seed(0)
+    # groups 8 channels wide, as the nets' (narrower ones are the plain
+    # version's)
+    if denoiser == "unet":
+        net = DiffusionUNet(dim=64, dim_mults=(1, 2), resnet_block_groups=8,
+                            dtype=torch.bfloat16)
+        args = (torch.randn(2, 1, 32, 32), torch.tensor([3.0, 700.0]),
+                torch.rand(2, 4))
+    else:
+        net = ADMUNet(model_channels=256, channel_mult=(1, 2),
+                      attention_ds=(2,), dtype=torch.bfloat16)
+        args = (torch.randn(2, 1, 32, 32), torch.tensor([3.0, 700.0]))
+    n_norms = sum(isinstance(m, torch.nn.GroupNorm) for m in net.modules())
+    gpu = bake.bake_inference(net, torch.bfloat16).to(
+        cuda, memory_format=torch.channels_last)
+    args = [a.to(cuda) for a in args]
+    before = dict(GN.ROUTES)
+    with torch.inference_mode():
+        got = gpu(*args)
+    assert {k: v - before[k] for k, v in GN.ROUTES.items()} == {
+        "norm_fused": n_norms, "norm_plain": 0, "norm_copies": 0}
+    with torch.inference_mode():
+        orig = GN.fused_route
+        GN.fused_route = lambda *a, **k: False
+        try:
+            want = gpu(*args)
+        finally:
+            GN.fused_route = orig
+    gap = ((got - want).abs().max() / want.abs().max()).item()
+    assert gap <= 0.05, gap
+    before = dict(GN.ROUTES)
+    net.to(cuda, memory_format=torch.channels_last)(*args).sum().backward()
+    assert GN.ROUTES["norm_fused"] == before["norm_fused"]
+    assert GN.ROUTES["norm_plain"] - before["norm_plain"] == n_norms
+
+
+# Faults planted in copies of csrc/group_norm.cu: (text, replacement). The
+# check above must fail for each of them.
+GN_FAULTS = {
+    "wrong_group": ("const float2 st = stats[n * q.groups + c0 / q.cpg];",
+                    "const float2 st = stats[n * q.groups + (c0 / q.cpg + 1)"
+                    " % q.groups];"),
+    "no_plus_one": (": param<float>(scale, i)) + 1.f;",
+                    ": param<float>(scale, i));"),
+    "merge_term": ("s = s + sb + d * d * n * w;", "s = s + sb;"),
+    "last_split": ("        if (t < q.splits)\n          chan(",
+                   "        if (t < q.splits - 1)\n          chan("),
+}
+
+
+@pytest.fixture(scope="module")
+def gn_mutants(cuda, tmp_path_factory):
+    return build_mutants(tmp_path_factory.mktemp("gn_mutants"),
+                         "group_norm", GN_FAULTS, GN.bind)
+
+
+@pytest.mark.parametrize("fault", sorted(GN_FAULTS))
+def test_group_norm_check_sees_planted_fault(cuda, gn_mutants, monkeypatch,
+                                             fault):
+    monkeypatch.setattr(GN, "_lib", lambda: gn_mutants[fault])
+    errs = {}
+    for b, c, size, groups in [(4, 64, 128, 8), (8, 1024, 8, 32)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            inputs = GN.check_inputs(b, c, size, size, groups, dtype, cuda)
+            errs[(c, size, dtype)] = _gn_err(inputs, groups, True, True,
+                                             dtype)[0]
+    print(fault, errs)
+    assert _check_fails(errs, GN_ATOL), errs

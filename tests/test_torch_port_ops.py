@@ -224,7 +224,7 @@ def test_build_is_keyed_on_the_sources():
     paths = {n: _build.library_path(n) for n in _build.SOURCES}
     assert set(paths) == {"linear_attention", "linear_attention_bwd",
                           "attention", "linear_attention_core", "conv3x3",
-                          "conv3_igemm", "conv3_dw"}
+                          "conv3_igemm", "conv3_dw", "group_norm"}
     for n, p in paths.items():
         assert p.parent == _build.BUILD_DIR
         assert p.name.startswith(n + "-") and p.suffix == ".so"
@@ -380,7 +380,8 @@ def _includes(name, files):
     ("K3_TC_FAULTS", "linear_attention_bwd"),
     ("K4_FAULTS", "linear_attention_core"),
     ("K4_TC_FAULTS", "linear_attention_core"), ("K5_FAULTS", "conv3x3"),
-    ("K5_F32_FAULTS", "conv3x3"), ("K6_FAULTS", "conv3_igemm")])
+    ("K5_F32_FAULTS", "conv3x3"), ("K6_FAULTS", "conv3_igemm"),
+    ("GN_FAULTS", "group_norm")])
 def test_planted_fault_texts_each_sit_in_one_source(table, source):
     # the card's mutant builds patch the one file of the kernel's source and
     # the shared headers that holds each fault's text; that file must be
