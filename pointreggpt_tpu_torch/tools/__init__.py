@@ -1,7 +1,6 @@
 """Profiling tools of the port (``python -m pointreggpt_tpu_torch.tools.<name>``)
-and what they share: timing and the card's peak rate; and
-``synthetic_3dmatch``, the synthetic 3DMatch trees of the smoke run and
-the tests.
+and what they share: timing, the card's peak rate and the launch and route
+counters; and ``synthetic_3dmatch``, the synthetic 3DMatch trees of the tests.
 
 Nothing here runs at import: the CPU tests import every module freely.
 """
@@ -60,3 +59,24 @@ def errors(got: torch.Tensor, ref: torch.Tensor) -> dict:
     abs_err = (got.float() - ref).abs().max().item()
     return dict(rel_err=abs_err / max(ref.abs().max().item(), 1e-30),
                 max_abs_err=abs_err)
+
+
+def counters() -> dict:
+    """The port's launch counters now (K1 to K6, ``conv3_dw`` and the
+    GroupNorm kernel, ``gn``), K1's and K3's calls routed to the plain
+    version by shape, and the routes of ``ops/routes.py``; the change over
+    a run is its counts."""
+    from pointreggpt_tpu_torch.ops import attention as K2
+    from pointreggpt_tpu_torch.ops import conv as KC
+    from pointreggpt_tpu_torch.ops import group_norm as GN
+    from pointreggpt_tpu_torch.ops import linear_attention as K1
+    from pointreggpt_tpu_torch.ops.routes import ROUTES
+
+    return dict(k1=K1.fused_linear_attention.launches,
+                k1_plain=K1.fused_linear_attention.plain_routes,
+                k3=K1.fused_linear_attention_bwd.launches,
+                k3_plain=K1.fused_linear_attention_bwd.plain_routes,
+                k4=K1.linear_attention_core.launches,
+                k2=K2.multihead_attention.launches, k5=KC.conv3x3.launches,
+                dw=KC.conv3_dw.launches, k6=KC.conv3_igemm.launches,
+                gn=GN.group_norm_act.launches, **ROUTES)

@@ -21,7 +21,7 @@ no card and no such request it raises. The model is dim 8 at 32^2 unless
 ``--full_width`` (``ModelConfig()``: dim 64, 256^2, bf16).
 
 :func:`launch` is the launcher itself, for any picklable function: the
-tests and ``chip_smoke.py`` drive their data-parallel checks through it.
+tests drive their data-parallel checks through it.
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ checks to ``tests/data/``:
   ``jax_parity.fid_images()``, the JAX forwards of the two checkpoints'
   weights on ``jax_parity.small_inputs()``, and the port's CPU gap to
   each (``cpu_gap_*``: the port's importer CLI and InceptionFeatures on the
-  CPU), the first part of ``chip_smoke.py``'s gates.
+  CPU), the first part of the card tests' gates
+  (``tests/test_torch_port_cuda_paths.py``).
 
 Inputs are not stored; both sides remake them from the seed. About a
 minute on the CPU.

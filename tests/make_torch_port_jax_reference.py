@@ -10,7 +10,8 @@ its seed (the weights cross over through
 forward, an fp32 MaskUNet forward and one ``Generator.step`` body with the
 pose and x_T injected (see that module). Then it runs the port on the CPU
 and stores its gap to each output beside them (``cpu_gap_*``): the first
-part of the card's gate in ``chip_smoke.py``'s ``jax_parity`` phase.
+part of the card's gate in ``tests/test_torch_port_cuda_paths.py``'s
+``test_jax_parity_on_the_card``.
 Inputs are not stored; both sides remake them from the seed. Takes a few
 minutes on the CPU.
 """

@@ -13,7 +13,8 @@ runs it, x_T injected), a 10-step fp32 ``interpolate`` (its draws,
 replayed from its key, stored beside it) and an fp32 forward of a Fourier /
 learned-variance DiffusionUNet. Then it runs the port on the CPU and
 stores its gap to each output (``cpu_gap_*``), the first part of the
-card's gate in ``chip_smoke.py``'s ``surface_path``. Takes a few minutes.
+card's gate in ``tests/test_torch_port_cuda_paths.py``'s
+``test_surface_parity_on_the_card``. Takes a few minutes.
 """
 
 import os

@@ -1,8 +1,11 @@
 """Hand-written kernels of the PyTorch port against their plain versions,
-on the card (``-m cuda``), and gradients through them in a training step;
-they skip without a card.
+on the card (``-m cuda``), each kernel's check against faults planted in
+copies of its source, and the routes that hand the nets' calls to them;
+they skip without a card. The entry points on the card are
+``tests/test_torch_port_cuda_paths.py``'s.
 
-Run on a machine with an H100:  python -m pytest tests/test_torch_port_cuda.py
+Run on a machine with an H100:
+    python -m pytest tests/test_torch_port_cuda*.py -q --noconftest
 """
 
 import ctypes
@@ -42,8 +45,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _k1_err(device, dtype, eps, n, c):
-    args = K1.check_inputs(8, n, c, dtype, device)
+@pytest.fixture
+def fp32_exact(monkeypatch):
+    """fp32 products in fp32, as the entry points set them (cuBLAS and
+    cuDNN would otherwise run them in TF32)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+def _k1_err(device, dtype, eps, n, c, batch=8):
+    args = K1.check_inputs(batch, n, c, dtype, device)
     out = K1.fused_linear_attention(*args, eps=eps)
     ref = K1.fused_linear_attention_plain(*args, eps=eps)
     assert out.dtype == dtype and out.shape == ref.shape
@@ -218,8 +229,8 @@ def _k2_err(device, dtype, b, n, kind="check", cache=None):
 @pytest.mark.parametrize("dtype", sorted(K2_TOL, key=str))
 @pytest.mark.parametrize("b,n,kind", [(8, 1024, "normal"), (8, 100, "normal"),
                                       (8, 1024, "check"), (32, 1024, "check"),
-                                      (8, 100, "check"), (3, 1, "check"),
-                                      (2, 65, "check")])
+                                      (4, 1024, "check"), (8, 100, "check"),
+                                      (3, 1, "check"), (2, 65, "check")])
 def test_attention_kernel_matches_plain(cuda, dtype, b, n, kind):
     before = K2.multihead_attention.launches
     err = _k2_err(cuda, dtype, b, n, kind)
@@ -400,6 +411,19 @@ def test_linear_attention_bwd_kernel_matches_plain(cuda, dtype, n, c):
     errs = _k3_errs(cuda, dtype, n, c, batch if n * c >= 65536 else 3)
     assert K1.fused_linear_attention_bwd.launches == before + 1
     assert _worst(errs) <= atol, errs
+
+
+@pytest.mark.parametrize("n,c", sorted(set(K1_SHAPES)))
+def test_fp32_kernels_match_plain_at_the_mask_trainer_batch(cuda, n, c):
+    """K1 and K3 in fp32 at the MaskTrainer's batch of 4, whose kv splits
+    and their merge differ from batch 8's (``ops/linear_attention.py::
+    _splits``), at the MaskUNet's shapes (K2's is a case of
+    test_attention_kernel_matches_plain)."""
+    atol, eps = next((a, e) for dtype, a, e in K1_TOL
+                     if dtype == torch.float32)
+    assert _k1_err(cuda, torch.float32, eps, n, c, batch=4) <= atol
+    errs = _k3_errs(cuda, torch.float32, n, c, 4)
+    assert _worst(errs) <= K3_TOL[torch.float32][0], errs
 
 
 @pytest.mark.parametrize("dtype", sorted(K3_TOL, key=str))
@@ -1008,6 +1032,9 @@ def test_conv2d_route_matches_fp64(cuda, shape, channels_last, bias):
         assert _rel(got.grad, want.grad) <= 1e-5
 
 
+# a MaskUNet on the route against cuDNN, fp32: per parameter, relative to
+# its largest gradient
+MASK_GRAD_RTOL = 2e-3
 # (dim, mults, groups, size, batch): a small net, and the MaskTrainer's
 MASK_ROUTE_NETS = [(8, (1, 2), 4, 32, 2), (64, (1, 2, 4, 8), 8, 256, 4)]
 
@@ -1162,442 +1189,6 @@ def test_conv3_igemm_check_sees_planted_fault(cuda, conv_mutants, conv_refs,
     errs = {s: _k6_err(cuda, s, rows, conv_refs) for s, rows in K6_SHAPES}
     print(fault, errs)
     assert _check_fails(errs, CONV_TOL[torch.bfloat16]), errs
-
-
-# ---------------------------------------------------------------------------
-# the depth-correction path on the card
-
-# fp32 gradients, card (K1, K2, K3 and the 3x3 convs' K5 and conv3_dw in
-# three TF32 passes, cuDNN fp32 for the other convs) vs CPU (plain
-# versions): per parameter, relative to its largest gradient
-MASK_GRAD_RTOL = 2e-3
-
-
-def _write_pairs(root, size, n=2, seed=0):
-    """``n`` train pairs and one val pair of uint16 depth PNGs."""
-    import json
-
-    from PIL import Image
-
-    rng = np.random.default_rng(seed)
-    (root / "data").mkdir(parents=True)
-    (root / "metadata").mkdir()
-    for subset, count in (("train", n), ("val", 1)):
-        entries = []
-        for i in range(count):
-            base = rng.integers(500, 9000, (size, size))
-            label = base + rng.integers(0, 30, base.shape)
-            off = rng.uniform(size=base.shape) < 0.3
-            label[off] += rng.integers(60, 2000, int(off.sum()))
-            names = [f"{subset}-{i}-{k}.depth.png" for k in ("in", "lb")]
-            for name, a in zip(names, (base, label)):
-                Image.fromarray(a.astype(np.uint16)).save(root / "data" / name)
-            entries.append({"input_path": names[0], "label_path": names[1]})
-        (root / "metadata" / f"{subset}.json").write_text(
-            json.dumps(entries))
-    return str(root)
-
-
-# the small width has 2 channels a group: with 1 (dim 8, 8 groups) the
-# bias of the conv before each GroupNorm has a gradient of exactly 0, and
-# both sides hold rounding noise there
-@pytest.mark.parametrize("dim,mults,groups,size", [
-    (8, (1, 2), 4, 32), (64, (1, 2, 4, 8), 8, 64)])
-def test_mask_trainer_step_on_the_card_matches_the_cpu(cuda, tmp_path, dim,
-                                                       mults, groups, size,
-                                                       monkeypatch):
-    from pointreggpt_tpu_torch.data.datasets import collate
-    from pointreggpt_tpu_torch.models import MaskUNet
-    from pointreggpt_tpu_torch.train.mask_trainer import (MaskTrainer,
-                                                          _to_device)
-
-    # fp32 convs in fp32, as train_depth_correction sets them (cuDNN's
-    # default TF32 keeps 10 mantissa bits)
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    folder = _write_pairs(tmp_path / "dc", size)
-    torch.manual_seed(0)
-    kw = dict(dim=dim, dim_mults=mults, resnet_block_groups=groups)
-    net = MaskUNet(**kw)
-    trainers = [MaskTrainer(MaskUNet(**kw), folder,
-                            image_size=size, train_batch_size=2,
-                            train_lr=4e-5, num_workers=1, device=dev,
-                            results_folder=str(tmp_path / f"r{dev}"),
-                            samples_folder=str(tmp_path / f"s{dev}"))
-                for dev in ("cpu", "cuda")]
-    batch = collate([trainers[0].train_ds[i] for i in range(2)])
-    for tr in trainers:
-        tr.model.load_state_dict(net.state_dict())
-        before = K1.fused_linear_attention_bwd.launches
-        tr.train_step(*_to_device(batch, ("input_img", "mask"), tr.device))
-    torch.cuda.synchronize()
-    n_attn = 2 * len(mults)
-    assert K1.fused_linear_attention_bwd.launches == before + n_attn
-    lr = trainers[0].lr_at(0)
-    for (name, p), q in zip(trainers[0].model.named_parameters(),
-                            trainers[1].model.parameters()):
-        g, gq = p.grad, q.grad.cpu()
-        scale = g.abs().max().item()
-        assert (gq - g).abs().max().item() <= MASK_GRAD_RTOL * scale, name
-        # Adam's first step moves each parameter by lr times the sign of
-        # its gradient: where the gradient is larger than the card-vs-CPU
-        # bound, both sides take the same step, equal to fp32 rounding of
-        # the O(1) parameter; elsewhere the sign may differ (at most 2 lr)
-        diff = (q.detach().cpu() - p.detach()).abs()
-        sure = g.abs() > 2 * MASK_GRAD_RTOL * scale
-        assert diff[sure].max().item() <= 1e-6, name
-        assert diff.max().item() <= 2 * lr * 1.001, name
-
-
-def test_test_dataset_item_on_the_card_matches_the_cpu(cuda, tmp_path):
-    from pointreggpt_tpu_torch.data import datasets
-    from pointreggpt_tpu_torch.tools.synthetic_3dmatch import (
-        write_motion_tree)
-
-    rgbd, data_root, _, info = write_motion_tree(tmp_path, 1, seed=3)
-    got, want = (datasets.TestDataset(info, str(rgbd), 256,
-                                      data_root=str(data_root),
-                                      device=dev)[0]
-                 for dev in ("cuda", "cpu"))
-    for k in ("input_img", "label_img"):
-        # the same fp32 arithmetic; the card may fuse a multiply-add, which
-        # can move a point across a pixel edge: at most 0.1% of pixels
-        off = np.abs(got[k] - want[k]) > 1e-6
-        assert off.mean() <= 1e-3, (k, off.mean())
-    assert (got["input_img"] > 0).mean() > 0.5
-
-
-# ---------------------------------------------------------------------------
-# the port against JAX output, gt.log and the Tester on the card
-
-
-@pytest.fixture
-def fp32_exact(monkeypatch):
-    """fp32 products in fp32, as the entry points set them (cuBLAS and
-    cuDNN would otherwise run them in TF32)."""
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-
-
-@pytest.mark.parametrize("case", ["forward", "mask", "step"])
-def test_jax_parity_on_the_card(cuda, fp32_exact, tmp_path, case):
-    """``chip_smoke.py``'s ``jax_parity`` check on one case: the port on
-    the card (K1 and K2 bf16 in the DiffusionUNet, fp32 in the MaskUNet)
-    against ``tests/data/torch_port_jax_reference.npz``."""
-    import sys
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    import chip_smoke
-
-    res = chip_smoke.jax_parity_report(torch, K1, K2, tmp_path,
-                                       cases=(case,))
-    assert not res["failed"], res
-    assert res["launches"] == res["want_launches"], res
-    assert not any(res["plain_routes"].values()), res
-    if case == "forward":
-        assert res["fault_over_gate"] >= chip_smoke.FAULT_MARGIN, res
-
-
-def test_overlap_ratio_on_the_card_matches_the_cpu(cuda, fp32_exact):
-    from pointreggpt_tpu_torch.core import pointops as P
-
-    rng = np.random.default_rng(0)
-    s = rng.uniform(-1, 1, (3, 4000, 3)).astype(np.float32)
-    t = s + rng.normal(0, 0.05, s.shape).astype(np.float32)
-    t[:, :1500] += 0.8
-    sv = rng.uniform(size=s.shape[:2]) < 0.9
-    tv = rng.uniform(size=t.shape[:2]) < 0.9
-    sv[2] = False  # an empty cloud: NaN on both
-    args = [torch.from_numpy(a) for a in (s, sv, t, tv)]
-    got = [o.cpu().numpy() for o in P.overlap_ratio(
-        *(a.to(cuda) for a in args), voxel_size=0.05)]
-    want = [o.numpy() for o in P.overlap_ratio(*args, voxel_size=0.05)]
-    # a point within rounding of the radius may land on the other side:
-    # one point of its downsampled cloud (1 / n)
-    for g, w, (pts, ok) in zip(got, want, ((s, sv), (t, tv))):
-        n = np.array([int(P.voxel_downsample(torch.from_numpy(p),
-                                             torch.from_numpy(v), 0.05)[1]
-                          .sum()) for p, v in zip(pts, ok)])
-        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
-        fin = ~np.isnan(w)
-        assert (np.abs(g - w)[fin] <= 1.0 / np.maximum(n, 1)[fin]).all()
-    assert np.isnan(got[0][2]) and 0.3 < got[0][0] < 0.9
-
-
-def _small_tester(device, tmp, **kw):
-    from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
-    from pointreggpt_tpu_torch.generate.generator import place_for_inference
-    from pointreggpt_tpu_torch.generate.tester import Tester
-    from pointreggpt_tpu_torch.utils.seeded_weights import fill_seeded
-
-    net = fill_seeded(DiffusionUNet(dim=8, dim_mults=(1, 2)), 0)
-    diffusion = GaussianDiffusion(image_size=32, timesteps=8,
-                                  objective="pred_x0",
-                                  beta_schedule="sigmoid", **kw)
-    tester = Tester(net, diffusion, batch_size=2, device=device,
-                    samples_folder=str(tmp / str(device)))
-    tester.ema_model = place_for_inference(net, tester.device)
-    return tester
-
-
-# fp32 dim-8 net, card (K1 and K2 fp32, cuDNN fp32) vs CPU (plain
-# versions): the chain bound of the CPU tests against JAX
-CHAIN_ATOL, CHAIN_RTOL = 5e-4, 1e-3
-
-
-def test_tester_step_on_the_card_matches_the_cpu(cuda, fp32_exact,
-                                                 tmp_path):
-    rng = np.random.default_rng(1)
-    b, h = 2, 32
-    intr = np.zeros((b, 3, 3), np.float32)
-    intr[:, 0, 0] = intr[:, 1, 1] = 36.0
-    intr[:, 0, 2] = intr[:, 1, 2] = h / 2
-    intr[:, 2, 2] = 1.0
-    pc = intr[:, [0, 1, 0, 1], [0, 1, 2, 2]]
-    images = rng.uniform(0.15, 0.3, (b, h, h, 1)).astype(np.float32)
-    pose = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
-    pose[:, :3, 3] = [0.0, 0.0, 0.5]
-    x_init = rng.normal(size=(b, h, h, 1)).astype(np.float32)
-    outs = []
-    for dev in ("cuda", "cpu"):
-        tester = _small_tester(dev, tmp_path, sampling_timesteps=4,
-                               ddim_sampling_eta=0.0)
-        before = K1.fused_linear_attention.launches
-        out = tester.step(*(torch.from_numpy(a).to(dev)
-                            for a in (images, intr, pc, pose)), True,
-                          x_init=torch.from_numpy(x_init).to(dev))
-        outs.append([o.cpu().numpy() for o in out])
-        if dev == "cuda":
-            assert K1.fused_linear_attention.launches == before + 4 * 4
-    (d_gpu, c_gpu, i_gpu), (d_cpu, c_cpu, i_cpu) = outs
-    # the splat may move a point across a pixel edge (a fused
-    # multiply-add): at most 0.1% of pixels, as TestDataset's rule
-    off = np.abs(d_gpu - d_cpu) > 1e-5
-    assert off.mean() <= 1e-3, off.mean()
-    same = ~off.any(axis=0, keepdims=True).repeat(b, 0)
-    np.testing.assert_allclose(i_gpu[..., 0][same], i_cpu[..., 0][same],
-                               atol=CHAIN_ATOL, rtol=CHAIN_RTOL)
-    assert (c_cpu[..., 1] > 0).mean() > 0.3
-
-
-def test_p_sample_loop_on_the_card_matches_the_cpu(cuda, fp32_exact,
-                                                   tmp_path):
-    rng = np.random.default_rng(2)
-    b, h, t = 2, 32, 8
-    x_init = rng.normal(size=(b, h, h, 1)).astype(np.float32)
-    noise = rng.normal(size=(t, b, h, h, 1)).astype(np.float32)
-    pc = np.array([[40.0, 40.0, 16.0, 16.0], [35.0, 36.0, 16.0, 16.0]],
-                  np.float32)
-    mask = (rng.uniform(size=(b, h, h)) > 0.5).astype(np.float32)
-    depth = rng.uniform(0.1, 0.4, (b, h, h)).astype(np.float32)
-    cond = (np.stack([depth, mask], -1) * 2.0 - 1.0).astype(np.float32)
-    outs = []
-    for dev in ("cuda", "cpu"):
-        tester = _small_tester(dev, tmp_path, sampling_timesteps=t)
-        assert not tester.diffusion.is_ddim_sampling
-        before = K2.multihead_attention.launches
-        out = tester.diffusion.p_sample_loop(
-            tester.ema_model, torch.from_numpy(pc).to(dev),
-            torch.from_numpy(cond).to(dev), (b, h, h, 1),
-            has_refine_step=True, x_init=torch.from_numpy(x_init).to(dev),
-            noise=lambda s: torch.from_numpy(noise[s]))
-        outs.append(out.cpu().numpy())
-        if dev == "cuda":
-            # t chain steps and the refine step, one K2 each
-            assert K2.multihead_attention.launches == before + t + 1
-    np.testing.assert_allclose(outs[0], outs[1], atol=CHAIN_ATOL,
-                               rtol=CHAIN_RTOL)
-
-
-# ---------------------------------------------------------------------------
-# FID, the checkpoint importer and the registration loaders on the card
-
-
-def _chip_smoke():
-    import sys
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    import chip_smoke
-
-    return chip_smoke
-
-
-def test_inception_features_on_the_card_match_the_cpu_and_jax(cuda,
-                                                              fp32_exact):
-    """``chip_smoke.py``'s ``fid_path`` checks (b)-(d): InceptionFeatures
-    at 299^2 on the card against the port on the CPU and the committed JAX
-    features, the flipped pools as a planted fault, and the FID of two
-    seeded sets card vs CPU."""
-    cs = _chip_smoke()
-    res = cs.fid_features_report(torch)
-    assert res["card_gap"] <= res["gate"], res
-    assert res["fault_over_gate"] >= cs.FID_FAULT_MARGIN, res
-    assert res["fid_score_rel"] <= cs.FID_SCORE_RTOL, res
-
-
-def test_correspondences_on_the_card_match_the_cpu(cuda, fp32_exact):
-    from pointreggpt_tpu_torch.core import pointops as P
-    from pointreggpt_tpu_torch.dataloaders.mixture import (
-        uniform_sample_rotation)
-
-    cs = _chip_smoke()
-    rng = np.random.default_rng(0)
-    tgt = rng.uniform(0, 2, (20000, 3)).astype(np.float32)
-    tsfm = np.eye(4)
-    tsfm[:3, :3] = uniform_sample_rotation(rng)
-    tsfm[:3, 3] = rng.normal(size=3)
-    src = (tgt[:15000] + rng.normal(0, 0.01, (15000, 3)) - tsfm[:3, 3]) @ \
-        tsfm[:3, :3]
-    got = P.correspondences_np(src, tgt, tsfm, 0.0375, device="cuda")
-    want = P.correspondences_np(src, tgt, tsfm, 0.0375, device="cpu")
-    assert len(want) > 15000
-    # only pairs within 1e-5 of the radius may differ
-    cs.pair_differences(got, want, src, tgt, tsfm, 0.0375)
-    args = [torch.from_numpy(a) for a in (
-        src.astype(np.float32), np.ones(15000, bool), tgt,
-        rng.uniform(size=20000) > 0.2)]
-    d_gpu = P.min_dist_sq(*(a.to(cuda) for a in args)).cpu()
-    torch.testing.assert_close(d_gpu, P.min_dist_sq(*args), rtol=0,
-                               atol=2e-6)
-
-
-def test_imported_checkpoint_drives_a_generator_step_on_the_card(
-        cuda, fp32_exact, tmp_path):
-    """``chip_smoke.py``'s ``import_path`` (1): reference-layout ``.pt``
-    files at full width through the importer, then one ``Generator.step``
-    from them equal bit for bit to the step from the un-imported nets."""
-    cs = _chip_smoke()
-    res = cs.import_step_report(torch, K1, K2, tmp_path)
-    assert not res["differ"], res
-    assert [res["k1_launches"], res["k3_launches"], res["k2_launches"]] == \
-        res["want_launches"], res
-    assert not any(res["plain_routes"].values()), res
-
-
-# ---------------------------------------------------------------------------
-# more than one process (``chip_smoke.py``'s ``dist_path`` and
-# ``profile_path`` at dim 8, 32^2, fp32)
-
-def _small_trainer_run(root: str, results: str) -> dict:
-    """Two Trainer steps at a global microbatch of 4 with cuDNN's
-    deterministic algorithms; the replica digest and the device."""
-    from pathlib import Path
-
-    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
-
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-        True, False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    tr = DR.build_trainer(str(Path(root) / "rgbd"),
-                          str(Path(root) / "gt.log"), results,
-                          full_width=False, global_batch=4, steps=2)
-    tr.train(log_every=10**9)
-    return dict(digest=DR.digest(tr.ema), device=str(tr.device))
-
-
-def _group_of_one_rank(root: str) -> dict:
-    import torch.distributed as dist
-
-    return dict(backend=str(dist.get_backend()),
-                **_small_trainer_run(root, root + "/results-ws1"))
-
-
-def test_trainer_in_a_group_of_one_over_nccl_is_bit_identical(
-        cuda, tmp_path, monkeypatch):
-    """``dist_path`` (a): one process in a group of one over NCCL trains
-    bit for bit as with no group (the all-reduce of one and the division
-    by 1 are exact)."""
-    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
-
-    for flag in ("deterministic", "benchmark", "allow_tf32"):
-        monkeypatch.setattr(torch.backends.cudnn, flag,
-                            getattr(torch.backends.cudnn, flag))
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    DR.write_depth_tree(tmp_path, n_frames=8)
-    one = _small_trainer_run(str(tmp_path), str(tmp_path / "results-one"))
-    (ws1,) = DR.launch(_group_of_one_rank, 1, args=(str(tmp_path),),
-                       timeout_s=300, threads=None)
-    assert "nccl" in ws1["backend"]
-    assert ws1["device"] == "cuda:0"
-    assert ws1["digest"] == one["digest"]
-
-
-def test_two_processes_share_the_card_over_gloo(cuda):
-    """``dist_path`` (b)'s dry run: two processes on ``cuda:0`` over gloo,
-    replicas identical, scenes by stride, rank 0's checkpoint alone."""
-    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
-
-    out = DR.dryrun(2, local_ranks=[0, 0], backend="gloo", timeout_s=300)
-    assert out["devices"] == ["cuda:0", "cuda:0"]
-
-
-def test_profiled_trainer_traces_device_kernels(cuda, tmp_path,
-                                                monkeypatch):
-    """``profile_path``: ``PRGPT_PROFILE`` on the card writes a trace that
-    holds the step's kernels."""
-    import json
-
-    from pointreggpt_tpu_torch.tools import dryrun_multiprocess as DR
-
-    folder, gt_log = DR.write_depth_tree(tmp_path, n_frames=4)
-    monkeypatch.setenv("PRGPT_PROFILE", str(tmp_path / "prof"))
-    tr = DR.build_trainer(folder, gt_log, str(tmp_path / "r"),
-                          full_width=False, global_batch=2, steps=6)
-    tr.sample_on_save = False
-    tr.train(log_every=1)
-    (trace,) = (tmp_path / "prof").rglob("*.pt.trace.json")
-    events = json.loads(trace.read_text())["traceEvents"]
-    assert any(e.get("cat") == "kernel" for e in events)
-
-
-# ---------------------------------------------------------------------------
-# the rest of the JAX surface (``chip_smoke.py``'s ``surface_path``)
-
-
-@pytest.mark.parametrize("case", ["condition", "denoise", "interpolate",
-                                  "fourier"])
-def test_surface_parity_on_the_card(cuda, fp32_exact, case):
-    """``surface_path`` (c) on one case: the port on the card against
-    ``tests/data/torch_port_jax_surface.npz``; the swapped interpolation
-    at least ``FAULT_MARGIN`` times its gate."""
-    cs = _chip_smoke()
-    res = cs.surface_parity_report(torch, K1, K2, cases=(case,))
-    assert not res["failed"], res
-    assert res["launches"] == res["want_launches"], res
-    assert not any(res["plain_routes"].values()), res
-    if case == "interpolate":
-        assert res["fault_over_gate"] >= cs.FAULT_MARGIN, res
-
-
-def test_surface_ckpt_folder_drives_a_generator_step_on_the_card(
-        cuda, fp32_exact, tmp_path):
-    """``surface_path`` (d): ``Generator.load`` on a folder of the JAX
-    ``.ckpt`` files, its step bit for bit the importer's ``.pt``'s."""
-    res = _chip_smoke().surface_ckpt_report(torch, K1, K2, tmp_path)
-    assert not res["differ"], res
-    assert res["launches"] == res["want_launches"], res
-
-
-def test_surface_native_decode_on_the_cards_machine(cuda, tmp_path):
-    """``surface_path`` (f): the native library builds on the card's host
-    and decodes as PIL does, bit for bit."""
-    res = _chip_smoke().surface_native_report(tmp_path / "native")
-    assert res["available"] and not res["unequal"], res
-
-
-def test_surface_fourier_gradients_on_the_card(cuda, fp32_exact):
-    """``surface_path`` (g): a Fourier / learned-variance net's gradients
-    through K1, K3 and K2 against the CPU; frozen frequencies get none."""
-    cs = _chip_smoke()
-    res = cs.surface_fourier_grads(torch, K1, K2)
-    assert res["launches"] == res["want_launches"], res
-    for name in cs.SURFACE_GRAD_OPTIONS:
-        assert res[name]["max_rel_err"] <= cs.GRAD_RTOL, res
-    assert res["learned"]["frequencies_grad"], res
-    assert res["frozen"]["frequencies_grad"] is None, res
 
 
 # GroupNorm with its epilogue (ops/group_norm.py, csrc/group_norm.cu)

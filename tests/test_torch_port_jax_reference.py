@@ -2,8 +2,8 @@
 outputs, on the CPU: ``tests/data/torch_port_jax_reference.npz``, written
 by ``tests/make_torch_port_jax_reference.py`` from the weights and inputs
 that ``pointreggpt_tpu_torch/utils/jax_parity.py`` remakes from a seed.
-The same file is what ``chip_smoke.py``'s ``jax_parity`` phase and
-``tests/test_torch_port_cuda.py`` hold the card to."""
+The same file is what ``tests/test_torch_port_cuda_paths.py``'s
+``test_jax_parity_on_the_card`` holds the card to."""
 
 from pathlib import Path
 

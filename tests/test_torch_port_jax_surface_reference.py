@@ -3,8 +3,8 @@ JAX package's own outputs, on the CPU:
 ``tests/data/torch_port_jax_surface.npz``, written by
 ``tests/make_torch_port_jax_surface_reference.py`` from the weights and
 inputs that ``pointreggpt_tpu_torch/utils/jax_surface.py`` remakes from a
-seed. ``chip_smoke.py``'s ``surface_path`` and
-``tests/test_torch_port_cuda.py`` hold the card to the same file."""
+seed. ``tests/test_torch_port_cuda_paths.py`` holds the card to the same
+file."""
 
 from pathlib import Path
 

@@ -157,7 +157,7 @@ def _trainer_run(root: str, results: str) -> dict:
     clip = T.clip_by_global_norm_
 
     def spy(gs, max_norm):
-        grads.append(torch.cat([g.reshape(-1) for g in gs]).numpy().copy())
+        grads.append(torch.cat([g.reshape(-1) for g in gs]).cpu().numpy())
         return clip(gs, max_norm)
 
     T.clip_by_global_norm_ = spy
