@@ -44,6 +44,7 @@ from pointreggpt_tpu_torch.data.datasets import resolve_frame_record
 from pointreggpt_tpu_torch.diffusion import GaussianDiffusion
 from pointreggpt_tpu_torch.models.bake import bake_inference
 from pointreggpt_tpu_torch.ops import conv, routes
+from pointreggpt_tpu_torch.ops.graph import GraphedForward
 from pointreggpt_tpu_torch.parallel import mesh as M
 from pointreggpt_tpu_torch.train import checkpoint as ckpt
 from pointreggpt_tpu_torch.utils import profiling
@@ -175,11 +176,14 @@ class Generator:
 
     def device_models(self):
         """(diffusion net, mask net or None), baked and on the device;
-        built once and reused until a load invalidates it."""
+        built once and reused until a load invalidates it. The diffusion
+        net is a :class:`GraphedForward`: on the card its forward replays
+        one CUDA graph a call signature (``.net`` is the baked module);
+        the mask net, twice a sample step, runs eagerly."""
         if self._device_models is None:
             dc = self.depth_correction_model
             self._device_models = (
-                place_for_inference(self.model, self.device),
+                GraphedForward(place_for_inference(self.model, self.device)),
                 place_for_inference(dc, self.device)
                 if dc is not None else None)
         return self._device_models
@@ -294,7 +298,7 @@ class Generator:
         ``chunk_upload`` (the memory and intrinsics to the device and the
         parameter vector), ``dispatch`` (queueing a sample step, ``step``
         and ``to_host``; the card runs it later; the allocator's counts on
-        the card, the conv and attention routes' counts, ``ops/routes.py``,
+        the card, the routes' and graph calls' counts, ``ops/routes.py``,
         and the attribute ``denoiser``, ``unet`` or ``adm``) and
         ``host_write`` (``event_wait`` for the step's copies, then per
         scene ``encode``, the pose and PNGs, and at the last sample

@@ -21,6 +21,7 @@ from pointreggpt_tpu_torch import config as C
 from pointreggpt_tpu_torch.models import DiffusionUNet
 from pointreggpt_tpu_torch.models.blocks import LinearAttention
 from pointreggpt_tpu_torch.ops import attention as K2
+from pointreggpt_tpu_torch.ops import graph
 from pointreggpt_tpu_torch.ops import linear_attention as K1
 from pointreggpt_tpu_torch.tools import counters
 from test_torch_port_cuda import cuda, fp32_exact  # noqa: F401 (fixtures)
@@ -158,6 +159,10 @@ def test_sample_step_runs_every_call_on_its_kernel(cuda, fp32_exact,
     got = since(before, "gn", *want)
     assert got.pop("gn") == 2 * got["norm_fused"], got
     assert got == want
+    # the chain's 250 denoiser calls: a fresh wrapper's first runs
+    # eagerly, its second captures, and the graph replays the rest
+    assert since(before, *graph.ROUTES) == dict(
+        graph_eager=1, graph_captures=1, graph_replays=248)
     assert torch.isfinite(out.images).all()
 
 
@@ -183,6 +188,87 @@ def test_trainer_step_launches_and_leaves_group_norm_to_autograd(
                 norm_plain=76)
     assert since(before, *want) == want
     assert torch.isfinite(loss)
+
+
+# ---------------------------------------------------------------------------
+# the denoiser's CUDA graphs (ops/graph.py)
+
+def _graph_chain(fn, x, cond, n: int) -> list:
+    """``n`` denoiser calls along a chain: each x moves towards the last
+    output's first channel, at a time of its own; returns the outputs."""
+    b = x.shape[0]
+    outs = []
+    for k in range(n):
+        out = fn(x, torch.full((b,), 900.0 - 150 * k, device=x.device), cond)
+        outs.append(out)
+        x = (0.8 * x + 0.2 * out[:, :1].float()).permute(0, 2, 3, 1) \
+            .contiguous().permute(0, 3, 1, 2)
+    return outs
+
+
+@pytest.mark.parametrize("denoiser", sorted(SAMPLE_STEP))
+def test_graphed_denoiser_replays_the_eager_forward_bit_for_bit(
+        cuda, fp32_exact, tmp_path, monkeypatch, denoiser):
+    """The Generator's denoiser (``device_models()``'s wrapper; the
+    DiffusionUNet or the ADM at production widths, bf16) at batch 2 and
+    64^2, under inference mode: six chain calls run one eagerly, capture
+    one and replay four, with outputs equal bit for bit to the same calls
+    through ``.net``, the kernel and route counts of six eager calls, and
+    each returned output left as it was by the calls after it; a batch of
+    3 runs eagerly once and captures once more."""
+    from pointreggpt_tpu_torch.cli import generate_dataset
+    from pointreggpt_tpu_torch.core import geometry as G
+
+    monkeypatch.chdir(tmp_path)
+    torch.manual_seed(0)
+    gen, _ = generate_dataset.build_generator(generate_dataset.parse_args([
+        "--resume", "1", "--denoiser", denoiser, "--data", str(tmp_path),
+        "--image_size", "64", "--batch_size", "2",
+        "--memory_capacity", "4096"]))
+    wrapped = gen.device_models()[0]
+    assert isinstance(wrapped, graph.GraphedForward)
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def start(b):
+        intr = torch.tensor([[72.0, 0, 32.0], [0, 72.0, 32.0], [0, 0, 1]],
+                            device=cuda).expand(b, 3, 3)
+        x = torch.randn(b, 64, 64, 1, generator=g, device=cuda)
+        return x.permute(0, 3, 1, 2), G.param_vector(intr)
+
+    def kernels(before):
+        return {k: v for k, v in since(before, *counters()).items()
+                if k not in graph.ROUTES}
+
+    x, cond = start(2)
+    kept = []
+
+    def call(*args):
+        out = wrapped(*args)
+        kept.append((out, out.clone()))
+        return out
+
+    with torch.inference_mode():
+        before = counters()
+        got = _graph_chain(call, x, cond, 6)
+        torch.cuda.synchronize()
+        by_graph = kernels(before)
+        assert since(before, *graph.ROUTES) == dict(
+            graph_eager=1, graph_captures=1, graph_replays=4)
+        before = counters()
+        want = _graph_chain(wrapped.net, x, cond, 6)
+        torch.cuda.synchronize()
+        assert by_graph == kernels(before)
+        assert by_graph["k2"] > 0 and by_graph["gn"] > 0
+        for k, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and a.stride() == b.stride(), k
+            assert torch.equal(a, b), k
+        for out, copy in kept:
+            assert torch.equal(out, copy)
+        before = counters()
+        _graph_chain(wrapped, *start(3), 2)
+        torch.cuda.synchronize()
+        assert since(before, *graph.ROUTES) == dict(
+            graph_eager=1, graph_captures=1, graph_replays=0)
 
 
 # ---------------------------------------------------------------------------
